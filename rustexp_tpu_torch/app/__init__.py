@@ -1,0 +1,1 @@
+"""See rustexp_tpu_torch/__init__.py."""

@@ -1,0 +1,71 @@
+"""Timing helpers and frame-time statistics.
+
+Port of rustexp_tpu/core/timing.py (pure Python, copied so the port
+imports no jax through rustexp_tpu/core/__init__.py).
+
+Re-expresses the reference's timing stack: getTick/timeIt
+(hs-src/Timing.hs:21-34), the bounded ring of frame times with median
+(hs-src/BoundedSequence.hs:16-46, hs-src/Median.hs:7-15) and the
+median/min/max overlay statistics (hs-src/App.hs:135-150).
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass, field
+
+_T0 = time.perf_counter()
+
+
+def get_tick() -> float:
+    """Seconds since program start (reference Timing.hs:21-27)."""
+    return time.perf_counter() - _T0
+
+
+def time_it(fn, *args, **kwargs):
+    """Run fn, return (elapsed_seconds, result) — reference Timing.hs:29-34."""
+    t0 = time.perf_counter()
+    result = fn(*args, **kwargs)
+    return time.perf_counter() - t0, result
+
+
+def median(xs) -> float:
+    xs = sorted(xs)
+    n = len(xs)
+    if n == 0:
+        return 0.0
+    mid = n // 2
+    return xs[mid] if n % 2 == 1 else 0.5 * (xs[mid - 1] + xs[mid])
+
+
+@dataclass
+class FrameTimes:
+    """Bounded ring of frame durations with median/min/max stats.
+
+    Reference: BoundedSequence.hs:16-46 + App.hs:135-150 (60-deep ring,
+    first frames treated as outliers by the caller).
+    """
+
+    limit: int = 60
+    times: deque = field(default_factory=deque)
+
+    def push(self, dt: float) -> None:
+        self.times.appendleft(dt)
+        while len(self.times) > self.limit:
+            self.times.pop()
+
+    def stats(self):
+        if not self.times:
+            return 0.0, 0.0, 0.0, 0.0
+        med = median(self.times)
+        lo, hi = min(self.times), max(self.times)
+        fps = 1.0 / med if med > 0 else 0.0
+        return fps, med, lo, hi
+
+    def status_string(self) -> str:
+        fps, med, lo, hi = self.stats()
+        return (
+            f"{fps:.1f}FPS/{med * 1000:.2f}ms (Worst: {1.0 / hi if hi else 0:.1f}, "
+            f"Best: {1.0 / lo if lo else 0:.1f})"
+        )
