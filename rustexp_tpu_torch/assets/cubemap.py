@@ -10,9 +10,8 @@ every shader lookup is a single gather into one device-resident table; the
 whole 9-set library stacks to ``[9, 5, 6, 64, 64, 3]`` (~33 MB) and can stay
 in HBM.
 
-Port of rustexp_tpu/assets/cubemap.py: the same numpy code, importing the
-port's colors module (the JAX package's pulls jax in) and reusing the JAX
-package's jax-free HDR loader and asset paths. The sets stay numpy;
+Port of rustexp_tpu/assets/cubemap.py: the same numpy code, on the port's
+own colors, HDR loader and asset paths. The sets stay numpy;
 pipeline.make_scene moves them to the device.
 
 Faces are flipped/mirrored at load into "lookup orientation" exactly as the
@@ -27,10 +26,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from rustexp_tpu.assets import paths
-from rustexp_tpu.assets.hdr import load_hdr
-
 from ..core.colors import pack_abgr32_gamma_np
+from . import paths
+from .hdr import load_hdr
 
 CM_FACE_WDH = 64
 POWERS = (0, 1, 8, 64, 512)

@@ -1,9 +1,11 @@
 """Per-triangle rasterization setup, batched over the whole mesh.
 
 Port of rustexp_tpu/ops/raster_setup.py (TriSetup, TriSetupP with
-to_trisetup, setup_triangles_planar): 28.4 fixed-point vertex snap,
-backface cull via the 2-area cross product, bottom-left fill-convention
-biases folded into the edge constants, and the clipped pixel AABB
+to_trisetup, setup_triangles_planar for the queue path, and
+setup_triangles/setup_triangles_v for the bins path): 28.4 fixed-point
+vertex snap, backface cull via the 2-area cross product, bottom-left
+fill-convention biases folded into the edge constants, and the clipped
+pixel AABB
 (reference rasterizer.rs:1545-1634). int32 arithmetic wraps like
 XLA's; the float snap truncates and saturates like XLA's convert.
 """
@@ -134,3 +136,26 @@ def setup_triangles_planar(xs, ys, zs, w: int, h: int) -> TriSetupP:
         inv_a2=inv_a2, z0=z0, z10=zs[1] - z0, z20=zs[2] - z0,
         min_x=min_x, min_y=min_y, max_x=max_x, max_y=max_y, valid=valid,
     )
+
+
+def setup_triangles(vp, tris, w: int, h: int) -> TriSetup:
+    """vp f32 [V, 4] viewport-space vertices (x, y, z, 1/w), tris i32
+    [T, 3] -> stacked TriSetup: the bins path's setup
+    (rustexp_tpu/ops/raster_setup.py:206)."""
+    tris = tris.long()
+    return setup_triangles_v(vp[tris[:, 0]], vp[tris[:, 1]], vp[tris[:, 2]],
+                             w, h)
+
+
+def setup_triangles_v(v0, v1, v2, w: int, h: int) -> TriSetup:
+    """Corner-array form: v0/v1/v2 f32 [T, 4] -> TriSetup
+    (rustexp_tpu/ops/raster_setup.py:213; y_shift, the band-sharded
+    translation, is ROADMAP A16).
+
+    The same integers as setup_triangles_planar on the same corners, in
+    the stacked [T, 3] layout that bin_triangles/bin_pairs pack.
+    """
+    xs = torch.stack([v0[:, 0], v1[:, 0], v2[:, 0]])
+    ys = torch.stack([v0[:, 1], v1[:, 1], v2[:, 1]])
+    zs = torch.stack([v0[:, 2], v1[:, 2], v2[:, 2]])
+    return setup_triangles_planar(xs, ys, zs, w, h).to_trisetup()

@@ -1,21 +1,27 @@
-"""The frame pipeline: vertex transform -> queue raster -> deferred shade -> pack.
+"""The frame pipeline: vertex transform -> raster -> deferred shade -> pack.
 
-Port of rustexp_tpu/raster/pipeline.py for the flat-queue Fill frame
-(the benchmark's main path for meshes of >= 1,000 triangles):
+Port of rustexp_tpu/raster/pipeline.py for the Fill frame, with both of
+its raster backends:
 
-  1. transform_corners_planar: fixed-order per-op f32 matrix products on
-     corner-major [3, 4, T] planes (reference rasterizer.rs:1181-1231);
-  2. ops.raster_setup.setup_triangles_planar;
-  3. ops.raster_queue.build_queue (cached across frames by the callers);
-  4. ops.raster_queue.raster_attrs_queue: kernel B1 on the card;
-  5. _shade_compacted: per-pixel shading over occupied shade blocks only;
-  6. core.colors.pack_abgr32_gamma_arith.
+* the flat queue (``backend="queue"`` with a prebuilt queue; the
+  benchmark's path for meshes of >= 1,000 triangles):
+  transform_corners_planar (fixed-order per-op f32 matrix products on
+  corner-major [3, 4, T] planes, reference rasterizer.rs:1181-1231) ->
+  setup_triangles_planar -> build_queue (cached across frames by the
+  callers) -> raster_attrs_queue (kernel B1 on the card) ->
+  _shade_compacted over the queue's shade blocks;
+* the bins (``backend="pallas"``, and ``"auto"``/``"queue"`` on tileable
+  frames without a queue; smaller meshes): transform_vertices ->
+  setup_triangles -> bin_triangles/bin_pairs -> raster_attrs_bins
+  (kernel B2 on the card) -> a full-frame shade, or _shade_compacted over
+  the occupied blocks when ``raster_rows`` is given.
 
-The 4x4 camera matrices are computed on the host in float32 torch (one
-rounding per op, as the reference does) and copied to the frame's
-device, so a frame is bit-identical on the CPU and on the card. Point
-and line modes, the bins backend and the deferred-z variant raise
-NotImplementedError with their ROADMAP items.
+Both end in core.colors.pack_abgr32_gamma_arith. The 4x4 camera matrices
+are computed on the host in float32 torch (one rounding per op, as the
+reference does) and copied to the frame's device, so a frame is
+bit-identical on the CPU and on the card. Point and line modes, the XLA
+oracle and the deferred-z variant raise NotImplementedError with their
+ROADMAP items.
 """
 
 from __future__ import annotations
@@ -27,10 +33,11 @@ import numpy as np
 import torch
 
 from ..core.colors import pack_abgr32, pack_abgr32_gamma_arith
+from ..ops import raster_bins as rb
 from ..ops.raster_queue import (SHADE_W, build_queue, choose_shade_w,
                                 queue_stats, raster_attrs_queue,
                                 suggest_queue_config)
-from ..ops.raster_setup import setup_triangles_planar
+from ..ops.raster_setup import setup_triangles, setup_triangles_planar
 from . import shaders as sh
 
 MODE_POINT, MODE_LINE, MODE_FILL = 0, 1, 2
@@ -69,7 +76,7 @@ class Scene(NamedTuple):
 
 
 def make_scene(mesh, cm_set, device: torch.device) -> Scene:
-    """Scene from rustexp_tpu.assets.mesh.MeshData + a CubeMapSet
+    """Scene from an assets.mesh.MeshData + a CubeMapSet
     (rustexp_tpu/raster/pipeline.py:74), on `device`."""
     ndim = mesh.normalize_dimensions()
     it33 = np.linalg.inv(ndim).T[:3, :3].astype(np.float32)
@@ -325,7 +332,8 @@ def raster_and_shade_queue(scene: Scene, queue, colors, eye, tick, *,
     z, mask, lin, stale = raster_attrs_queue(queue, setup, extra, n2, n3, h, w)
     if per_pixel:
         fb = _shade_compacted(queue.rows, scene, z, mask, lin, eye, tick,
-                              shader_idx, bg_fb, w, h, block_w=queue.shade_w)
+                              shader_idx, bg_fb, w, h, block_w=queue.shade_w,
+                              ray_world=True)
         return fb, stale
 
     wr = 1.0 / lin[0]
@@ -334,16 +342,109 @@ def raster_and_shade_queue(scene: Scene, queue, colors, eye, tick, *,
     return torch.where(mask, packed, bg_fb), stale
 
 
+# ---------------------------------------------------------------------------
+# Bins Fill path
+# ---------------------------------------------------------------------------
+
+
+def bins_attr_channels(scene: Scene, vp, world, n_world, colors, *,
+                       per_pixel: bool):
+    """The bins kernel's attribute channels -> (extra f32 [T, 3(n2+n3)],
+    n2, n3) (rustexp_tpu/raster/pipeline.py:443-460).
+
+    n2 = 4 two-MAD channels (1/w and RGB/w, from `colors` per vertex:
+    shaded in V mode, baked in P mode); per-pixel adds n3 = 6
+    three-weight channels, world position and normal, interpolated rather
+    than unprojected.
+    """
+    tris = scene.tris.long()
+    i0, i1, i2 = tris[:, 0], tris[:, 1], tris[:, 2]
+    iw0, iw1, iw2 = vp[i0, 3], vp[i1, 3], vp[i2, 3]
+    ones = vp.new_ones((tris.shape[0], 1))
+
+    def cat2(ci):
+        return torch.cat([ones, colors[ci]], dim=1)
+
+    extra = rb.attr_channels_2mad(iw0, iw1, iw2, cat2(i0), cat2(i1), cat2(i2))
+    if not per_pixel:
+        return extra, 4, 0
+
+    def cat3(ci):
+        return torch.cat([world[ci], n_world[ci]], dim=1)
+
+    f3 = rb.attr_channels_3w(iw0, iw1, iw2, cat3(i0), cat3(i1), cat3(i2))
+    return torch.cat([extra, f3], dim=1), 4, 6
+
+
+def _nonzero_static(flags, size: int, fill: int):
+    """Indices of the set entries of a 1-D bool tensor, ascending, cut or
+    padded with `fill` to `size`: jnp.nonzero(size=, fill_value=) without
+    a host read (a cumsum ranks the set entries, a scatter places them)."""
+    n = flags.shape[0]
+    rank = torch.cumsum(flags, 0, dtype=torch.int32) - 1
+    dst = torch.where(flags & (rank < size), rank, size).long()
+    out = torch.full((size + 1,), fill, dtype=torch.int32,
+                     device=flags.device)
+    out.scatter_(0, dst, torch.arange(n, dtype=torch.int32,
+                                      device=flags.device))
+    return out[:size]  # slot `size` took every unset entry, in no order
+
+
+def raster_and_shade_pallas(scene: Scene, setup, vp, world, n_world, colors,
+                            eye, tick, *, w: int, h: int, per_pixel: bool,
+                            shader_idx: int, bg_fb, cap=None, spans=None,
+                            rows_cap=None):
+    """Bins Fill path (rustexp_tpu/raster/pipeline.py:422): the attribute
+    planes interpolate inside kernel B2, then the shade.
+
+    The name is the JAX package's, as ``render_frame(backend="pallas")``
+    is public API. With per_pixel and ``rows_cap``, the shade runs only on
+    the SHADE_W-wide blocks the coverage mask occupies (at most rows_cap
+    of them; more raises ``overflow``); otherwise over the whole frame.
+    Returns (fb int32 [h, w], overflow): overflow means the static bin
+    capacity, spans or rows_cap were exceeded, so re-bin.
+    """
+    extra, n2, n3 = bins_attr_channels(scene, vp, world, n_world, colors,
+                                       per_pixel=per_pixel)
+    z, mask, lin, overflow = rb.raster_attrs_bins(setup, extra, n2, n3, h, w,
+                                                  cap=cap, spans=spans)
+    eye_d = _host_eye(eye).to(z.device)
+
+    if per_pixel and rows_cap is not None:
+        n_blk = h * (w // SHADE_W)
+        occ = mask.reshape(n_blk, SHADE_W).any(dim=1)
+        rows = _nonzero_static(occ, rows_cap, n_blk)
+        overflow = overflow | (occ.sum() > rows_cap)
+        fb = _shade_compacted(rows, scene, z, mask, lin, eye, tick,
+                              shader_idx, bg_fb, w, h, ray_world=False)
+        return fb, overflow
+
+    wr = 1.0 / lin[0]
+
+    def ch_last(ps):
+        return torch.stack([q * wr for q in ps], dim=-1)
+
+    out = ch_last(lin[1:4])
+    if per_pixel:
+        out = sh.shader_fn(shader_idx)(ch_last(lin[4:7]), ch_last(lin[7:10]),
+                                       out, eye_d, tick, scene.cm)
+    packed = pack_abgr32_gamma_arith(out[..., 0], out[..., 1], out[..., 2])
+    return torch.where(mask, packed, bg_fb), overflow
+
+
 def _shade_compacted(rows, scene: Scene, z, mask, lin, eye, tick,
-                     shader_idx: int, bg_fb, w: int, h: int, block_w: int):
+                     shader_idx: int, bg_fb, w: int, h: int,
+                     block_w: int = SHADE_W, ray_world: bool = True):
     """Deferred per-pixel shading over OCCUPIED shade blocks only
-    (rustexp_tpu/raster/pipeline.py:690, whole frame, ray_world=True).
+    (rustexp_tpu/raster/pipeline.py:690, whole frame).
 
     `rows` (int32 [Rc], entries >= h*(w//block_w) are padding) lists the
     block_w-wide row spans that can hold coverage; the planes are gathered
     to [Rc, block_w], shaded there, and scattered back over the background.
-    World positions are unprojected from each pixel's (x, y, z) and its
-    interpolated 1/w.
+    With ray_world (the queue path) world positions are unprojected from
+    each pixel's (x, y, z) and its interpolated 1/w; without it (the bins
+    path) lin[4:7] and lin[7:10] are the interpolated world positions and
+    normals.
     """
     ntx = w // block_w
     n_blk = h * ntx
@@ -356,16 +457,21 @@ def _shade_compacted(rows, scene: Scene, z, mask, lin, eye, tick,
     maskc = comp(mask)
     wrc = 1.0 / comp(lin[0])
     cc = torch.stack([comp(p_) * wrc for p_ in lin[1:4]], dim=-1)
-    nc = torch.stack([comp(p_) * wrc for p_ in lin[4:7]], dim=-1)
-    zc = comp(z)
-    yc = torch.div(rows_g, ntx, rounding_mode="floor").to(
-        torch.float32)[:, None]
-    xc = ((rows_g % ntx) * block_w).to(torch.float32)[:, None] \
-        + torch.arange(block_w, dtype=torch.float32, device=z.device)[None, :]
-    M = inv_world_to_vp(eye, w, h).tolist()
-    pc = torch.stack(
-        [wrc * (M[i][0] * xc + M[i][1] * yc + M[i][2] * zc + M[i][3])
-         for i in range(3)], dim=-1)
+    if ray_world:
+        nc = torch.stack([comp(p_) * wrc for p_ in lin[4:7]], dim=-1)
+        zc = comp(z)
+        yc = torch.div(rows_g, ntx, rounding_mode="floor").to(
+            torch.float32)[:, None]
+        xc = ((rows_g % ntx) * block_w).to(torch.float32)[:, None] \
+            + torch.arange(block_w, dtype=torch.float32,
+                           device=z.device)[None, :]
+        M = inv_world_to_vp(eye, w, h).tolist()
+        pc = torch.stack(
+            [wrc * (M[i][0] * xc + M[i][1] * yc + M[i][2] * zc + M[i][3])
+             for i in range(3)], dim=-1)
+    else:
+        pc = torch.stack([comp(p_) * wrc for p_ in lin[4:7]], dim=-1)
+        nc = torch.stack([comp(p_) * wrc for p_ in lin[7:10]], dim=-1)
     eye_d = _host_eye(eye).to(z.device)
     out = sh.shader_fn(shader_idx)(pc, nc, cc, eye_d, tick, scene.cm)
     packed = pack_abgr32_gamma_arith(out[..., 0], out[..., 1], out[..., 2])
@@ -437,37 +543,118 @@ def build_scene_queue(scene: Scene, eye, w: int, h: int,
                        t_cap=t_cap, shade_w=shade_w)
 
 
+def _bins_setup(scene: Scene, eye, w: int, h: int):
+    vp, _, _ = transform_vertices(scene, eye, w, h)
+    return setup_triangles(vp, scene.tris, w, h)
+
+
+def _bin_stats(scene: Scene, eye, w: int, h: int):
+    """(largest bin, max span_x, max span_y, occupied SHADE_W blocks) as
+    0-d tensors (rustexp_tpu/raster/pipeline.py:872).
+
+    A block (y, bx) can hold coverage only if some valid triangle's
+    clipped AABB meets it: one [h, T] x [T, ntx] product of 0/1 matrices.
+    Its sums are exact in float32 (and in TF32, were it switched on), so
+    the > 0 test does not depend on the matmul precision.
+    """
+    setup = _bins_setup(scene, eye, w, h)
+    sx, sy = rb.max_spans(setup, h, w)
+    ntx = -(-w // SHADE_W)
+    i32 = dict(dtype=torch.int32, device=setup.valid.device)
+    ys = torch.arange(h, **i32)
+    occ_y = ((ys[:, None] >= setup.min_y[None, :])
+             & (ys[:, None] < setup.max_y[None, :]))           # [h, T]
+    tx0 = torch.arange(ntx, **i32) * SHADE_W
+    occ_x = ((tx0[None, :] < setup.max_x[:, None])
+             & (tx0[None, :] + SHADE_W > setup.min_x[:, None])
+             & setup.valid[:, None])                           # [T, ntx]
+    occ = torch.matmul(occ_y.to(torch.float32), occ_x.to(torch.float32)) > 0
+    return rb.max_bin_count(setup, h, w), sx, sy, occ.sum(dtype=torch.int32)
+
+
+def suggest_binning(scene: Scene, eye, w: int, h: int, margin: float = 1.3):
+    """(cap, (m_x, m_y), rows_cap) for the bins backend, one host read
+    (rustexp_tpu/raster/pipeline.py:895).
+
+    The span margin (+1 tile each way) absorbs camera motion; bin_pairs
+    still reports ``overflow`` if a frame exceeds it. rows_cap bounds
+    the occupied shade blocks (render_frame's raster_rows) with the same
+    margin, or is None when >= 75% of the frame's blocks can be occupied
+    (compaction then costs more than the shade it skips).
+    """
+    mc, sx, sy, rc = torch.stack(_bin_stats(scene, eye, w, h)).tolist()
+    need = max(512, int(mc * margin))
+    cap = (need + 511) // 512 * 512
+    ntx = -(-w // SHADE_W)
+    rows_cap = min(h * ntx, max(64, (int(rc * margin) + 63) // 64 * 64))
+    if rows_cap >= (h * ntx * 3) // 4:
+        rows_cap = None
+    return cap, (sx + 1, sy + 1), rows_cap
+
+
+def suggest_cap(scene: Scene, eye, w: int, h: int, margin: float = 1.3) -> int:
+    """A bin capacity for this scene and viewpoint: the largest bin with a
+    margin, rounded up to 512 (rustexp_tpu/raster/pipeline.py:976)."""
+    m = int(rb.max_bin_count(_bins_setup(scene, eye, w, h), h, w))
+    need = max(512, int(m * margin))
+    return (need + 511) // 512 * 512
+
+
 def render_frame(scene: Scene, eye, tick, *, w: int, h: int,
                  mode: int = MODE_FILL, per_pixel: bool = False,
                  shader_idx: int = 5, bg_idx: int = 0,
                  show_cm: bool | None = None, backend: str = "auto",
+                 raster_cap: int | None = None,
+                 raster_spans: tuple | None = None,
+                 raster_rows: int | None = None,
                  raster_queue=None, return_overflow: bool = False):
     """Render one frame -> uint32 ABGR [h, w], bottom-left origin
     (rustexp_tpu/raster/pipeline.py:997).
 
-    Ported: mode=MODE_FILL with backend="queue" and a prebuilt
-    `raster_queue` (build_scene_queue). With return_overflow=True returns
-    (fb, stale): stale means the cached queue no longer covers this
-    frame — rebuild it and render again.
+    The dispatch is the JAX package's: ``backend="queue"`` with a
+    prebuilt `raster_queue` (build_scene_queue) takes the flat queue;
+    ``"pallas"``, and ``"auto"``/``"queue"`` on a frame of whole 32x128
+    tiles, take the bins with ``raster_cap``/``raster_spans``/
+    ``raster_rows`` (suggest_binning; None bins by the dense coverage
+    matrix with capacity T). ``"xla"`` and other frames need the XLA
+    oracle (ROADMAP A4) and raise. With return_overflow=True returns
+    (fb, overflow): the cached queue went stale, or the static bins
+    overflowed; rebuild and render again.
     """
     if show_cm is None:
         show_cm = sh.shader_uses_cm(shader_idx)
     if mode != MODE_FILL:
         raise NotImplementedError(
             f"render mode {MODE_NAMES[mode]} is not ported yet (ROADMAP A10)")
-    if backend != "queue" or raster_queue is None:
+    tileable = h % rb.TILE_H == 0 and w % rb.TILE_W == 0
+    use_queue = backend == "queue" and raster_queue is not None
+    if not use_queue and not (backend == "pallas" or (
+            backend in ("auto", "queue") and tileable)):
         raise NotImplementedError(
-            f"render_frame(backend={backend!r}) without a prebuilt queue is "
-            "not ported yet: the bins path is ROADMAP A9/B2, the XLA "
-            "oracle A4")
+            f"render_frame(backend={backend!r}) on a {w}x{h} frame takes the "
+            "XLA oracle (raster_gbuffer_xla + shade_gbuffer), not ported yet "
+            "(ROADMAP A4)")
     sh.shader_fn(shader_idx)  # an unported shader raises before any work
     fb = background(bg_idx, w, h, scene.cp3.device)
-    colors = None if per_pixel else vertex_colors(scene, eye, tick, w, h,
-                                                  shader_idx)
-    fb, stale = raster_and_shade_queue(
-        scene, raster_queue, colors, eye, tick, w=w, h=h,
-        per_pixel=per_pixel, shader_idx=shader_idx, bg_fb=fb)
+    if use_queue:
+        colors = None if per_pixel else vertex_colors(scene, eye, tick, w, h,
+                                                      shader_idx)
+        fb, overflow = raster_and_shade_queue(
+            scene, raster_queue, colors, eye, tick, w=w, h=h,
+            per_pixel=per_pixel, shader_idx=shader_idx, bg_fb=fb)
+    else:
+        vp, world, n_world = transform_vertices(scene, eye, w, h)
+        colors = scene.colors
+        if not per_pixel:
+            eye_d = _host_eye(eye).to(world.device)
+            colors = sh.shader_fn(shader_idx)(world, n_world, scene.colors,
+                                              eye_d, tick, scene.cm)
+        fb, overflow = raster_and_shade_pallas(
+            scene, setup_triangles(vp, scene.tris, w, h), vp, world, n_world,
+            colors, eye, tick, w=w, h=h, per_pixel=per_pixel,
+            shader_idx=shader_idx, bg_fb=fb, cap=raster_cap,
+            spans=raster_spans, rows_cap=raster_rows)
     if show_cm:
         fb = overlay_cross(fb, scene.cross)
     fb = fb.view(torch.uint32)
-    return (fb, stale) if return_overflow else fb
+    return (fb, overflow) if return_overflow else fb

@@ -3,10 +3,11 @@
 Port of rustexp_tpu/sims/rasterizer.py (init/step/render/status,
 :78-210) with the same state defaults (per-vertex shading, Fill, mesh 0
 Killeroo, shader 5 CMRefl, envmap 0, bg 0; reference
-RustRasterizerExperiment.hs:68-75) and the same QUEUE_MIN_TRIS routing.
-Meshes under 1,000 triangles take the bins path, not ported yet
-(ROADMAP A9/B2). There is no Prewarmer: eager PyTorch has no compile to
-hide, and the kernel builds once per checkout.
+RustRasterizerExperiment.hs:68-75) and the same QUEUE_MIN_TRIS routing:
+meshes of >= 1,000 triangles render through a cached flat queue (kernel
+B1), smaller ones through the bins at a cached suggest_binning config
+(kernel B2). There is no Prewarmer: eager PyTorch has no compile to
+hide, and the kernels build once per checkout.
 """
 
 from __future__ import annotations
@@ -34,7 +35,9 @@ class RasterState:
     bg_idx: int = 0
     backend: str = "auto"
     frame_times: FrameTimes = field(default_factory=FrameTimes)
-    _scene_cache: tuple | None = None  # (key, Scene, (kind, queue))
+    # (key, Scene, work): work is ("queue", Queue) or
+    # ("pallas", (cap, spans, rows_cap))
+    _scene_cache: tuple | None = None
 
 
 class RasterizerExperiment:
@@ -46,24 +49,29 @@ class RasterizerExperiment:
     def init(self, **config) -> RasterState:
         return RasterState(**config)
 
-    def _build(self, scene, eye, w: int, h: int):
-        return "queue", pp.build_scene_queue(scene, eye, w, h)
+    @staticmethod
+    def _build(scene, eye, w: int, h: int, kind: str):
+        if kind == "queue":
+            return "queue", pp.build_scene_queue(scene, eye, w, h)
+        return "pallas", pp.suggest_binning(scene, eye, w, h)
 
     def _scene(self, state: RasterState, w: int, h: int, eye):
-        """Scene + cached raster work structure (rebuilt when stale)."""
+        """Scene + cached raster work structure (rebuilt when stale).
+
+        Big meshes use the flat work queue; small ones the [nT, cap] bins
+        (rustexp_tpu/sims/rasterizer.py:136, app/benchmark.py
+        QUEUE_MIN_TRIS).
+        """
         key = (state.mesh_idx, state.env_idx, w, h)
         if state._scene_cache is None or state._scene_cache[0] != key:
             from ..app.benchmark import QUEUE_MIN_TRIS
 
             m = mesh.get_mesh(state.mesh_idx)
-            if m.num_tris < QUEUE_MIN_TRIS:
-                raise NotImplementedError(
-                    f"mesh {mesh.mesh_name(state.mesh_idx)} has "
-                    f"{m.num_tris} triangles (< {QUEUE_MIN_TRIS}): bins "
-                    "path, ROADMAP A9/B2")
             scene = pp.make_scene(m, cubemap.get_cm_set(state.env_idx),
                                   self.device)
-            state._scene_cache = (key, scene, self._build(scene, eye, w, h))
+            kind = "queue" if m.num_tris >= QUEUE_MIN_TRIS else "pallas"
+            state._scene_cache = (key, scene,
+                                  self._build(scene, eye, w, h, kind))
         return state._scene_cache[1], state._scene_cache[2]
 
     def step(self, state: RasterState) -> RasterState:
@@ -71,14 +79,18 @@ class RasterizerExperiment:
 
     @staticmethod
     def _frame_kwargs(state: RasterState, work, w: int, h: int):
-        kind, queue = work
+        kind, data = work
         backend = state.backend
         if backend == "auto":
             backend = kind if (w % 128 == 0 and h % 8 == 0) else "xla"
-        return dict(w=w, h=h, mode=state.mode, per_pixel=state.per_pixel,
-                    shader_idx=state.shader_idx, bg_idx=state.bg_idx,
-                    return_overflow=True, backend=backend,
-                    raster_queue=queue if backend == "queue" else None)
+        kw = dict(w=w, h=h, mode=state.mode, per_pixel=state.per_pixel,
+                  shader_idx=state.shader_idx, bg_idx=state.bg_idx,
+                  return_overflow=True, backend=backend)
+        if backend == "queue" and kind == "queue":
+            kw["raster_queue"] = data
+        elif backend == "pallas" and kind == "pallas":
+            kw["raster_cap"], kw["raster_spans"], kw["raster_rows"] = data
+        return kw
 
     def render(self, state: RasterState, w: int, h: int, tick: float = 0.0):
         """One frame -> uint32 ABGR [h, w] on the experiment's device."""
@@ -88,10 +100,10 @@ class RasterizerExperiment:
         fb, stale = pp.render_frame(scene, eye, tick,
                                     **self._frame_kwargs(state, work, w, h))
         if bool(stale):
-            # The camera left the cached queue's coverage (or it
-            # overflowed at build): rebuild at this viewpoint, re-render.
+            # The camera left the cached queue's coverage, or the static
+            # bins overflowed: rebuild at this viewpoint, re-render.
             log.info("raster structure stale at tick %.2f; rebuilding", tick)
-            work = self._build(scene, eye, w, h)
+            work = self._build(scene, eye, w, h, work[0])
             state._scene_cache = (state._scene_cache[0], scene, work)
             fb, stale = pp.render_frame(
                 scene, eye, tick, **self._frame_kwargs(state, work, w, h))

@@ -1,6 +1,6 @@
 """PyTorch port (rustexp_tpu_torch) vs the JAX package: packing, LUTs,
-cubemaps, backgrounds and shader 5, plus the port's import hygiene and the
-paths it does not port yet.
+cubemaps, meshes, camera paths, backgrounds and shader 5, plus the port's
+import hygiene and the paths it does not port yet.
 
 Inputs are made with numpy from a seed and fed to both packages; every
 comparison here is exact (the port rounds each op once, as the JAX
@@ -17,12 +17,17 @@ import pytest
 import torch
 
 from rustexp_tpu.assets import cubemap as jcubemap
+from rustexp_tpu.assets import hdr as jhdr
+from rustexp_tpu.assets import mesh as jmesh
 from rustexp_tpu.core import colors as jcolors
+from rustexp_tpu.raster import camera as jcamera
 from rustexp_tpu.raster import pipeline as jpp
 from rustexp_tpu.raster import shaders as jsh
 from rustexp_tpu_torch.assets import cubemap as tcubemap
+from rustexp_tpu_torch.assets import hdr as thdr
 from rustexp_tpu_torch.assets import mesh as tmesh
 from rustexp_tpu_torch.core import colors as tcolors
+from rustexp_tpu_torch.raster import camera as tcamera
 from rustexp_tpu_torch.raster import pipeline as tpp
 from rustexp_tpu_torch.raster import shaders as tsh
 
@@ -122,15 +127,19 @@ def test_shader_table_names_match_jax():
 
 
 def test_port_imports_no_jax():
-    """The port runs where jax is not installed: importing every module of
-    it must leave jax out of sys.modules."""
+    """The port runs where jax is not installed and keeps its own copies
+    of what it needs: importing every module of it (in a fresh
+    interpreter) must leave jax and every rustexp_tpu module out of
+    sys.modules."""
     code = (
         "import sys, pkgutil, importlib, rustexp_tpu_torch\n"
         "for m in pkgutil.walk_packages(rustexp_tpu_torch.__path__,\n"
         "                               'rustexp_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import rustexp_tpu_torch.sims.rasterizer\n"
-        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'rustexp_tpu'))\n"
+        "assert not bad, bad\n"
         "print('clean')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
@@ -138,14 +147,63 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "clean"
 
 
+@pytest.mark.parametrize("idx", range(jmesh.NUM_MESHES))
+def test_get_mesh_matches_jax(idx):
+    """The port's own copy of assets.mesh gives JAX's arrays, names and
+    cameras for every mesh of the table (procedural stand-ins here)."""
+    a, b = jmesh.get_mesh(idx), tmesh.get_mesh(idx)
+    assert (a.name, a.num_tris) == (b.name, b.num_tris)
+    for f in ("positions", "normals", "colors", "tris"):
+        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        assert x.dtype == y.dtype and np.array_equal(x, y), f
+    assert np.array_equal(a.normalize_dimensions(), b.normalize_dimensions())
+    assert tmesh.mesh_name(idx) == jmesh.mesh_name(idx)
+    assert tmesh.mesh_camera(idx) == jmesh.mesh_camera(idx)
+
+
+def test_load_hdr_matches_jax(tmp_path):
+    """The port's own HDR decoder gives JAX's array on a file holding all
+    three scanline encodings: new per-component RLE (runs and literals),
+    flat RGBE, and flat RGBE with an old-style repeat marker."""
+    w = 16
+    rng = np.random.default_rng(11)
+    flat = rng.integers(0, 256, size=(w, 4), dtype=np.uint8)
+    rle = bytearray([2, 2, 0, w])
+    for c in range(4):
+        lit = rng.integers(0, 256, size=6, dtype=np.uint8)
+        rle += bytes([6]) + lit.tobytes() + bytes([128 + w - 6, 100 + c])
+    old = flat.copy()
+    old[5] = (1, 1, 1, 3)  # repeat pixel 4 three times
+    data = (b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n-Y 3 +X 16\n"
+            + bytes(rle) + flat.tobytes() + old[:w - 2].tobytes())
+    path = tmp_path / "t.hdr"
+    path.write_bytes(data)
+    want = jhdr.load_hdr(str(path))
+    got = thdr.load_hdr(str(path))
+    assert got.shape == want.shape == (3, w, 3) and got.dtype == np.float32
+    assert np.array_equal(got, want)
+    assert np.array_equal(got[2, 5:8], np.repeat(got[2, 4:5], 3, axis=0))
+
+
+@pytest.mark.parametrize("name", sorted(jcamera.CAMERAS))
+def test_camera_eye_matches_jax(name):
+    for tick in (0.0, 0.05, 0.7, 3.0, 17.25):
+        a = jcamera.camera_eye(name, tick)
+        b = tcamera.camera_eye(name, tick)
+        assert a.dtype == b.dtype and np.array_equal(a, b), tick
+
+
 def test_unported_shaders_and_modes_raise():
+    """What the port still refuses: shaders other than 5 (A5), the XLA
+    oracle (A4: backend="xla", and "auto" on a frame of partial 32x128
+    tiles) and line mode (A10)."""
     with pytest.raises(NotImplementedError, match="A5"):
         tsh.shader_fn(0)
     scene = tpp.make_scene(tmesh.make_sphere(4, 8),
                            tcubemap.make_procedural_set(), CPU)
-    for kw, item in ((dict(backend="pallas"), "A9/B2"),
-                     (dict(backend="queue"), "A9/B2"),
-                     (dict(backend="queue", mode=tpp.MODE_LINE), "A10")):
+    for kw, item in ((dict(backend="xla"), "A4"),
+                     (dict(backend="auto", w=96), "A4"),
+                     (dict(backend="pallas", mode=tpp.MODE_LINE), "A10")):
         with pytest.raises(NotImplementedError, match=item):
             tpp.render_frame(scene, np.array([0, 0, 2], np.float32), 0.0,
-                             w=128, h=128, **kw)
+                             **{"w": 128, "h": 128, **kw})

@@ -23,6 +23,7 @@ from rustexp_tpu.sims.rasterizer import RasterizerExperiment as JaxExperiment
 from rustexp_tpu_torch import interop
 from rustexp_tpu_torch.app import benchmark as tbench
 from rustexp_tpu_torch.assets import cubemap as tcubemap
+from rustexp_tpu_torch.ops import raster_bins as trb
 from rustexp_tpu_torch.ops import raster_queue as trq
 from rustexp_tpu_torch.raster import pipeline as tpp
 from rustexp_tpu_torch.sims.rasterizer import RasterizerExperiment
@@ -105,15 +106,28 @@ def test_experiment_rebuilds_stale_queue(caplog):
 
 
 def test_bins_path_and_cpu_timing_refused():
+    """The bins path now runs (Cube, 12 triangles, takes it); what is
+    still refused: timing on the CPU, a kernel wrapper given CPU tensors,
+    and the XLA oracle that non-tileable frames need (ROADMAP A4)."""
     te = RasterizerExperiment(CPU)
-    with pytest.raises(NotImplementedError, match="A9/B2"):
-        te.render(te.init(mesh_idx=9), W, H, 0.0)  # Cube: 12 triangles
+    st = te.init(mesh_idx=9)
+    assert te.render(st, W, H, 0.0).shape == (H, W)
+    assert st._scene_cache[2][0] == "pallas"
+    with pytest.raises(NotImplementedError, match="A4"):
+        te.render(st, 120, H, 0.0)
+    for mesh_idx in (0, 9):
+        with pytest.raises(ValueError, match="times the card"):
+            tbench.bench_scene(mesh_idx, True, 1, CPU)
     with pytest.raises(ValueError, match="times the card"):
-        tbench.bench_scene(0, True, 1, CPU)
+        tbench.run_suite(1, CPU)
     assert sum(s[3] for s in tbench.SCENES) == tbench.REF_TOTAL_US == 27286
     with pytest.raises(ValueError, match="CUDA"):
         trq.raster_attrs_queue_cuda(
             torch.zeros((1, 5), dtype=torch.int32),
             torch.zeros((1, 12, trq.CHUNK), dtype=torch.int32),
             torch.zeros((1, 10, trq.CHUNK)), 1, 0, 16, W)
-
+    with pytest.raises(ValueError, match="CUDA"):
+        trb.raster_attrs_bins_cuda(
+            torch.zeros((4,), dtype=torch.int32),
+            torch.zeros((4, 8, 12), dtype=torch.int32),
+            torch.zeros((4, 8, 19)), 4, 0, H, W)
