@@ -5,31 +5,45 @@
 Drives rustexp_tpu_torch, the port, never the JAX package:
 
   1. requires a CUDA device and prints nvidia-smi's name and power limit;
-  2. builds the port's CUDA kernels from rustexp_tpu_torch/csrc/, one nvcc
-     per source, all started together;
+  2. builds the port's six CUDA kernels from rustexp_tpu_torch/csrc/, one
+     nvcc per source, all started together;
   3. holds each kernel against its plain PyTorch version on the card, at
-     the main path's 512x512 shapes, bit for bit (0 mismatching words):
-     B1 (the flat-queue raster) on the procedural Killeroo and TorusKnot,
-     per-vertex (V) and per-pixel (P), under the coverage mask; B2 (the
-     binned raster) on CubeV and CubeP at suggest_binning's cap and spans
-     (the suite's shapes) and on TorusKnotP and KillerooP at
-     render_frame(backend="pallas")'s default bins, over the whole frame;
+     the main paths' shapes: B1 (the flat-queue raster) on the procedural
+     Killeroo and TorusKnot, per-vertex (V) and per-pixel (P), under the
+     coverage mask, and B2 (the binned raster) on CubeV and CubeP at
+     suggest_binning's cap and spans (the suite's shapes) and on
+     TorusKnotP and KillerooP at render_frame(backend="pallas")'s default
+     bins, 512x512, bit for bit (0 mismatching words); B4 (SWAR GoL) at
+     packed [8, 256] and [64, 2048] and B8 (the f32 GoL stencil) at 256^2
+     and 512^2, bit for bit; B6 (the bitonic sort) at n = 131,072 with the
+     N-body's five payloads, bit for bit; B5 (all-pairs forces) at
+     N = 16,384 and 131,072 with both reciprocals, within B5_RTOL;
   4. runs each main path with the launch counters set to 0 just before it
      and read just after, and fails if its kernel never ran: the queue path
      (RasterizerExperiment.render, KillerooV and KillerooP, a few ticks),
      the bins path (the same on Cube, mesh 9) and the 12-scene run_suite;
-     each Experiment frame must be more than background and match the
-     port's CPU frame within 0.3% of pixels (the repo's golden bound,
-     tests/test_golden.py);
+     the GoL Experiment at 256^2 (auto -> B4, pallas -> B8); the N-body
+     Experiment at N = 131,072 (theta 0.85 -> block BH, its Morton sort
+     B6; theta 0 -> brute force, B5) and at N = 10,000 (BH, argsort);
+     bench_gol (256^2, 2048^2) and bench_nbody (brute and BH at 131,072).
+     Each raster Experiment frame must be more than background and match
+     the port's CPU frame within 0.3% of pixels (the repo's golden bound,
+     tests/test_golden.py); GoL frames from the card must equal the CPU's
+     bit for bit, and N-body frames after a few steps from the same
+     initial conditions match within 1% of pixels (the N-body golden's
+     bound);
   5. prints times, each with the card's name and power limit: each
      kernel's device time (torch.profiler), its wrapper call's and its
-     plain version's (CUDA events), the bench frames and the suite, and
-     per bench scene the device-busy time, device activities and raster
-     kernel time per frame (torch.profiler) with the device's idle share
-     of the suite's unprofiled frame time.
+     plain version's (CUDA events), the bench frames, the suite and the
+     GoL and N-body bench records, and per bench scene the device-busy
+     time, device activities and raster kernel time per frame
+     (torch.profiler) with the device's idle share of the suite's
+     unprofiled frame time, and the same per generation or step for each
+     GoL and N-body bench record.
 
 Its last lines are nvidia-smi's name and power limit, a JSON object of the
-kernels (launches on the main paths, error, times and each one's bound),
+kernels (grid launches on the main paths, error, times and each one's
+bound),
 then {"ok": true, "device": {...}}. It exits non-zero, printing no result,
 when there is no CUDA device, a build or launch fails, or a check fails.
 """
@@ -70,6 +84,36 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 OPS_PER_TEST = 32
 OPS_B1, OPS_2MAD, OPS_3W = 3, 4, 5
+# GoL: ~45 INT32 operations per packed word and generation (B4,
+# rustexp_tpu/ops/gol_bits.py:54-98), ~11 FP32 operations per cell and
+# generation (B8: 5 adds, 3 compares, and, or, select), both counted at the
+# FP32 rate. B5: 11 FP32 operations per pair (dx and dy, their squares,
+# two adds for d2 + EPS, the product with m_j, rm*dx and rm*dy, two sums)
+# plus one reciprocal on the special-function units, 16 per SM per clock
+# (Hopper white paper) x 132 SMs x 1.98 GHz; the two pipes run side by
+# side, so the bound is the larger time.
+OPS_SWAR = 45
+OPS_STENCIL = 11
+OPS_PAIR = 11
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
+
+B4_CASES = (((256, 256), 100), ((2048, 2048), 100))  # (cells, generations)
+B8_CASES = (((256, 256), 20), ((512, 512), 20))
+B5_NS = (16384, 131072)
+B6_N = 131072
+# B5 against its plain version: the largest |F_kernel - F_plain| over all
+# particles, relative to the largest |F_plain|. The sums run in another
+# order (the sun's own force nearly cancels, so a per-particle ratio says
+# little there); stated per reciprocal form, measured 1.5e-6 for both at
+# N = 131,072 on an H100 (rcp.approx.f32 is within about an ulp).
+B5_RTOL = {False: 1e-5, True: 1e-5}
+GOL_FRAMES = 4         # Experiment steps per backend, 8 generations each
+NBODY_N = 131072
+NBODY_STEPS = 3
+NBODY_CPU_CASES = ((4096, 0.85), (1024, 0.85), (10_000, 0.85))
+NBODY_FRAME_FRAC = 0.01  # tests/test_golden.py's N-body bound
+GOL_BENCH_GENS = 65536
+NBODY_BENCH_STEPS = {"bh": 16, "pallas": 32}
 
 
 def fail(msg: str) -> int:
@@ -92,20 +136,51 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_events(fn, reps: int) -> list:
+PROFILE_PADS = 4   # spin kernels that open each profiling session
+PROFILE_TRIES = 5  # sessions tried before a measurement fails
+PROFILE_RETRY_S = 0.2  # pause before another try: losses come in runs
+lost_pads = 0      # of the pads, missing from the sessions' records
+lost_sessions = 0  # sessions thrown away and tried again
+
+
+def device_events(fn, reps: int, complete=None) -> list:
     """The card's activities (kernels, copies, sets) that torch.profiler
-    saw over `reps` fn() calls, after two warm-up calls."""
+    saw over `reps` fn() calls, after two warm-up calls.
+
+    On the H100 a session now and then loses the activity records at its
+    start, and sometimes all of them, early in a process as well as late.
+    So each session opens with PROFILE_PADS short spin kernels and a
+    synchronize, and their records are dropped: a loss that leaves one of
+    them has spared the work after them, and counts in `lost_pads`. A
+    session that kept no pad, or whose work fails `complete(events)`, is
+    thrown away (counted in `lost_sessions`) and run again after a pause,
+    up to PROFILE_TRIES sessions."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    global lost_pads, lost_sessions
     fn()
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PADS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        pads = sum("spin_kernel" in e.name for e in events)
+        lost_pads += PROFILE_PADS - pads
+        work = [e for e in events if "spin_kernel" not in e.name]
+        if pads and (complete is None or complete(work)):
+            return work
+        lost_sessions += 1
+        time.sleep(PROFILE_RETRY_S)
+    raise RuntimeError(f"{PROFILE_TRIES} profiling sessions in a row lost "
+                       f"their records")
 
 
 def device_ms(fn, reps: int, kernel: str) -> float:
@@ -113,12 +188,12 @@ def device_ms(fn, reps: int, kernel: str) -> float:
     `kernel`, per fn() call. Unlike CUDA events around back-to-back calls,
     this does not count the host's launch time when a kernel is shorter
     than it."""
-    spans = [e.time_range.end - e.time_range.start
-             for e in device_events(fn, reps) if kernel in e.name]
-    if len(spans) != reps:
-        raise RuntimeError(f"profiler saw {len(spans)} launches of {kernel} "
-                           f"in {reps} calls")
-    return sum(spans) / 1e3 / reps
+    def spans(events):
+        return [e.time_range.end - e.time_range.start for e in events
+                if kernel in e.name]
+
+    got = spans(device_events(fn, reps, lambda ev: len(spans(ev)) == reps))
+    return sum(got) / 1e3 / reps
 
 
 def busy_ms(events) -> float:
@@ -170,11 +245,8 @@ def box_px(rec_i, x0, y0, th: int, tw: int) -> torch.Tensor:
 
 def bound(bytes_moved: int, tests: int, won: int, n2: int, n3: int):
     """(bound_ms, bound_by) of one raster call."""
-    ops = tests * OPS_PER_TEST + won * (OPS_B1 + OPS_2MAD * n2 + OPS_3W * n3)
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = ops / FP32_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return time_bound(bytes_moved, tests * OPS_PER_TEST
+                      + won * (OPS_B1 + OPS_2MAD * n2 + OPS_3W * n3))
 
 
 def bit_mismatches(zk, sk, lk, zp, sp, lp, mask) -> int:
@@ -296,15 +368,285 @@ def b2_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera):
     return out
 
 
+def kernel_ms(fn, reps: int, names: tuple) -> float:
+    """Mean device milliseconds per fn() call of the CUDA kernels whose
+    name contains one of `names` (a call may run several grid launches,
+    the same number in each call)."""
+    def spans(events):
+        return [e.time_range.end - e.time_range.start for e in events
+                if any(n in e.name for n in names)]
+
+    got = spans(device_events(
+        fn, reps, lambda ev: len(spans(ev)) > 0
+        and len(spans(ev)) % reps == 0))
+    return sum(got) / 1e3 / reps
+
+
+def time_bound(bytes_moved: float, ops: float, sfu_ops: float = 0.0):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the FP32 rate (special-function operations over
+    theirs)."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = max(ops / FP32_OPS_PER_S, sfu_ops / SFU_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def random_grid(shape, seed: int, dev) -> torch.Tensor:
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 2, shape, generator=gen,
+                         dtype=torch.int32).to(dev)
+
+
+def b4_vs_plain(dev, gb) -> dict:
+    """B4 against its plain version at packed [8, 256] and [64, 2048]."""
+    out = {}
+    for (r, c), k in B4_CASES:
+        packed = gb.pack_rows(random_grid((r, c), r, dev))
+        got = gb.multi_step_packed_cuda(packed, k)
+        want = gb.multi_step_packed_plain(packed, k)
+        torch.cuda.synchronize(dev)
+        bad = int((got != want).sum())
+        words = packed.numel()
+        bms, by = time_bound(2 * words * 4, words * k * OPS_SWAR)
+        run = lambda: gb.multi_step_packed_cuda(packed, k)
+        out[f"{r}x{c}"] = dict(
+            err=float(bad), bad=bad, ms=kernel_ms(run, 10, ("swar_kernel",)),
+            call_ms=cuda_ms(run, 10),
+            plain_ms=cuda_ms(lambda: gb.multi_step_packed_plain(packed, k), 1),
+            bound_ms=bms, bound_by=by,
+            work=f"packed {list(packed.shape)}, {k} generations")
+        print(f"B4 {r}x{c} (packed {list(packed.shape)}), {k} generations: "
+              f"{bad} mismatching words", flush=True)
+    return out
+
+
+def b8_vs_plain(dev, gs) -> dict:
+    """B8 against its plain version at 256^2 and 512^2."""
+    out = {}
+    for (r, c), k in B8_CASES:
+        g = random_grid((r, c), r + 1, dev).to(torch.float32)
+        got = gs.multi_step_pallas_cuda(g, k)
+        want = gs.multi_step_pallas_plain(g, k)
+        torch.cuda.synchronize(dev)
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        bms, by = time_bound(2 * g.numel() * 4, g.numel() * k * OPS_STENCIL)
+        run = lambda: gs.multi_step_pallas_cuda(g, k)
+        out[f"{r}x{c}"] = dict(
+            err=float((got - want).abs().max()), bad=bad,
+            ms=kernel_ms(run, 10, ("stencil_kernel",)),
+            call_ms=cuda_ms(run, 10),
+            plain_ms=cuda_ms(lambda: gs.multi_step_pallas_plain(g, k), 2),
+            bound_ms=bms, bound_by=by, work=f"{r}x{c} f32, {k} generations")
+        print(f"B8 {r}x{c}, {k} generations: {bad} mismatching words",
+              flush=True)
+    return out
+
+
+def b6_vs_plain(dev, sb, bh, stable_orbits) -> dict:
+    """B6 against its plain version at n = 131,072 on the N-body's Morton
+    sort: the codes of stable orbits with px, py, m, vx, vy carried."""
+    px, py, vx, vy, m = stable_orbits(torch.Generator().manual_seed(1), B6_N,
+                                      device=dev)
+    key = bh.morton_codes(px, py, px.min(), px.max(), py.min(), py.max())
+    idx = torch.arange(B6_N, dtype=torch.int32, device=dev)
+    vals = [px, py, m, vx, vy]
+    kk, ik, vk = sb.sort_kv_cuda(key, idx, vals)
+    kp, ip, vp = sb.sort_kv_plain(key, idx, vals)
+    torch.cuda.synchronize(dev)
+    bad = int((kk != kp).sum()) + int((ik != ip).sum())
+    bad += sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+               for a, b in zip(vk, vp))
+
+    def library():
+        order = torch.sort(key, stable=True).indices
+        return key[order], [v[order] for v in vals]
+
+    bms, by = time_bound(2 * (2 + len(vals)) * B6_N * 4, 0.0)
+    run = lambda: sb.sort_kv_cuda(key, idx, vals)
+    rec = dict(err=float(bad), bad=bad,
+               ms=kernel_ms(run, 10, ("segment_kernel", "substage_kernel")),
+               call_ms=cuda_ms(run, 10),
+               plain_ms=cuda_ms(lambda: sb.sort_kv_plain(key, idx, vals), 10),
+               library_ms=cuda_ms(library, 10), bound_ms=bms, bound_by=by,
+               work=f"n {B6_N}, {len(vals)} payloads, "
+                    f"{int(torch.unique(key).numel())} distinct keys")
+    print(f"B6 n={B6_N}, {len(vals)} payloads: {bad} mismatching words",
+          flush=True)
+    return {str(B6_N): rec}
+
+
+def force_errors(fk, fp) -> tuple:
+    """(largest |dF| over the largest |F_plain|, the median per-particle
+    |dF| / |F_plain|, largest absolute component error)."""
+    (kx, ky), (px_, py_) = fk, fp
+    diff = torch.hypot(kx - px_, ky - py_)
+    mag = torch.hypot(px_, py_)
+    return (float(diff.max() / mag.max()),
+            float((diff / mag.clamp(min=1e-30)).median()),
+            max(float((kx - px_).abs().max()), float((ky - py_).abs().max())))
+
+
+def b5_vs_plain(dev, npl, stable_orbits) -> dict:
+    """B5, both reciprocals, against its plain version at N = 16,384 and
+    131,072 (stable orbits)."""
+    out = {}
+    for n in B5_NS:
+        px, py, _, _, m = stable_orbits(torch.Generator().manual_seed(2), n,
+                                        device=dev)
+        want = npl.forces_pallas_plain(px, py, m)
+        for approx in (False, True):
+            got = npl.forces_pallas_cuda(px, py, m, approx)
+            torch.cuda.synchronize(dev)
+            rel, med, err = force_errors(got, want)
+            pairs = n * (n - 1)
+            bms, by = time_bound(5 * n * 4, pairs * OPS_PAIR, sfu_ops=pairs)
+            run = lambda: npl.forces_pallas_cuda(px, py, m, approx)
+            reps = 3 if n > 20000 else 10
+            out[(n, approx)] = dict(
+                err=err, rel=rel, median_rel=med,
+                bad=int(rel > B5_RTOL[approx]),
+                ms=kernel_ms(run, reps, ("forces_kernel",)),
+                call_ms=cuda_ms(run, reps),
+                plain_ms=cuda_ms(lambda: npl.forces_pallas_plain(px, py, m),
+                                 1),
+                bound_ms=bms, bound_by=by,
+                work=f"N {n}, {'approximate' if approx else 'exact'} "
+                     f"reciprocal")
+            print(f"B5 N={n} approx_recip={approx}: max |dF| / max |F| "
+                  f"{rel:.3e} (tolerance {B5_RTOL[approx]:.0e}), median "
+                  f"per-particle {med:.3e}, max abs error {err:.3e}",
+                  flush=True)
+    return out
+
+
+def gol_paths(dev, card, gol_exp, counters, launches) -> str | None:
+    """The GoL Experiment at 256^2, auto (B4) then pallas (B8), 8
+    generations per step, counted; the card's frames against the CPU's,
+    bit for bit. Returns a failure message or None."""
+    for backend, kernel in (("auto", "B4"), ("pallas", "B8")):
+        frames = []
+        for d in (dev, torch.device("cpu")):
+            exp = gol_exp(d)
+            st = exp.init(pattern="gun", steps_per_frame=8, backend=backend)
+            for c in counters.values():
+                c.launches = 0
+            fb = []
+            for _ in range(GOL_FRAMES):
+                st = exp.step(st)
+                fb.append(exp.render(st, 512, 512).cpu())
+            if d.type == "cuda":
+                got = {k: c.launches for k, c in counters.items()}
+                print(f"launches during the GoL {backend} Experiment path: "
+                      f"{got}; {exp.status(st)} [{card}]", flush=True)
+                if got[kernel] == 0:
+                    return f"the GoL {backend} path never launched {kernel}"
+                for k in counters:
+                    launches[k] += got[k]
+            frames.append(torch.stack(fb))
+        diff = int((frames[0] != frames[1]).sum())
+        live = int((frames[0] == 0x00FFFFFF).sum())
+        print(f"GoL {backend}: {GOL_FRAMES} frames, {live} live pixels, "
+              f"{diff} px differ from the port's CPU frames", flush=True)
+        if diff or live == 0:
+            return f"GoL {backend}: {diff} px differ, {live} live"
+    return None
+
+
+def nbody_paths(dev, card, nb_exp, counters, launches) -> str | None:
+    """The N-body Experiment on the card at N = 131,072 (theta 0.85: block
+    BH, its Morton sort B6; theta 0: brute force, B5) and N = 10,000
+    (BH, argsort), counted. Returns a failure message or None."""
+    for n, theta, kernel in ((NBODY_N, 0.85, "B6"), (NBODY_N, 0.0, "B5"),
+                             (10_000, 0.85, None)):
+        exp = nb_exp(dev)
+        st = exp.init(n=n, theta=theta)
+        for c in counters.values():
+            c.launches = 0
+        for _ in range(NBODY_STEPS):
+            st = exp.step(st)
+        fb = exp.render(st, 512, 512)
+        got = {k: c.launches for k, c in counters.items()}
+        drawn = int((fb != 0).sum())
+        finite = bool(torch.isfinite(torch.stack(
+            [st.px, st.py, st.vx, st.vy])).all())
+        print(f"launches during the N-body N={n} theta={theta} path: {got}; "
+              f"{exp.status(st)}; {drawn} px drawn [{card}]", flush=True)
+        if kernel is not None and got[kernel] == 0:
+            return (f"the N-body N={n} theta={theta} path never launched "
+                    f"{kernel}")
+        if not finite or drawn < 1000:
+            return f"N-body N={n}: finite={finite}, {drawn} px drawn"
+        for k in counters:
+            launches[k] += got[k]
+    return None
+
+
+def nbody_card_vs_cpu(dev, nb_exp) -> str | None:
+    """A few steps from the same initial conditions on the card and on the
+    CPU (BH with B6 at 4,096, brute B5 at 1,024, BH with argsort at
+    10,000): frames within NBODY_FRAME_FRAC of pixels."""
+    for n, theta in NBODY_CPU_CASES:
+        frames, pos = [], []
+        for d in (dev, torch.device("cpu")):
+            exp = nb_exp(d)
+            st = exp.init(n=n, theta=theta)
+            for _ in range(NBODY_STEPS):
+                st = exp.step(st)
+            frames.append(exp.render(st, 256, 256).cpu())
+            pos.append(torch.stack([st.px, st.py]).cpu())
+        diff = int((frames[0] != frames[1]).sum())
+        dpos = float((pos[0] - pos[1]).abs().max())
+        print(f"N-body N={n} theta={theta}, {NBODY_STEPS} steps: {diff} px "
+              f"differ from the port's CPU frame, max |dp| {dpos:.3e}",
+              flush=True)
+        if diff > NBODY_FRAME_FRAC * 256 * 256:
+            return f"N-body N={n}: {diff} px differ from the CPU frame"
+    return None
+
+
+def bench_profiles(dev, records, gb, bh, npl, stable_orbits) -> list[dict]:
+    """Per GoL and N-body bench record, where its time goes on the card:
+    device-busy ms and device activities per generation or step, by the
+    profiler (GoL: a call of 4,096 generations; N-body: one step), and the
+    idle share against the record's unprofiled median."""
+    out = []
+    for label, rec in records:
+        if rec["metric"] == "gol_cell_updates_per_s":
+            g = random_grid((rec["n"], rec["n"]), 0, dev)
+            fn = lambda g=g: gb.multi_step_swar(g, 4096)
+            units, unit = 4096, "generation"
+            wall = rec["n"] ** 2 / rec["value_median"]
+        else:
+            st = stable_orbits(torch.Generator().manual_seed(0), rec["n"],
+                               device=dev)
+            if rec["route"] == "bh":
+                fn = lambda st=st, k=rec["k_near"]: bh.step_bh(*st, 256, k)
+            else:
+                fn = lambda st=st: npl.step_brute_pallas(*st, 1024, True)
+            units, unit, wall = 1, "step", 1.0 / rec["value_median"]
+        events = device_events(fn, 2)
+        busy = busy_ms(events) / 2 / units
+        out.append(dict(label=label, unit=unit, busy_ms=busy,
+                        wall_ms=wall * 1e3, idle=1.0 - busy / (wall * 1e3),
+                        activities=len(events) / 2 / units))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: no CUDA device")
     from rustexp_tpu_torch.app import benchmark as bench
     from rustexp_tpu_torch.assets import cubemap, mesh as meshes
+    from rustexp_tpu_torch.ops import gol_bits as gb, gol_stencil as gs
+    from rustexp_tpu_torch.ops import nbody_bh as bh, nbody_pallas as npl
     from rustexp_tpu_torch.ops import raster_bins as rb, raster_queue as rq
+    from rustexp_tpu_torch.ops import sort_bitonic as sb
     from rustexp_tpu_torch.ops.raster_setup import setup_triangles
     from rustexp_tpu_torch.raster import camera, pipeline as pp
     from rustexp_tpu_torch.runtime import device, load_kernel_lib
+    from rustexp_tpu_torch.sims.gol import GoLExperiment
+    from rustexp_tpu_torch.sims.nbody import NBodyExperiment, stable_orbits
     from rustexp_tpu_torch.sims.rasterizer import RasterizerExperiment
 
     pulled = sorted(m for m in sys.modules
@@ -323,7 +665,8 @@ def main() -> int:
 
     # Phase 2: build every kernel, one nvcc per source, concurrently.
     t0 = time.perf_counter()
-    names = ("raster_queue", "raster_bins")
+    names = ("raster_queue", "raster_bins", "gol_swar", "gol_stencil",
+             "nbody_forces", "sort_bitonic")
     with ThreadPoolExecutor(len(names)) as ex:
         libs = list(ex.map(load_kernel_lib, names))
     for lib in libs:
@@ -340,10 +683,24 @@ def main() -> int:
             if r["bad"] or r["covered"] == 0:
                 return fail(f"{kernel} {label}: {r['bad']} mismatching "
                             f"words, {r['covered']} covered pixels")
+    cmp4 = b4_vs_plain(dev, gb)
+    cmp8 = b8_vs_plain(dev, gs)
+    cmp6 = b6_vs_plain(dev, sb, bh, stable_orbits)
+    cmp5 = b5_vs_plain(dev, npl, stable_orbits)
+    for kernel, cmp in (("B4", cmp4), ("B8", cmp8), ("B6", cmp6),
+                        ("B5", cmp5)):
+        for label, r in cmp.items():
+            if r["bad"]:
+                return fail(f"{kernel} {label}: disagrees with its plain "
+                            f"version ({r['bad']})")
 
     # Phase 4: the main paths, each counted on its own.
     counters = {"B1": rq.raster_attrs_queue_cuda,
-                "B2": rb.raster_attrs_bins_cuda}
+                "B2": rb.raster_attrs_bins_cuda,
+                "B4": gb.multi_step_packed_cuda,
+                "B5": npl.forces_pallas_cuda,
+                "B6": sb.sort_kv_cuda,
+                "B8": gs.multi_step_pallas_cuda}
     path_kernels = {"Killeroo": ("B1",), "Cube": ("B2",),
                     "run_suite": ("B1", "B2")}
     launches = {k: 0 for k in counters}
@@ -403,6 +760,36 @@ def main() -> int:
         if diff > GOLDEN_FRAC * W * H:
             return fail(f"{label}: {diff} px differ from the CPU frame")
 
+    for msg in (gol_paths(dev, card, GoLExperiment, counters, launches),
+                nbody_paths(dev, card, NBodyExperiment, counters, launches),
+                nbody_card_vs_cpu(dev, NBodyExperiment)):
+        if msg:
+            return fail(msg)
+    records = []
+    for label, kernel, run in (
+            ("bench_gol 256^2", "B4",
+             lambda: bench.bench_gol(GOL_BENCH_GENS, 3, 256, device=dev)),
+            ("bench_gol 2048^2", "B4",
+             lambda: bench.bench_gol(GOL_BENCH_GENS, 3, 2048, device=dev)),
+            ("bench_nbody brute 131072", "B5",
+             lambda: bench.bench_nbody(NBODY_N, NBODY_BENCH_STEPS["pallas"],
+                                       3, "pallas", True, device=dev)),
+            ("bench_nbody bh 131072", "B6",
+             lambda: bench.bench_nbody(NBODY_N, NBODY_BENCH_STEPS["bh"], 3,
+                                       "bh", device=dev))):
+        for c in counters.values():
+            c.launches = 0
+        rec = run()
+        got = {k: c.launches for k, c in counters.items()}
+        print(f"launches during {label}: {got}", flush=True)
+        if got[kernel] == 0:
+            return fail(f"{label} never launched kernel {kernel}")
+        if rec.get("finite") is False or rec.get("live_cells") == 0:
+            return fail(f"{label}: bad result {rec}")
+        for k in counters:
+            launches[k] += got[k]
+        records.append((label, rec))
+
     # Phase 5: times, each beside the card's name and power limit.
     for kernel, cmp in (("B1", cmp1), ("B2", cmp2)):
         for label, r in cmp.items():
@@ -425,6 +812,24 @@ def main() -> int:
               f"kernel {r['raster_ms']:.4f} ms/frame; idle share "
               f"{r['idle'] * 100:.1f}% of the run_suite median "
               f"{r['wall_ms']:.4f} ms/frame [{card}]")
+    for kernel, cmp in (("B4", cmp4), ("B8", cmp8), ("B6", cmp6),
+                        ("B5", cmp5)):
+        for label, r in cmp.items():
+            lib = (f", library {r['library_ms']:.4f} ms (stable torch.sort "
+                   f"and gathers, CUDA events)" if "library_ms" in r else "")
+            print(f"time {kernel} {r['work']}: kernel {r['ms']:.4f} ms "
+                  f"(device, profiler), wrapper call {r['call_ms']:.4f} ms "
+                  f"and plain version {r['plain_ms']:.4f} ms (CUDA "
+                  f"events){lib}, bound {r['bound_ms']:.5f} ms "
+                  f"({r['bound_by']}) [{card}]")
+    for label, rec in records:
+        print(f"bench {label} {json.dumps(rec)} [{card}]")
+    for r in bench_profiles(dev, records, gb, bh, npl, stable_orbits):
+        print(f"profile bench {r['label']}: device busy {r['busy_ms']:.6f} "
+              f"ms/{r['unit']} (profiler, union of the card's activities), "
+              f"{r['activities']:.3f} device activities/{r['unit']}; idle "
+              f"share {r['idle'] * 100:.1f}% of the bench median "
+              f"{r['wall_ms']:.6f} ms/{r['unit']} [{card}]")
     head = {k: suite[k] for k in ("metric", "value", "unit", "vs_baseline")}
     print(f"run_suite (procedural stand-ins for the meshes and the envmap) "
           f"{json.dumps(head)} [{card}]")
@@ -438,14 +843,26 @@ def main() -> int:
                 "max_abs_err": max(c["err"] for c in cmp.values()),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": None}
+                "library_ms": r.get("library_ms")}
 
+    print(f"profiler sessions lost {lost_pads} of their opening pad "
+          f"records; {lost_sessions} sessions were thrown away and run "
+          f"again [{card}]")
     print(card)
     print(json.dumps({"kernels": [
         entry("queue_raster (B1)", "rustexp_tpu_torch/csrc/raster_queue.cu",
               "rustexp_tpu/ops/raster_queue.py:690", "B1", cmp1, "KillerooP"),
         entry("bins_raster (B2)", "rustexp_tpu_torch/csrc/raster_bins.cu",
               "rustexp_tpu/ops/raster_pallas.py:338", "B2", cmp2, "CubeP"),
+        entry("gol_swar (B4)", "rustexp_tpu_torch/csrc/gol_swar.cu",
+              "rustexp_tpu/ops/gol_bits.py:113", "B4", cmp4, "2048x2048"),
+        entry("nbody_forces (B5)", "rustexp_tpu_torch/csrc/nbody_forces.cu",
+              "rustexp_tpu/ops/nbody_pallas.py:38", "B5", cmp5,
+              (NBODY_N, True)),
+        entry("sort_bitonic (B6)", "rustexp_tpu_torch/csrc/sort_bitonic.cu",
+              "rustexp_tpu/ops/sort_bitonic.py:125", "B6", cmp6, str(B6_N)),
+        entry("gol_stencil (B8)", "rustexp_tpu_torch/csrc/gol_stencil.cu",
+              "rustexp_tpu/ops/gol_stencil.py:99", "B8", cmp8, "512x512"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,16 @@
-"""Carry a JAX-built Scene, Queue or BinnedTris into the port.
+"""Carry the JAX package's state into the port.
 
 The JAX package's Scene, Queue and BinnedTris are NamedTuple pytrees. A
 caller turns one into ``{field: np.asarray(leaf)}`` (this module imports
 no jax) and gets the port's tuple of tensors on `device`, so one scene,
 queue or set of bins can drive both packages in the parity tests.
+`device` defaults to the card (runtime.device); pass "cpu" for the CPU.
 uint32 leaves (the cubemap cross) keep their bits as int32;
 Queue.shade_w comes back a Python int.
+
+A GoL grid and an N-body particle set (px, py, vx, vy, m, as JAX's
+stable_orbits or random_disk make them) come across as numpy arrays, to
+the port's tensors or to a GoLState / NBodyState on `device`.
 """
 
 from __future__ import annotations
@@ -16,6 +21,12 @@ import torch
 from .ops.raster_bins import BinnedTris
 from .ops.raster_queue import Queue
 from .raster.pipeline import Scene
+from .runtime import device as pick_device
+from .sims.gol import GoLState
+from .sims.nbody import NBodyState
+
+
+Device = torch.device | str | None
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -25,15 +36,33 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def scene_from_numpy(d: dict, device: torch.device | str = "cpu") -> Scene:
-    return Scene(**{f: _tensor(d[f], device) for f in Scene._fields})
+def scene_from_numpy(d: dict, device: Device = None) -> Scene:
+    dev = pick_device(device)
+    return Scene(**{f: _tensor(d[f], dev) for f in Scene._fields})
 
 
-def queue_from_numpy(d: dict, device: torch.device | str = "cpu") -> Queue:
-    fields = {f: _tensor(d[f], device) for f in Queue._fields
+def queue_from_numpy(d: dict, device: Device = None) -> Queue:
+    dev = pick_device(device)
+    fields = {f: _tensor(d[f], dev) for f in Queue._fields
               if f != "shade_w"}
     return Queue(**fields, shade_w=int(d["shade_w"]))
 
 
-def bins_from_numpy(d: dict, device: torch.device | str = "cpu") -> BinnedTris:
-    return BinnedTris(**{f: _tensor(d[f], device) for f in BinnedTris._fields})
+def bins_from_numpy(d: dict, device: Device = None) -> BinnedTris:
+    dev = pick_device(device)
+    return BinnedTris(**{f: _tensor(d[f], dev) for f in BinnedTris._fields})
+
+
+def gol_state_from_numpy(grid, device: Device = None, **state) -> GoLState:
+    """A GoLState around a {0, 1} cell grid of any integer dtype (kept);
+    `state` sets the other fields (steps_per_frame, backend, ...)."""
+    return GoLState(grid=_tensor(grid, pick_device(device)), **state)
+
+
+def nbody_state_from_numpy(arrays, device: Device = None,
+                           **state) -> NBodyState:
+    """An NBodyState around (px, py, vx, vy, m) as f32 tensors; `state`
+    sets the other fields (dt, theta, ...)."""
+    dev = pick_device(device)
+    return NBodyState(*(_tensor(np.asarray(a, np.float32), dev)
+                        for a in arrays), **state)

@@ -38,12 +38,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 
-def device(kind: str | None = None) -> torch.device:
-    """The device to run on: ``"cuda"`` (raises without a card), ``"cpu"``,
-    or None for the card when one is present and the CPU otherwise."""
-    if kind is None:
-        kind = "cuda" if torch.cuda.is_available() else "cpu"
-    dev = torch.device(kind)
+def device(kind: str | torch.device | None = None) -> torch.device:
+    """The device to run on: the card for None or ``"cuda"`` (raises
+    without one), the CPU only when the caller asks for ``"cpu"``."""
+    dev = torch.device("cuda" if kind is None else kind)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("a CUDA device was requested but none is "
@@ -51,6 +49,15 @@ def device(kind: str | None = None) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def require_on(dev: torch.device, tensors, what: str) -> None:
+    """Raise unless every tensor lies on `dev`: a state built on the CPU
+    must not run the plain versions on a card Experiment, nor the reverse."""
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{what} is on {t.device}, the experiment on "
+                             f"{dev}; build it with device={dev}")
 
 
 def _nvcc() -> str:

@@ -129,14 +129,19 @@ def test_shader_table_names_match_jax():
 def test_port_imports_no_jax():
     """The port runs where jax is not installed and keeps its own copies
     of what it needs: importing every module of it (in a fresh
-    interpreter) must leave jax and every rustexp_tpu module out of
-    sys.modules."""
+    interpreter), the GoL and N-body modules among them, must leave jax
+    and every rustexp_tpu module out of sys.modules."""
     code = (
         "import sys, pkgutil, importlib, rustexp_tpu_torch\n"
         "for m in pkgutil.walk_packages(rustexp_tpu_torch.__path__,\n"
         "                               'rustexp_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import rustexp_tpu_torch.sims.rasterizer\n"
+        "import rustexp_tpu_torch.sims.gol\n"
+        "import rustexp_tpu_torch.sims.nbody, rustexp_tpu_torch.interop\n"
+        "import rustexp_tpu_torch.app.benchmark\n"
+        "from rustexp_tpu_torch.ops import gol_bits, gol_stencil, nbody_bh\n"
+        "from rustexp_tpu_torch.ops import nbody_pallas, sort_bitonic\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'rustexp_tpu'))\n"
         "assert not bad, bad\n"
@@ -145,6 +150,71 @@ def test_port_imports_no_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+
+
+def test_device_means_the_card(monkeypatch):
+    """runtime.device() with no argument is the card and raises without
+    one; the CPU is used only when asked for, and so are the new
+    Experiments' defaults."""
+    from rustexp_tpu_torch import runtime
+    from rustexp_tpu_torch.sims.gol import GoLExperiment
+    from rustexp_tpu_torch.sims.nbody import NBodyExperiment
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for kind in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            runtime.device(kind)
+    for exp in (GoLExperiment, NBodyExperiment):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            exp()
+        assert exp("cpu").device == CPU
+    assert runtime.device("cpu") == CPU
+    assert runtime.device(CPU) == CPU
+
+
+def test_profiler_loss_needs_the_card(monkeypatch, capsys):
+    """The profiler-loss count runs only on the card: without one it
+    exits 1 and prints no totals."""
+    from rustexp_tpu_torch.app import profiler_loss
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert profiler_loss.main(1) == 1
+    out = capsys.readouterr()
+    assert out.out == "" and "no CUDA device" in out.err
+
+
+def test_state_builders_mean_the_card(monkeypatch):
+    """The functions that build state put it on the card unless asked for
+    the CPU, and raise without one; an Experiment refuses a state that
+    lies on another device rather than run it there."""
+    from rustexp_tpu_torch import interop
+    from rustexp_tpu_torch.assets.gol_patterns import PATTERNS, \
+        pattern_to_array
+    from rustexp_tpu_torch.sims import gol, nbody
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    grid = np.zeros((64, 64), np.uint8)
+    arrays = [np.ones(8, np.float32)] * 5
+    gen = torch.Generator().manual_seed(0)
+    pat = pattern_to_array(PATTERNS["gun"])
+    builders = (lambda d: interop.gol_state_from_numpy(grid, d).grid,
+                lambda d: interop.nbody_state_from_numpy(arrays, d).px,
+                lambda d: gol.randomize(gen, 64, d),
+                lambda d: gol.set_pattern(pat, 64, d),
+                lambda d: nbody.random_disk(gen, 8, d)[0],
+                lambda d: nbody.stable_orbits(gen, 8, device=d)[0])
+    for build in builders:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(None)
+        assert build("cpu").device == CPU
+
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="meta"):
+        gol.GoLExperiment("cpu").step(gol.GoLState(
+            grid=torch.zeros((64, 64), dtype=torch.uint8, device=meta)))
+    with pytest.raises(ValueError, match="meta"):
+        nbody.NBodyExperiment("cpu").step(nbody.NBodyState(
+            *(torch.zeros(8, device=meta) for _ in range(5))))
 
 
 @pytest.mark.parametrize("idx", range(jmesh.NUM_MESHES))

@@ -1,6 +1,7 @@
-"""Kernels B1 and B2 on the card: each CUDA kernel against its plain
-PyTorch version, and whole frames on the card (queue and bins paths)
-against the same frames on the CPU.
+"""Kernels B1, B2, B4, B5, B6 and B8 on the card: each CUDA kernel
+against its plain PyTorch version, and whole frames on the card (queue
+and bins paths, the GoL and N-body Experiments) against the same frames
+on the CPU.
 
 These tests need a CUDA device and skip without one. This file imports no
 jax (the card's machine has none), so it runs there on its own:
@@ -12,10 +13,17 @@ import pytest
 import torch
 
 from rustexp_tpu_torch.assets import cubemap, mesh
+from rustexp_tpu_torch.ops import gol_bits as gb
+from rustexp_tpu_torch.ops import gol_stencil as gs
+from rustexp_tpu_torch.ops import nbody_bh as bh
+from rustexp_tpu_torch.ops import nbody_pallas as npl
 from rustexp_tpu_torch.ops import raster_bins as rb
 from rustexp_tpu_torch.ops import raster_queue as rq
 from rustexp_tpu_torch.ops.raster_setup import setup_triangles
+from rustexp_tpu_torch.ops import sort_bitonic as sb
 from rustexp_tpu_torch.raster import camera, pipeline as pp
+from rustexp_tpu_torch.sims.gol import GoLExperiment
+from rustexp_tpu_torch.sims.nbody import NBodyExperiment, stable_orbits
 
 W = H = 512
 
@@ -135,3 +143,131 @@ def test_compacted_bins_frame_on_card_matches_cpu():
         assert not bool(overflow)
         frames.append(fb.cpu().view(torch.int32))
     assert int((frames[0] != frames[1]).sum()) <= 0.003 * W * H
+
+
+def _grid(shape, seed, dev):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randint(0, 2, shape, generator=gen, dtype=torch.int32).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [((256, 256), 1), ((256, 256), 100),
+                                     ((2048, 2048), 65), ((96, 160), 37),
+                                     ((32, 40), 33)])
+def test_b4_kernel_matches_plain_on_card(shape, k):
+    """Bit-equal packed words: the main path's [8, 256] and [64, 2048],
+    ragged tiles, a grid smaller than a tile, and k across the 32-
+    generation launches (odd and even launch counts)."""
+    dev = _card()
+    packed = gb.pack_rows(_grid(shape, k, dev))
+    launches = gb.multi_step_packed_cuda.launches
+    got = gb.multi_step_packed_cuda(packed, k)
+    assert gb.multi_step_packed_cuda.launches == launches + -(-k // 32)
+    assert torch.equal(got, gb.multi_step_packed_plain(packed, k))
+    assert torch.equal(gb.multi_step_packed_cuda(packed, 0), packed.view(
+        torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [((256, 256), 5), ((512, 512), 20),
+                                     ((96, 160), 17), ((20, 30), 9)])
+def test_b8_kernel_matches_plain_on_card(shape, k):
+    dev = _card()
+    g = _grid(shape, k, dev).to(torch.float32)
+    launches = gs.multi_step_pallas_cuda.launches
+    got = gs.multi_step_pallas_cuda(g, k)
+    assert gs.multi_step_pallas_cuda.launches == launches + -(-k // 8)
+    assert torch.equal(got.view(torch.int32),
+                       gs.multi_step_pallas_plain(g, k).view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,key_hi", [(256, 7), (4096, 1 << 30),
+                                      (131072, 1000)])
+def test_b6_kernel_matches_plain_on_card(n, key_hi):
+    """Bit-equal keys, idx and five payloads (f32 and int32), ties
+    included, at the N-body's n = 131,072."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(n)
+    key = torch.randint(0, key_hi, (n,), generator=gen,
+                        dtype=torch.int32).to(dev)
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    vals = [torch.randn(n, generator=gen).to(dev) for _ in range(4)]
+    vals.append(torch.randint(-9, 9, (n,), generator=gen,
+                              dtype=torch.int32).to(dev))
+    launches = sb.sort_kv_cuda.launches
+    kk, ik, vk = sb.sort_kv_cuda(key, idx, vals)
+    # one shared-memory pass per stage of 1,024-element segments, one
+    # launch per larger substage: 1, 6 and 36 grid launches
+    seg = min(n, 1024).bit_length() - 1
+    stages = range(seg + 1, n.bit_length())
+    assert sb.sort_kv_cuda.launches == launches + 1 + sum(
+        s - seg + 1 for s in stages)
+    kp, ip, vp = sb.sort_kv_plain(key, idx, vals)
+    assert torch.equal(kk, kp) and torch.equal(ik, ip)
+    for a, b in zip(vk, vp):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1024, 16384])
+@pytest.mark.parametrize("approx", [False, True])
+def test_b5_kernel_matches_plain_on_card(n, approx):
+    """Forces within chip_smoke.B5_RTOL of the plain version: the largest
+    |dF| over the largest |F|."""
+    dev = _card()
+    px, py, _, _, m = stable_orbits(torch.Generator().manual_seed(n), n,
+                                    device=dev)
+    launches = npl.forces_pallas_cuda.launches
+    kx, ky = npl.forces_pallas_cuda(px, py, m, approx)
+    assert npl.forces_pallas_cuda.launches == launches + 1
+    px_, py_ = npl.forces_pallas_plain(px, py, m)
+    rel = float(torch.hypot(kx - px_, ky - py_).max()
+                / torch.hypot(px_, py_).max())
+    assert rel < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["auto", "pallas"])
+def test_gol_experiment_on_card_matches_cpu(backend):
+    dev = _card()
+    frames = []
+    for d in (dev, torch.device("cpu")):
+        exp = GoLExperiment(d)
+        st = exp.init(pattern="gun", steps_per_frame=8, backend=backend)
+        for _ in range(3):
+            st = exp.step(st)
+        frames.append(exp.render(st, 512, 512).cpu())
+    assert torch.equal(frames[0], frames[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,theta", [(4096, 0.85), (1024, 0.85),
+                                     (10_000, 0.85), (2048, 0.0)])
+def test_nbody_experiment_on_card_matches_cpu(n, theta):
+    """Three steps from the same initial conditions (BH with B6, brute B5,
+    BH with argsort, brute B5 at theta 0): frames within the N-body
+    golden's 1% of pixels, positions within 1e-3."""
+    dev = _card()
+    frames, pos = [], []
+    for d in (dev, torch.device("cpu")):
+        exp = NBodyExperiment(d)
+        st = exp.init(n=n, theta=theta)
+        for _ in range(3):
+            st = exp.step(st)
+        frames.append(exp.render(st, 256, 256).cpu())
+        pos.append(torch.stack([st.px, st.py]).cpu())
+    assert int((frames[0] != frames[1]).sum()) <= 0.01 * 256 * 256
+    assert float((pos[0] - pos[1]).abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_morton_sort_routes_agree_on_card(monkeypatch):
+    dev = _card()
+    px, py, vx, vy, m = stable_orbits(torch.Generator().manual_seed(5),
+                                      131072, device=dev)
+    a = bh.morton_sort(px, py, m, vx, vy)
+    monkeypatch.setattr(bh, "USE_BITONIC_SORT", False)
+    b = bh.morton_sort(px, py, m, vx, vy)
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))

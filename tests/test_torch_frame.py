@@ -61,7 +61,7 @@ def test_render_frame_matches_jax(sphere, per_pixel):
     assert not bool(stale)
     assert _diff(want, got) <= GOLDEN_FRAC * W * H
     carried = interop.queue_from_numpy(
-        {f: np.asarray(getattr(qj, f)) for f in qj._fields})
+        {f: np.asarray(getattr(qj, f)) for f in qj._fields}, CPU)
     assert _diff(want, tpp.render_frame(st, eye, 0.7, raster_queue=carried,
                                         **kw)) <= GOLDEN_FRAC * W * H
     bg = np.asarray(jpp.background(0, W, H))
@@ -71,7 +71,7 @@ def test_render_frame_matches_jax(sphere, per_pixel):
 def test_interop_scene_matches_make_scene(sphere):
     sj, st = sphere
     carried = interop.scene_from_numpy(
-        {f: np.asarray(getattr(sj, f)) for f in sj._fields})
+        {f: np.asarray(getattr(sj, f)) for f in sj._fields}, CPU)
     for f in st._fields:
         assert torch.equal(getattr(carried, f), getattr(st, f)), f
 
