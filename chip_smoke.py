@@ -5,41 +5,51 @@
 Drives rustexp_tpu_torch, the port, never the JAX package:
 
   1. requires a CUDA device and prints nvidia-smi's name and power limit;
-  2. builds the port's six CUDA kernels from rustexp_tpu_torch/csrc/, one
-     nvcc per source, all started together;
+  2. builds the port's six CUDA libraries (eight kernels) from
+     rustexp_tpu_torch/csrc/, one nvcc per source, all started together;
   3. holds each kernel against its plain PyTorch version on the card, at
      the main paths' shapes: B1 (the flat-queue raster) on the procedural
-     Killeroo and TorusKnot, per-vertex (V) and per-pixel (P), under the
-     coverage mask, and B2 (the binned raster) on CubeV and CubeP at
-     suggest_binning's cap and spans (the suite's shapes) and on
-     TorusKnotP and KillerooP at render_frame(backend="pallas")'s default
-     bins, 512x512, bit for bit (0 mismatching words); B4 (SWAR GoL) at
-     packed [8, 256] and [64, 2048] and B8 (the f32 GoL stencil) at 256^2
-     and 512^2, bit for bit; B6 (the bitonic sort) at n = 131,072 with the
-     N-body's five payloads, bit for bit; B5 (all-pairs forces) at
+     Killeroo and TorusKnot, per-vertex (V) and per-pixel (P), and
+     KillerooP with ray_world=False (its (4, 6) form), under the coverage
+     mask; B2 (the binned raster) on CubeV and CubeP at suggest_binning's
+     cap and spans (the suite's shapes) and on TorusKnotP and KillerooP at
+     render_frame(backend="pallas")'s default bins, and B3 (its G-buffer
+     form) on Killeroo and Cube at raster_gbuffer_pallas's default bins
+     and on four 128-row bands of Killeroo, 512x512, bit for bit (0
+     mismatching words); B7 (B1's depth race alone) on KillerooP and
+     TorusKnotP, slot on every word and z where a pair won; B4 (SWAR GoL)
+     at packed [8, 256] and [64, 2048] and B8 (the f32 GoL stencil) at
+     256^2 and 512^2, bit for bit; B6 (the bitonic sort) at n = 131,072
+     with the N-body's five payloads, bit for bit; B5 (all-pairs forces) at
      N = 16,384 and 131,072 with both reciprocals, within B5_RTOL;
   4. runs each main path with the launch counters set to 0 just before it
      and read just after, and fails if its kernel never ran: the queue path
      (RasterizerExperiment.render, KillerooV and KillerooP, a few ticks),
      the bins path (the same on Cube, mesh 9) and the 12-scene run_suite;
-     the GoL Experiment at 256^2 (auto -> B4, pallas -> B8); the N-body
-     Experiment at N = 131,072 (theta 0.85 -> block BH, its Morton sort
-     B6; theta 0 -> brute force, B5) and at N = 10,000 (BH, argsort);
-     bench_gol (256^2, 2048^2) and bench_nbody (brute and BH at 131,072).
-     Each raster Experiment frame must be more than background and match
-     the port's CPU frame within 0.3% of pixels (the repo's golden bound,
-     tests/test_golden.py); GoL frames from the card must equal the CPU's
-     bit for bit, and N-body frames after a few steps from the same
-     initial conditions match within 1% of pixels (the N-body golden's
-     bound);
+     the G-buffer band path (render_frame_sharded(group=None,
+     backend="pallas") and four bands one after another -> B3), the
+     deferred queue frame (raster_and_shade_queue(defer=True), P and V ->
+     B7), and render_frame(backend="xla") and the Experiment at a 500x500
+     window, which must launch no kernel; the GoL Experiment at 256^2
+     (auto -> B4, pallas -> B8); the N-body Experiment at N = 131,072
+     (theta 0.85 -> block BH, its Morton sort B6; theta 0 -> brute force,
+     B5) and at N = 10,000 (BH, argsort); bench_gol (256^2, 2048^2) and
+     bench_nbody (brute and BH at 131,072). Each raster frame must be more
+     than background and match the port's CPU frame within 0.3% of pixels
+     (the repo's golden bound, tests/test_golden.py); the xla, pallas and
+     B3 band frames must equal each other and the deferred frames the
+     planes frames at 0 px; GoL frames from the card must equal the CPU's bit for
+     bit, and N-body frames after a few steps from the same initial
+     conditions match within 1% of pixels (the N-body golden's bound);
   5. prints times, each with the card's name and power limit: each
      kernel's device time (torch.profiler), its wrapper call's and its
      plain version's (CUDA events), the bench frames, the suite and the
      GoL and N-body bench records, and per bench scene the device-busy
      time, device activities and raster kernel time per frame
      (torch.profiler) with the device's idle share of the suite's
-     unprofiled frame time, and the same per generation or step for each
-     GoL and N-body bench record.
+     unprofiled frame time, the same per G-buffer and deferred path
+     against its CUDA-event frame time, and per GoL and N-body bench
+     record per generation or step.
 
 Its last lines are nvidia-smi's name and power limit, a JSON object of the
 kernels (grid launches on the main paths, error, times and each one's
@@ -59,8 +69,16 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 W = H = 512
-B1_SCENES = (("KillerooV", 0, False), ("KillerooP", 0, True),
-             ("TorusKnotV", 6, False), ("TorusKnotP", 6, True))
+# (label, mesh, per_pixel, ray_world): ray_world=False is B1's (4, 6) form
+B1_SCENES = (("KillerooV", 0, False, True), ("KillerooP", 0, True, True),
+             ("TorusKnotV", 6, False, True), ("TorusKnotP", 6, True, True),
+             ("KillerooP ray_world=False", 0, True, False))
+# B3 at raster_gbuffer_pallas's default bins: (label, mesh, bands). A
+# G-buffer carries no attributes, so V and P frames give B3 the same input.
+B3_SCENES = (("Killeroo", 0, 1), ("Cube", 9, 1), ("Killeroo 4 bands", 0, 4))
+B7_SCENES = (("KillerooP", 0, True), ("TorusKnotP", 6, True))
+UNTILEABLE = 500  # an Experiment window of partial tiles: the G-buffer oracle
+PATH_FRAMES = 10  # frames per G-buffer or deferred path under the profiler
 # (label, mesh, per_pixel, binning): "suite" = suggest_binning's cap and
 # spans, as bench_scene renders the Cube; "default" = render_frame's
 # backend="pallas" without them (capacity T, dense coverage binning)
@@ -268,7 +286,7 @@ def b1_vs_plain(dev, pp, rq, meshes, cubemap, camera):
     """B1 against its plain version at the main path's shapes.
     Returns {label: record}."""
     out = {}
-    for label, mesh_idx, per_pixel in B1_SCENES:
+    for label, mesh_idx, per_pixel, ray_world in B1_SCENES:
         scene = pp.make_scene(meshes.get_mesh(mesh_idx),
                               cubemap.get_cm_set(0), dev)
         eye = camera.camera_eye(meshes.mesh_camera(mesh_idx), 0.0)
@@ -276,7 +294,8 @@ def b1_vs_plain(dev, pp, rq, meshes, cubemap, camera):
         colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0,
                                                          W, H, 5)
         setup, extra, n2, n3 = pp.queue_attr_channels(
-            scene, colors, eye, W, H, per_pixel=per_pixel)
+            scene, colors, eye, W, H, per_pixel=per_pixel,
+            ray_world=ray_world)
         rows_i, rows_f = rq.gather_rows(queue, rq.pack_table(setup, extra))
         args = (queue.scal, rows_i, rows_f, n2, n3, H, W)
         zk, sk, lk = rq.raster_attrs_queue_cuda(*args)
@@ -365,6 +384,116 @@ def b2_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera):
               f"in {n_tiles} tiles (cap {cap_}, largest bin "
               f"{int(bins.counts.max())}), n2={n2} n3={n3}: {bad} "
               f"mismatching words, max_abs_err {err}", flush=True)
+    return out
+
+
+def b3_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera):
+    """B3 against its plain version at raster_gbuffer_pallas's default
+    bins, whole 512x512 frames and four 128-row bands (y_shift), bit for
+    bit on every word. Returns {label: record}."""
+    out = {}
+    for label, mesh_idx, n_bands in B3_SCENES:
+        scene = pp.make_scene(meshes.get_mesh(mesh_idx),
+                              cubemap.get_cm_set(0), dev)
+        eye = camera.camera_eye(meshes.mesh_camera(mesh_idx), 0.0)
+        vp, _, _ = pp.transform_vertices(scene, eye, W, H)
+        band_h = H // n_bands
+        calls = []
+        for b in range(n_bands):
+            setup = setup_triangles(vp, scene.tris, W, band_h,
+                                    y_shift=b * band_h)
+            bins = rb.bin_triangles(setup, band_h, W,
+                                    rb._bins_cap(setup.A.shape[0], None))
+            if bool(bins.overflow):
+                raise RuntimeError(f"B3 {label}: the bins overflowed")
+            calls.append((bins.counts, bins.setup_i, bins.setup_f, band_h, W))
+        bad = covered = slots = tests = bytes_moved = 0
+        err = 0.0
+        ntx = W // rb.TILE_W
+        for args in calls:
+            zk, sk, bk = rb.raster_gbuffer_bins_cuda(*args)
+            zp, sp, bp = rb.raster_gbuffer_bins_plain(*args)
+            torch.cuda.synchronize(dev)
+            bad += int((sk != sp).sum())
+            bad += int((zk.view(torch.int32) != zp.view(torch.int32)).sum())
+            bad += int((bk.view(torch.int32) != bp.view(torch.int32)).sum())
+            err = max(err, float((zk - zp).abs().max()),
+                      float((bk - bp).abs().max()))
+            covered += int((sp >= 0).sum())
+            counts, setup_i, setup_f = args[:3]
+            n_tiles, cap, _ = setup_i.shape
+            live = (torch.arange(cap, device=dev)[None, :]
+                    < counts[:, None])                            # [nT, cap]
+            tiles = torch.arange(n_tiles, device=dev)
+            slots += int(live.sum())
+            tests += int((box_px(setup_i, ((tiles % ntx) * rb.TILE_W)[:, None],
+                                 ((tiles // ntx) * rb.TILE_H)[:, None],
+                                 rb.TILE_H, rb.TILE_W) * live).sum())
+            bytes_moved += (counts.numel() * 4
+                            + int(live.sum()) * (setup_i.shape[2]
+                                                 + setup_f.shape[2]) * 4
+                            + 5 * band_h * W * 4)
+        bms, by = bound(bytes_moved, tests, covered, 0, 0)
+        run = lambda: [rb.raster_gbuffer_bins_cuda(*a) for a in calls]
+        out[label] = dict(
+            err=err, bad=bad, covered=covered,
+            ms=kernel_ms(run, 20, ("bins_gbuffer_kernel",)),
+            call_ms=cuda_ms(run, 20),
+            plain_ms=cuda_ms(
+                lambda: [rb.raster_gbuffer_bins_plain(*a) for a in calls], 3),
+            bound_ms=bms, bound_by=by,
+            work=f"{slots} slots in {n_bands} call(s), cap "
+                 f"{calls[0][1].shape[1]}")
+        print(f"B3 {label}: {covered} covered px, {slots} bin slots in "
+              f"{n_bands} call(s): {bad} mismatching words, max_abs_err "
+              f"{err}", flush=True)
+    return out
+
+
+def b7_vs_plain(dev, pp, rq, meshes, cubemap, camera):
+    """B7 against its plain version on the scene's queue at 512x512: slot
+    on every word, z under slot >= 0. Returns {label: record}."""
+    out = {}
+    for label, mesh_idx, per_pixel in B7_SCENES:
+        scene = pp.make_scene(meshes.get_mesh(mesh_idx),
+                              cubemap.get_cm_set(0), dev)
+        eye = camera.camera_eye(meshes.mesh_camera(mesh_idx), 0.0)
+        queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
+        colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0,
+                                                         W, H, 5)
+        setup, extra, _, _ = pp.queue_attr_channels(
+            scene, colors, eye, W, H, per_pixel=per_pixel)
+        rows_i, rows_f = rq.gather_rows(queue, rq.pack_table(setup, extra))
+        args = (queue.scal, rows_i, rows_f, H, W)
+        zk, sk = rq.raster_zslot_queue_cuda(*args)
+        zp, sp = rq.raster_zslot_queue_plain(*args)
+        torch.cuda.synchronize(dev)
+        won = sp >= 0
+        bad = int((sk != sp).sum())
+        bad += int((zk.view(torch.int32) != zp.view(torch.int32))[won].sum())
+        err = float((zk - zp)[won].abs().max()) if won.any() else 0.0
+
+        scal = queue.scal
+        live = (torch.arange(rq.CHUNK, device=dev)[None, :]
+                < scal[:, 3:4])                                  # [S, CHUNK]
+        pairs = int(live.sum())
+        rec = rows_i.permute(0, 2, 1)                        # [S, CHUNK, 12]
+        tests = int((box_px(rec, (scal[:, 1] * rq.TILE_W)[:, None],
+                            (scal[:, 4] * rq.TILE_H)[:, None], rq.TILE_H,
+                            rq.TILE_W) * live).sum())
+        # the race reads 12 int and 7 float channels of a live pair
+        bytes_moved = (scal.numel() * 4 + pairs * (rows_i.shape[1] + 7) * 4
+                       + zk.numel() * 4 + sk.numel() * 4)
+        bms, by = bound(bytes_moved, tests, 0, 0, 0)
+        run = lambda: rq.raster_zslot_queue_cuda(*args)
+        out[label] = dict(
+            err=err, bad=bad, covered=int(won.sum()),
+            ms=device_ms(run, 50, "queue_zslot_kernel"),
+            call_ms=cuda_ms(run, 50),
+            plain_ms=cuda_ms(lambda: rq.raster_zslot_queue_plain(*args), 5),
+            bound_ms=bms, bound_by=by, work=f"{pairs} pairs")
+        print(f"B7 {label}: {int(won.sum())} covered px, {pairs} pairs: "
+              f"{bad} mismatching words, max_abs_err {err}", flush=True)
     return out
 
 
@@ -605,6 +734,165 @@ def nbody_card_vs_cpu(dev, nb_exp) -> str | None:
     return None
 
 
+def gbuffer_paths(dev, card, pp, shard, meshes, cubemap, camera, exp_cls,
+                  counters, launches):
+    """The G-buffer and deferred paths on KillerooP at 512x512, TICKS, each
+    counted on its own: render_frame_sharded(group=None, backend="pallas")
+    and four 128-row bands one after another (B3), render_frame(
+    backend="xla") and the Experiment at a 500x500 window (no kernel),
+    raster_and_shade_queue(defer=True) P and V (B7). The xla, pallas (B2)
+    and band (B3) frames must equal each other and defer the planes
+    frames (B1) at 0 px, and card frames the port's CPU frames within
+    GOLDEN_FRAC.
+    Returns (failure message or None, [(label, frame fn, kernel name)] for
+    the profiles)."""
+    cpu = torch.device("cpu")
+    scenes = {d: pp.make_scene(meshes.get_mesh(0), cubemap.get_cm_set(0), d)
+              for d in (dev, cpu)}
+    eyes = {t: camera.camera_eye(meshes.mesh_camera(0), t) for t in TICKS}
+    kw = dict(w=W, h=H, per_pixel=True, shader_idx=5)
+
+    def counted(label, fn, kernel):
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize(dev)
+        got = {k: c.launches for k, c in counters.items()}
+        print(f"launches during {label}: {got} [{card}]", flush=True)
+        if kernel is None and any(got.values()):
+            raise RuntimeError(f"{label} launched a kernel: {got}")
+        if kernel is not None and got[kernel] == 0:
+            raise RuntimeError(f"{label} never launched kernel {kernel}")
+        for k in counters:
+            launches[k] += got[k]
+        return out
+
+    def sharded(d, t):
+        return shard.render_frame_sharded(scenes[d], eyes[t], t, None,
+                                          backend="pallas", **kw)
+
+    def bands(d, t):
+        return torch.cat([shard.render_band(
+            scenes[d], eyes[t], t, band=b, n_bands=4, backend="pallas",
+            **kw)[0] for b in range(4)]).view(torch.uint32)
+
+    def oracle(d, t, backend="xla"):
+        return pp.render_frame(scenes[d], eyes[t], t, backend=backend,
+                               show_cm=False, **kw)
+
+    got = {"band path": counted(
+               "render_frame_sharded(group=None, backend='pallas')",
+               lambda: [sharded(dev, t) for t in TICKS], "B3"),
+           "4 bands": counted("4 bands one after another",
+                              lambda: [bands(dev, t) for t in TICKS], "B3"),
+           "xla": counted("render_frame(backend='xla')",
+                          lambda: [oracle(dev, t) for t in TICKS], None)}
+    empty = pp.background(0, W, H, "cpu")
+    for i, t in enumerate(TICKS):
+        ref = got["xla"][i].cpu().view(torch.int32)
+        cpu_ref = oracle(cpu, t).view(torch.int32)
+        drawn = int((ref != empty).sum())
+        diffs = {k: int((v[i].cpu().view(torch.int32) != ref).sum())
+                 for k, v in got.items()}
+        diffs["pallas (B2)"] = int(
+            (oracle(dev, t, "pallas").cpu().view(torch.int32) != ref).sum())
+        diffs["xla CPU"] = int((ref != cpu_ref).sum())
+        if i == 0:
+            diffs["band path CPU (plain B3)"] = int(
+                (sharded(cpu, t).view(torch.int32) != cpu_ref).sum())
+        print(f"G-buffer frames KillerooP tick {t}: {drawn} px drawn; px "
+              f"differing from the card's xla frame: {diffs}", flush=True)
+        if drawn < W * H // 100 or any(
+                v for k, v in diffs.items() if "CPU" not in k):
+            return f"G-buffer frames tick {t}: {drawn} drawn, {diffs}", []
+        if max(v for k, v in diffs.items() if "CPU" in k) > GOLDEN_FRAC * W * H:
+            return f"G-buffer frames tick {t}: {diffs} vs the CPU", []
+
+    exp, cpu_exp = exp_cls(dev), exp_cls(cpu)
+    st, cpu_st = exp.init(per_pixel=True), cpu_exp.init(per_pixel=True)
+    n = UNTILEABLE
+    frames = counted(f"the Experiment at {n}x{n}",
+                     lambda: [exp.render(st, n, n, t) for t in TICKS], None)
+    bg = pp.background(0, n, n, "cpu")
+    for t, fb in zip(TICKS, frames):
+        ref = cpu_exp.render(cpu_st, n, n, t).view(torch.int32)
+        gpu = fb.cpu().view(torch.int32)
+        drawn, diff = int((gpu != bg).sum()), int((gpu != ref).sum())
+        print(f"Experiment KillerooP {n}x{n} tick {t} ({exp.status(st)}): "
+              f"{drawn} px drawn, {diff} px differ from the port's CPU "
+              f"frame [{card}]", flush=True)
+        if fb.shape != (n, n) or fb.dtype != torch.uint32 or (
+                drawn < n * n // 100 or diff > GOLDEN_FRAC * n * n):
+            return f"Experiment {n}x{n} tick {t}: {drawn} drawn, {diff}", []
+
+    profiles = [
+        (f"KillerooP {W}x{H} xla (oracle)", lambda: oracle(dev, 0.0), None),
+        (f"KillerooP {W}x{H} band path (B3, 1 band)",
+         lambda: sharded(dev, 0.0), "bins_gbuffer_kernel"),
+        (f"KillerooP {W}x{H} 4 bands (B3)", lambda: bands(dev, 0.0),
+         "bins_gbuffer_kernel"),
+        (f"KillerooP {n}x{n} Experiment (oracle)",
+         lambda: exp.render(st, n, n, 0.0), None)]
+    for per_pixel in (True, False):
+        tag = "P" if per_pixel else "V"
+        queues = {(d, t): pp.build_scene_queue(scenes[d], eyes[t], W, H,
+                                               per_pixel=per_pixel)
+                  for d in (dev, cpu) for t in TICKS if d == dev or t == 0}
+
+        def queue_frame(d, t, defer, per_pixel=per_pixel, queues=queues):
+            colors = None if per_pixel else pp.vertex_colors(
+                scenes[d], eyes[t], t, W, H, 5)
+            return pp.raster_and_shade_queue(
+                scenes[d], queues[(d, t)], colors, eyes[t], t, w=W, h=H,
+                per_pixel=per_pixel, shader_idx=5,
+                bg_fb=pp.background(0, W, H, d), defer=defer)
+
+        deferred = counted(f"raster_and_shade_queue(defer=True) Killeroo{tag}",
+                           lambda: [queue_frame(dev, t, True)
+                                    for t in TICKS], "B7")
+        for t, (fb, stale) in zip(TICKS, deferred):
+            planes, _ = queue_frame(dev, t, False)
+            diff = int((fb != planes).sum())
+            cpu_diff = -1
+            if t == TICKS[0]:
+                cpu_diff = int((fb.cpu() != queue_frame(cpu, t, True)[0])
+                               .sum())
+            drawn = int((fb.cpu() != empty).sum())
+            print(f"deferred Killeroo{tag} tick {t}: {drawn} px drawn, "
+                  f"stale {bool(stale)}, {diff} px differ from the planes "
+                  f"frame (B1), {cpu_diff} from the port's CPU deferred "
+                  f"frame (-1: not compared) [{card}]", flush=True)
+            if (diff or bool(stale) or drawn < W * H // 100
+                    or cpu_diff > GOLDEN_FRAC * W * H):
+                return (f"deferred Killeroo{tag} tick {t}: {diff} px vs "
+                        f"planes, {cpu_diff} vs CPU, {drawn} drawn"), []
+        profiles += [
+            (f"Killeroo{tag} {W}x{H} deferred (B7)",
+             lambda f=queue_frame: f(dev, 0.0, True), "queue_zslot_kernel"),
+            (f"Killeroo{tag} {W}x{H} planes (B1)",
+             lambda f=queue_frame: f(dev, 0.0, False), "queue_raster_kernel")]
+    return None, profiles
+
+
+def path_profiles(profiles) -> list[dict]:
+    """Per G-buffer or deferred path: wall ms per frame (CUDA events around
+    PATH_FRAMES back-to-back frames, host time included), device-busy ms,
+    device activities and kernel ms per frame (torch.profiler), and the
+    idle share 1 - busy / wall."""
+    out = []
+    for label, fn, kernel in profiles:
+        wall = cuda_ms(fn, PATH_FRAMES)
+        events = device_events(fn, PATH_FRAMES)
+        busy = busy_ms(events) / PATH_FRAMES
+        k_ms = sum(e.time_range.end - e.time_range.start for e in events
+                   if kernel and kernel in e.name) / 1e3 / PATH_FRAMES
+        out.append(dict(label=label, wall_ms=wall, busy_ms=busy,
+                        idle=1.0 - busy / wall,
+                        activities=len(events) / PATH_FRAMES,
+                        kernel_ms=k_ms))
+    return out
+
+
 def bench_profiles(dev, records, gb, bh, npl, stable_orbits) -> list[dict]:
     """Per GoL and N-body bench record, where its time goes on the card:
     device-busy ms and device activities per generation or step, by the
@@ -643,6 +931,7 @@ def main() -> int:
     from rustexp_tpu_torch.ops import raster_bins as rb, raster_queue as rq
     from rustexp_tpu_torch.ops import sort_bitonic as sb
     from rustexp_tpu_torch.ops.raster_setup import setup_triangles
+    from rustexp_tpu_torch.parallel import raster_shard
     from rustexp_tpu_torch.raster import camera, pipeline as pp
     from rustexp_tpu_torch.runtime import device, load_kernel_lib
     from rustexp_tpu_torch.sims.gol import GoLExperiment
@@ -678,7 +967,10 @@ def main() -> int:
     # Phase 3: each kernel against its plain version, on the card.
     cmp1 = b1_vs_plain(dev, pp, rq, meshes, cubemap, camera)
     cmp2 = b2_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera)
-    for kernel, cmp in (("B1", cmp1), ("B2", cmp2)):
+    cmp3 = b3_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera)
+    cmp7 = b7_vs_plain(dev, pp, rq, meshes, cubemap, camera)
+    for kernel, cmp in (("B1", cmp1), ("B2", cmp2), ("B3", cmp3),
+                        ("B7", cmp7)):
         for label, r in cmp.items():
             if r["bad"] or r["covered"] == 0:
                 return fail(f"{kernel} {label}: {r['bad']} mismatching "
@@ -697,9 +989,11 @@ def main() -> int:
     # Phase 4: the main paths, each counted on its own.
     counters = {"B1": rq.raster_attrs_queue_cuda,
                 "B2": rb.raster_attrs_bins_cuda,
+                "B3": rb.raster_gbuffer_bins_cuda,
                 "B4": gb.multi_step_packed_cuda,
                 "B5": npl.forces_pallas_cuda,
                 "B6": sb.sort_kv_cuda,
+                "B7": rq.raster_zslot_queue_cuda,
                 "B8": gs.multi_step_pallas_cuda}
     path_kernels = {"Killeroo": ("B1",), "Cube": ("B2",),
                     "run_suite": ("B1", "B2")}
@@ -760,6 +1054,11 @@ def main() -> int:
         if diff > GOLDEN_FRAC * W * H:
             return fail(f"{label}: {diff} px differ from the CPU frame")
 
+    msg, profiles = gbuffer_paths(dev, card, pp, raster_shard, meshes,
+                                  cubemap, camera, RasterizerExperiment,
+                                  counters, launches)
+    if msg:
+        return fail(msg)
     for msg in (gol_paths(dev, card, GoLExperiment, counters, launches),
                 nbody_paths(dev, card, NBodyExperiment, counters, launches),
                 nbody_card_vs_cpu(dev, NBodyExperiment)):
@@ -791,7 +1090,8 @@ def main() -> int:
         records.append((label, rec))
 
     # Phase 5: times, each beside the card's name and power limit.
-    for kernel, cmp in (("B1", cmp1), ("B2", cmp2)):
+    for kernel, cmp in (("B1", cmp1), ("B2", cmp2), ("B3", cmp3),
+                        ("B7", cmp7)):
         for label, r in cmp.items():
             print(f"time {kernel} {label} 512x512 ({r['work']}): kernel "
                   f"{r['ms']:.4f} ms (device, profiler), wrapper call "
@@ -812,6 +1112,13 @@ def main() -> int:
               f"kernel {r['raster_ms']:.4f} ms/frame; idle share "
               f"{r['idle'] * 100:.1f}% of the run_suite median "
               f"{r['wall_ms']:.4f} ms/frame [{card}]")
+    for r in path_profiles(profiles):
+        print(f"profile path {r['label']} ({PATH_FRAMES} frames): "
+              f"wall {r['wall_ms']:.4f} ms/frame (CUDA events), device busy "
+              f"{r['busy_ms']:.4f} ms/frame (profiler, union of the card's "
+              f"activities), {r['activities']:.1f} device activities/frame, "
+              f"kernel {r['kernel_ms']:.4f} ms/frame; idle share "
+              f"{r['idle'] * 100:.1f}% [{card}]")
     for kernel, cmp in (("B4", cmp4), ("B8", cmp8), ("B6", cmp6),
                         ("B5", cmp5)):
         for label, r in cmp.items():
@@ -854,6 +1161,9 @@ def main() -> int:
               "rustexp_tpu/ops/raster_queue.py:690", "B1", cmp1, "KillerooP"),
         entry("bins_raster (B2)", "rustexp_tpu_torch/csrc/raster_bins.cu",
               "rustexp_tpu/ops/raster_pallas.py:338", "B2", cmp2, "CubeP"),
+        entry("bins_gbuffer (B3)", "rustexp_tpu_torch/csrc/raster_bins.cu",
+              "rustexp_tpu/ops/raster_pallas.py:138", "B3", cmp3,
+              "Killeroo"),
         entry("gol_swar (B4)", "rustexp_tpu_torch/csrc/gol_swar.cu",
               "rustexp_tpu/ops/gol_bits.py:113", "B4", cmp4, "2048x2048"),
         entry("nbody_forces (B5)", "rustexp_tpu_torch/csrc/nbody_forces.cu",
@@ -861,6 +1171,9 @@ def main() -> int:
               (NBODY_N, True)),
         entry("sort_bitonic (B6)", "rustexp_tpu_torch/csrc/sort_bitonic.cu",
               "rustexp_tpu/ops/sort_bitonic.py:125", "B6", cmp6, str(B6_N)),
+        entry("queue_zslot (B7)", "rustexp_tpu_torch/csrc/raster_queue.cu",
+              "rustexp_tpu/ops/raster_queue.py:799", "B7", cmp7,
+              "KillerooP"),
         entry("gol_stencil (B8)", "rustexp_tpu_torch/csrc/gol_stencil.cu",
               "rustexp_tpu/ops/gol_stencil.py:99", "B8", cmp8, "512x512"),
     ]}))

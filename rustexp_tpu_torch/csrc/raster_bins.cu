@@ -1,9 +1,14 @@
-// Kernel B2 of the port: the binned tile rasterizer, for Hopper (sm_90a).
+// Kernels B2 and B3 of the port: the binned tile rasterizer and its
+// G-buffer form, for Hopper (sm_90a).
 //
-// Replaces rustexp_tpu/ops/raster_pallas.py::_attr_tile_kernel (the Pallas
-// kernel that raster_attrs_pallas launches through pl.pallas_call). Python
-// wrapper: rustexp_tpu_torch/ops/raster_bins.py::raster_attrs_bins_cuda;
-// its plain PyTorch version, raster_attrs_bins_plain, sits beside it.
+// B2 replaces rustexp_tpu/ops/raster_pallas.py::_attr_tile_kernel (the
+// Pallas kernel that raster_attrs_pallas launches through pl.pallas_call).
+// Python wrapper: rustexp_tpu_torch/ops/raster_bins.py::
+// raster_attrs_bins_cuda; its plain PyTorch version,
+// raster_attrs_bins_plain, sits beside it. B3 replaces _tile_kernel
+// (raster_gbuffer_pallas's pallas_call): the same race, storing the
+// winner's barycentrics b0, b1, b2 instead of planes. Wrapper:
+// raster_gbuffer_bins_cuda; plain version: raster_gbuffer_bins_plain.
 //
 // What it computes. The frame is cut into 32x128 tiles. Bin t holds
 // counts[t] triangle records in submission order: setup_i (A0 A1 B0 B1 C0
@@ -15,7 +20,9 @@
 // the 2-MAD lerp, and a strict depth race: a fragment wins when z < z_cur,
 // so an earlier slot keeps a tie and a fragment at z >= 1.0 never beats the
 // clear (z = 1.0, slot = -1, planes 0). Output: z, the winning slot, and
-// the winner's n2 2-MAD and n3 3-weight attribute planes.
+// the winner's n2 2-MAD and n3 3-weight attribute planes. B3 outputs z,
+// the winning slot and the winner's b0, b1, b2 (0 where nobody wins): five
+// words per pixel, every tile written.
 //
 // Design. The TPU grid walks a tile's bin chunks in order on one core and
 // carries z in VMEM. Here each pixel's race is independent of every other
@@ -79,37 +86,22 @@ __device__ __forceinline__ float bary(uint32_t e, int bias, float inv_a2) {
                        e - static_cast<uint32_t>(bias))), inv_a2);
 }
 
-template <int N2, int N3>
-__global__ void __launch_bounds__(THREADS)
-bins_raster_kernel(const int* __restrict__ counts,
-                   const int* __restrict__ setup_i,
-                   const float* __restrict__ setup_f,
-                   float* __restrict__ z_out, int* __restrict__ slot_out,
-                   float* __restrict__ lin_out, int cap, int ntx, int h,
-                   int w) {
-  constexpr int NP = N2 + N3;
-  constexpr int FCH = F_CH + 3 * NP;
-  static_assert(NP > 0, "at least one attribute plane");
-  __shared__ int si[STAGE * I_CH];
-  __shared__ float sf[STAGE * F_CH];
-
-  const int tile = blockIdx.x / STRIPS;
-  const int y0 = (tile / ntx) * TILE_H + (blockIdx.x % STRIPS) * ROWS;
-  const int x = (tile % ntx) * TILE_W + threadIdx.x;
+// The (z, slot) race of one thread's column of an 8-row strip over the
+// tile's slots, in slot order: B2's and B3's step 1. gi/gf point at the
+// tile's bin; records are fch floats apart in gf. Every thread of the
+// block calls it (it stages records in si/sf between barriers).
+__device__ __forceinline__ void strip_race(const int* __restrict__ gi,
+                                           const float* __restrict__ gf,
+                                           int fch, int count, int y0, int x,
+                                           int* si, float* sf,
+                                           float (&z)[ROWS],
+                                           int (&slot)[ROWS]) {
   const uint32_t xf = static_cast<uint32_t>(x) << 4;
-  const int count = min(max(counts[tile], 0), cap);
-  const int* gi = setup_i + static_cast<size_t>(tile) * cap * I_CH;
-  const float* gf = setup_f + static_cast<size_t>(tile) * cap * FCH;
-
-  float z[ROWS];
-  int slot[ROWS];
 #pragma unroll
   for (int k = 0; k < ROWS; ++k) {
     z[k] = 1.0f;
     slot[k] = -1;
   }
-
-  // Step 1: the (z, slot) race over the tile's slots, in slot order.
   for (int base = 0; base < count; base += STAGE) {
     const int n = min(STAGE, count - base);
     __syncthreads();  // nobody reads the previous stage any more
@@ -117,7 +109,7 @@ bins_raster_kernel(const int* __restrict__ counts,
       si[k] = gi[static_cast<size_t>(base) * I_CH + k];
     for (int k = threadIdx.x; k < n * F_CH; k += THREADS) {
       const int p = k / F_CH;
-      sf[k] = gf[static_cast<size_t>(base + p) * FCH + (k - p * F_CH)];
+      sf[k] = gf[static_cast<size_t>(base + p) * fch + (k - p * F_CH)];
     }
     __syncthreads();
 
@@ -156,6 +148,53 @@ bins_raster_kernel(const int* __restrict__ counts,
       }
     }
   }
+}
+
+// The barycentrics (b0, b1, b2) of record (ri, rf) at pixel (x, y).
+__device__ __forceinline__ void record_bary(const int* __restrict__ ri,
+                                            const float* __restrict__ rf,
+                                            int x, int y, float& b0,
+                                            float& b1, float& b2) {
+  const uint32_t xf = static_cast<uint32_t>(x) << 4;
+  const uint32_t yf = static_cast<uint32_t>(y) << 4;
+  const uint32_t e0 = static_cast<uint32_t>(ri[0]) * xf +
+                      static_cast<uint32_t>(ri[2]) * yf +
+                      static_cast<uint32_t>(ri[4]);
+  const uint32_t e1 = static_cast<uint32_t>(ri[1]) * xf +
+                      static_cast<uint32_t>(ri[3]) * yf +
+                      static_cast<uint32_t>(ri[5]);
+  const uint32_t e2 = static_cast<uint32_t>(ri[6]) - e0 - e1;
+  const float inv_a2 = rf[6];
+  b0 = bary(e0, static_cast<int>(rf[0]), inv_a2);
+  b1 = bary(e1, static_cast<int>(rf[1]), inv_a2);
+  b2 = bary(e2, static_cast<int>(rf[2]), inv_a2);
+}
+
+template <int N2, int N3>
+__global__ void __launch_bounds__(THREADS)
+bins_raster_kernel(const int* __restrict__ counts,
+                   const int* __restrict__ setup_i,
+                   const float* __restrict__ setup_f,
+                   float* __restrict__ z_out, int* __restrict__ slot_out,
+                   float* __restrict__ lin_out, int cap, int ntx, int h,
+                   int w) {
+  constexpr int NP = N2 + N3;
+  constexpr int FCH = F_CH + 3 * NP;
+  static_assert(NP > 0, "at least one attribute plane");
+  __shared__ int si[STAGE * I_CH];
+  __shared__ float sf[STAGE * F_CH];
+
+  const int tile = blockIdx.x / STRIPS;
+  const int y0 = (tile / ntx) * TILE_H + (blockIdx.x % STRIPS) * ROWS;
+  const int x = (tile % ntx) * TILE_W + threadIdx.x;
+  const int count = min(max(counts[tile], 0), cap);
+  const int* gi = setup_i + static_cast<size_t>(tile) * cap * I_CH;
+  const float* gf = setup_f + static_cast<size_t>(tile) * cap * FCH;
+
+  // Step 1: the (z, slot) race over the tile's slots, in slot order.
+  float z[ROWS];
+  int slot[ROWS];
+  strip_race(gi, gf, FCH, count, y0, x, si, sf, z, slot);
 
   // Step 2: the winners' planes, re-evaluated from the winning record.
   // Each tile row is 128 consecutive words: the stores coalesce.
@@ -171,20 +210,10 @@ bins_raster_kernel(const int* __restrict__ counts,
       for (int a = 0; a < NP; ++a) lin_out[a * plane + i] = 0.0f;
       continue;
     }
-    const int* ri = gi + static_cast<size_t>(slot[k]) * I_CH;
     const float* rf = gf + static_cast<size_t>(slot[k]) * FCH;
-    const uint32_t yf = static_cast<uint32_t>(y) << 4;
-    const uint32_t e0 = static_cast<uint32_t>(ri[0]) * xf +
-                        static_cast<uint32_t>(ri[2]) * yf +
-                        static_cast<uint32_t>(ri[4]);
-    const uint32_t e1 = static_cast<uint32_t>(ri[1]) * xf +
-                        static_cast<uint32_t>(ri[3]) * yf +
-                        static_cast<uint32_t>(ri[5]);
-    const uint32_t e2 = static_cast<uint32_t>(ri[6]) - e0 - e1;
-    const float inv_a2 = rf[6];
-    const float b0 = bary(e0, static_cast<int>(rf[0]), inv_a2);
-    const float b1 = bary(e1, static_cast<int>(rf[1]), inv_a2);
-    const float b2 = bary(e2, static_cast<int>(rf[2]), inv_a2);
+    float b0, b1, b2;
+    record_bary(gi + static_cast<size_t>(slot[k]) * I_CH, rf, x, y, b0, b1,
+                b2);
 #pragma unroll
     for (int a = 0; a < N2; ++a)
       lin_out[a * plane + i] =
@@ -209,6 +238,47 @@ cudaError_t launch(const void* counts, const void* setup_i,
       static_cast<const float*>(setup_f), static_cast<float*>(z),
       static_cast<int*>(slot), static_cast<float*>(lin), cap, ntx, h, w);
   return cudaGetLastError();
+}
+
+// B3: the G-buffer form. The same race, then the winner's z, bin slot and
+// barycentrics b0, b1, b2 (planes of b [3, h, w]); the clear (1.0, -1, 0)
+// where no slot wins. Records are fch floats apart (fch >= 7).
+__global__ void __launch_bounds__(THREADS)
+bins_gbuffer_kernel(const int* __restrict__ counts,
+                    const int* __restrict__ setup_i,
+                    const float* __restrict__ setup_f,
+                    float* __restrict__ z_out, int* __restrict__ slot_out,
+                    float* __restrict__ b_out, int cap, int fch, int ntx,
+                    int h, int w) {
+  __shared__ int si[STAGE * I_CH];
+  __shared__ float sf[STAGE * F_CH];
+
+  const int tile = blockIdx.x / STRIPS;
+  const int y0 = (tile / ntx) * TILE_H + (blockIdx.x % STRIPS) * ROWS;
+  const int x = (tile % ntx) * TILE_W + threadIdx.x;
+  const int count = min(max(counts[tile], 0), cap);
+  const int* gi = setup_i + static_cast<size_t>(tile) * cap * I_CH;
+  const float* gf = setup_f + static_cast<size_t>(tile) * cap * fch;
+
+  float z[ROWS];
+  int slot[ROWS];
+  strip_race(gi, gf, fch, count, y0, x, si, sf, z, slot);
+
+  const size_t plane = static_cast<size_t>(h) * w;
+#pragma unroll
+  for (int k = 0; k < ROWS; ++k) {
+    const int y = y0 + k;
+    const size_t i = static_cast<size_t>(y) * w + x;
+    float b0 = 0.0f, b1 = 0.0f, b2 = 0.0f;
+    if (slot[k] >= 0)
+      record_bary(gi + static_cast<size_t>(slot[k]) * I_CH,
+                  gf + static_cast<size_t>(slot[k]) * fch, x, y, b0, b1, b2);
+    z_out[i] = z[k];
+    slot_out[i] = slot[k];
+    b_out[i] = b0;
+    b_out[plane + i] = b1;
+    b_out[2 * plane + i] = b2;
+  }
 }
 
 }  // namespace
@@ -238,6 +308,29 @@ extern "C" int rb_bins_raster(const void* counts, const void* setup_i,
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(err);
+}
+
+// Launch B3 on `stream`. Pointers are device pointers: counts i32
+// [n_tiles], setup_i i32 [n_tiles, cap, 12], setup_f f32 [n_tiles, cap,
+// fch] (fch >= 7); z f32 and slot i32 [h, w], b f32 [3, h, w], all
+// written. Returns the CUDA error code of the launch (0 = ok).
+extern "C" int rb_bins_gbuffer(const void* counts, const void* setup_i,
+                               const void* setup_f, void* z, void* slot,
+                               void* b, int n_tiles, int cap, int fch,
+                               int tile_h, int tile_w, int h, int w,
+                               void* stream) {
+  if (tile_h != TILE_H || tile_w != TILE_W || h % TILE_H != 0 ||
+      w % TILE_W != 0 || n_tiles != (h / TILE_H) * (w / TILE_W) || cap < 0 ||
+      fch < F_CH)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_tiles == 0) return 0;
+  bins_gbuffer_kernel<<<n_tiles * STRIPS, THREADS, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(counts), static_cast<const int*>(setup_i),
+      static_cast<const float*>(setup_f), static_cast<float*>(z),
+      static_cast<int*>(slot), static_cast<float*>(b), cap, fch, w / TILE_W,
+      h, w);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* rustexp_cuda_error_string(int code) {

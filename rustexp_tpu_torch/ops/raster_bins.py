@@ -1,8 +1,8 @@
-"""Binned tile rasterizer: the [nT, cap] bins and kernel B2.
+"""Binned tile rasterizer: the [nT, cap] bins and kernels B2 and B3.
 
-Port of the bins half of rustexp_tpu/ops/raster_pallas.py (BinnedTris,
-bin_triangles, bin_pairs, max_bin_count, max_spans, attr_channels_2mad,
-attr_channels_3w and raster_attrs_pallas). The screen is cut into 32x128
+Port of rustexp_tpu/ops/raster_pallas.py (BinnedTris, bin_triangles,
+bin_pairs, max_bin_count, max_spans, attr_channels_2mad,
+attr_channels_3w, raster_attrs_pallas and raster_gbuffer_pallas). The screen is cut into 32x128
 tiles; every front-facing triangle is binned, in submission order, to the
 tiles its pixel AABB overlaps, and the raster walks each tile's bin in
 slot order with a strict z < depth race, so an earlier triangle keeps a
@@ -11,8 +11,11 @@ tie. This is the main path for meshes under 1,000 triangles and for
 
 Kernel B2 (``csrc/raster_bins.cu``, replacing ``_attr_tile_kernel``) runs
 for CUDA tensors; ``raster_attrs_bins_plain`` is its plain PyTorch
-version and serves CPU tensors. There is no fallback between them. B2's
-G-buffer twin (B3, ``raster_gbuffer_pallas``) is ROADMAP A16.
+version and serves CPU tensors. Kernel B3 (the same file, replacing
+``_tile_kernel``) is B2's G-buffer form behind ``raster_gbuffer_pallas``,
+the band renderer's raster: the winner's bin slot and barycentrics
+instead of planes; ``raster_gbuffer_bins_plain`` is its plain version.
+There is no fallback between a kernel and its plain version.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import torch
 import torch.nn.functional as F
 
 from ..runtime import load_kernel_lib, ptr, stream_ptr
-from .raster_queue import _eval_pairs, _fdiv
+from .raster_queue import _barycentrics, _eval_pairs, _fdiv
+from .raster_xla import GBuffer
 
 TILE_H = 32
 TILE_W = 128
@@ -222,23 +226,20 @@ def _tiles_to_frame(t: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return t.transpose(-3, -2).reshape(*lead, h, w)
 
 
-def raster_attrs_bins_plain(counts, setup_i, setup_f, n2: int, n3: int,
-                            h: int, w: int):
-    """Plain PyTorch version of kernel B2 -> (z, slot, lin) over [h, w].
+def _bins_race(counts, setup_i, setup_f, h: int, w: int):
+    """The depth race of kernels B2 and B3, plain: (z, slot) tile-major
+    [nT, TILE_H, TILE_W].
 
-    Per pixel, the kernel walks its tile's slots s < counts[tile] in
-    order and keeps a fragment when z < z_cur (strict), starting from the
-    clear z = 1.0, slot = -1. Here each pass evaluates _PLAIN_SLOTS slots
-    of every tile at once, takes the first minimum of the pass (the
-    earliest slot among equal z) and merges it into the running state with
-    the same strict <. Then only the winners' planes are evaluated, with
-    the kernel's formula on the winner's record, so they carry the same
-    bits. Pixels nobody wins keep z 1.0, slot -1, planes 0.
+    Per pixel, the kernels walk its tile's slots s < counts[tile] in order
+    and keep a fragment when z < z_cur (strict), starting from the clear
+    z = 1.0, slot = -1. Here each pass evaluates _PLAIN_SLOTS slots of
+    every tile at once, takes the first minimum of the pass (the earliest
+    slot among equal z) and merges it into the running state with the
+    same strict <.
     """
     dev = setup_f.device
     n_tiles, cap, _ = setup_i.shape
     ntx = w // TILE_W
-    npl = n2 + n3
     i32 = dict(dtype=torch.int32, device=dev)
     tiles = torch.arange(n_tiles, **i32)
     xs = ((tiles % ntx) * TILE_W)[:, None, None, None] \
@@ -252,7 +253,7 @@ def raster_attrs_bins_plain(counts, setup_i, setup_f, n2: int, n3: int,
         hi = min(lo + _PLAIN_SLOTS, cap)
         ci = setup_i[:, lo:hi].permute(2, 0, 1)[..., None, None]
         cf = setup_f[:, lo:hi, :_F_CH].permute(2, 0, 1)[..., None, None]
-        zm, _ = _eval_pairs(ci, cf, xs, ys, n2, n3, planes=False)
+        zm, _ = _eval_pairs(ci, cf, xs, ys, 0, 0, planes=False)
         live = torch.arange(lo, hi, **i32)[None, :] < counts[:, None]
         zm = torch.where(live[..., None, None] & ~torch.isnan(zm), zm,
                          torch.inf)                       # [nT, c, TH, TW]
@@ -262,19 +263,53 @@ def raster_attrs_bins_plain(counts, setup_i, setup_f, n2: int, n3: int,
         upd = zsel < z
         z = torch.where(upd, zsel, z)
         slot = torch.where(upd, first.squeeze(1).to(torch.int32) + lo, slot)
+    return z, slot
 
+
+def _winners(setup_i, setup_f, slot, w: int):
+    """The won pixels of a tile-major slot plane: (tile, row, col) indices,
+    the winners' int and float channels ([12, n], [F, n]) and their int32
+    frame coordinates."""
+    ntx = w // TILE_W
     t_i, y_i, x_i = (slot >= 0).nonzero(as_tuple=True)
     won = slot[t_i, y_i, x_i].long()
-    xs_w = ((t_i % ntx) * TILE_W + x_i).to(torch.int32)
-    ys_w = (_fdiv(t_i, ntx) * TILE_H + y_i).to(torch.int32)
-    _, lins = _eval_pairs(setup_i[t_i, won].T, setup_f[t_i, won].T,
-                          xs_w, ys_w, n2, n3, planes=True)
-    lin = torch.zeros((npl, n_tiles, TILE_H, TILE_W), dtype=torch.float32,
-                      device=dev)
+    xs = ((t_i % ntx) * TILE_W + x_i).to(torch.int32)
+    ys = (_fdiv(t_i, ntx) * TILE_H + y_i).to(torch.int32)
+    return (t_i, y_i, x_i), setup_i[t_i, won].T, setup_f[t_i, won].T, xs, ys
+
+
+def raster_attrs_bins_plain(counts, setup_i, setup_f, n2: int, n3: int,
+                            h: int, w: int):
+    """Plain PyTorch version of kernel B2 -> (z, slot, lin) over [h, w].
+
+    _bins_race finds each pixel's winning slot; then only the winners'
+    planes are evaluated, with the kernel's formula on the winner's
+    record, so they carry the same bits. Pixels nobody wins keep z 1.0,
+    slot -1, planes 0.
+    """
+    z, slot = _bins_race(counts, setup_i, setup_f, h, w)
+    idx, ci, cf, xs, ys = _winners(setup_i, setup_f, slot, w)
+    _, lins = _eval_pairs(ci, cf, xs, ys, n2, n3, planes=True)
+    lin = torch.zeros((n2 + n3,) + tuple(slot.shape), dtype=torch.float32,
+                      device=setup_f.device)
     if lins:
-        lin[:, t_i, y_i, x_i] = torch.stack(lins)
+        lin[(slice(None),) + idx] = torch.stack(lins)
     return (_tiles_to_frame(z, h, w), _tiles_to_frame(slot, h, w),
             _tiles_to_frame(lin, h, w))
+
+
+def raster_gbuffer_bins_plain(counts, setup_i, setup_f, h: int, w: int):
+    """Plain PyTorch version of kernel B3 -> (z, slot, b) with z and slot
+    [h, w] and b [3, h, w]: B2's race, then the winner's barycentrics
+    (b0, b1, b2) from its record. Pixels nobody wins: z 1.0, slot -1, b 0.
+    """
+    z, slot = _bins_race(counts, setup_i, setup_f, h, w)
+    idx, ci, cf, xs, ys = _winners(setup_i, setup_f, slot, w)
+    b = torch.zeros((3,) + tuple(slot.shape), dtype=torch.float32,
+                    device=setup_f.device)
+    b[(slice(None),) + idx] = torch.stack(_barycentrics(ci, cf, xs, ys)[1:])
+    return (_tiles_to_frame(z, h, w), _tiles_to_frame(slot, h, w),
+            _tiles_to_frame(b, h, w))
 
 
 @functools.cache
@@ -333,24 +368,29 @@ def raster_attrs_bins_cuda(counts, setup_i, setup_f, n2: int, n3: int,
 raster_attrs_bins_cuda.launches = 0
 
 
+def _bins_cap(T: int, cap: int | None, chunk: int = 512) -> int:
+    """The static bin capacity of the Pallas wrappers for T triangles
+    (rustexp_tpu/ops/raster_pallas.py:243-247 and :446-453): at most T
+    rounded up to GROUP, rounded up to a whole number of chunks."""
+    if cap is None:
+        cap = min(_round_up(T, 512), 32768)
+    cap = min(cap, _round_up(T, GROUP))
+    chunk = min(chunk, _round_up(cap, GROUP))
+    return _round_up(cap, chunk)
+
+
 def make_bins(setup, extra_f, n2: int, n3: int, h: int, w: int,
               cap: int | None = None, spans=None) -> BinnedTris:
     """The bins raster_attrs_bins rasterizes: raster_attrs_pallas's cap
-    arithmetic (rustexp_tpu/ops/raster_pallas.py:446-453, so the bins
-    have JAX's shapes), then bin_pairs with spans = (m_x, m_y), or
-    bin_triangles without."""
+    arithmetic (_bins_cap, so the bins have JAX's shapes), then bin_pairs
+    with spans = (m_x, m_y), or bin_triangles without."""
     if h % TILE_H or w % TILE_W:
         raise ValueError(f"frame {h}x{w} not divisible by tile "
                          f"{TILE_H}x{TILE_W}")
     if extra_f.shape[1] != 3 * (n2 + n3):
         raise ValueError(f"{extra_f.shape[1]} attribute channels for "
                          f"n2={n2}, n3={n3}")
-    T = setup.A.shape[0]
-    if cap is None:
-        cap = min(_round_up(T, 512), 32768)
-    cap = min(cap, _round_up(T, GROUP))
-    chunk = min(512, _round_up(cap, GROUP))
-    cap = _round_up(cap, chunk)
+    cap = _bins_cap(setup.A.shape[0], cap)
     if spans is not None:
         return bin_pairs(setup, h, w, cap, spans[0], spans[1],
                          extra_f=extra_f)
@@ -380,3 +420,92 @@ def raster_attrs_bins(setup, extra_f, n2: int, n3: int, h: int, w: int,
     else:
         raise ValueError(f"no raster path for device {dev}")
     return z, slot >= 0, tuple(lin), bins.overflow
+
+
+@functools.cache
+def _b3_kernel():
+    """The built kernel library and kernel B3's C entry, typed once."""
+    lib = load_kernel_lib("raster_bins")
+    fn = lib.lib.rb_bins_gbuffer
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    return lib, fn
+
+
+def raster_gbuffer_bins_cuda(counts, setup_i, setup_f, h: int, w: int):
+    """Launch kernel B3 (csrc/raster_bins.cu) -> (z, slot, b) with z and
+    slot [h, w] and b [3, h, w]; every pixel is written, the clear where
+    no slot wins. Only setup_f's channels 0-6 are read.
+
+    ``raster_gbuffer_bins_cuda.launches`` counts the launches.
+    """
+    dev = setup_f.device
+    n_tiles, cap, n_ich = setup_i.shape
+    for name, t, dt in (("counts", counts, torch.int32),
+                        ("setup_i", setup_i, torch.int32),
+                        ("setup_f", setup_f, torch.float32)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dt} tensor on "
+                             f"{dev}, got {t.dtype} on {t.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"kernel B3 runs on CUDA tensors, got {dev}")
+    if h % TILE_H or w % TILE_W:
+        raise ValueError(f"frame {h}x{w} not divisible by {TILE_H}x{TILE_W}")
+    if (counts.shape != (n_tiles,) or n_ich != _I_CH
+            or n_tiles != (h // TILE_H) * (w // TILE_W)
+            or setup_f.dim() != 3 or setup_f.shape[:2] != (n_tiles, cap)
+            or setup_f.shape[2] < _F_CH):
+        raise ValueError(f"bad bins shapes: counts {tuple(counts.shape)}, "
+                         f"setup_i {tuple(setup_i.shape)}, setup_f "
+                         f"{tuple(setup_f.shape)} for a {h}x{w} frame")
+    lib, fn = _b3_kernel()
+    z = torch.empty((h, w), dtype=torch.float32, device=dev)
+    slot = torch.empty((h, w), dtype=torch.int32, device=dev)
+    b = torch.empty((3, h, w), dtype=torch.float32, device=dev)
+    rc = fn(ptr(counts), ptr(setup_i), ptr(setup_f), ptr(z), ptr(slot),
+            ptr(b), n_tiles, cap, setup_f.shape[2], TILE_H, TILE_W, h, w,
+            stream_ptr(dev))
+    lib.check(rc, "kernel B3 (rb_bins_gbuffer)")
+    raster_gbuffer_bins_cuda.launches += 1
+    return z, slot, b
+
+
+raster_gbuffer_bins_cuda.launches = 0
+
+
+def raster_gbuffer_pallas(setup, h: int, w: int, cap: int | None = None,
+                          chunk: int = 512):
+    """Rasterize a stacked TriSetup to a G-buffer through the bins
+    (rustexp_tpu/ops/raster_pallas.py:221) -> (GBuffer, overflow).
+
+    The name is the JAX package's. The frame must be whole 32x128 tiles
+    (raster_xla.raster_gbuffer_xla takes any size). ``cap`` is the static
+    bin capacity, rounded as JAX rounds it with ``chunk``; ``overflow``
+    is True when a bin exceeded it and triangles were dropped (re-bin with
+    a larger cap). Equal to raster_gbuffer_xla when nothing overflows:
+    bins keep submission order and the race keeps the earlier slot on a
+    tie. CUDA tensors launch kernel B3, CPU tensors take the plain version.
+    """
+    if h % TILE_H or w % TILE_W:
+        raise ValueError(f"frame {h}x{w} not divisible by tile "
+                         f"{TILE_H}x{TILE_W}")
+    cap = _bins_cap(setup.A.shape[0], cap, chunk)
+    bins = bin_triangles(setup, h, w, cap)
+    args = (bins.counts, bins.setup_i, bins.setup_f, h, w)
+    dev = bins.setup_f.device
+    if dev.type == "cuda":
+        z, slot, b = raster_gbuffer_bins_cuda(*args)
+    elif dev.type == "cpu":
+        z, slot, b = raster_gbuffer_bins_plain(*args)
+    else:
+        raise ValueError(f"no raster path for device {dev}")
+    # winning bin slot -> triangle id, one flat gather (raster_pallas.py:286)
+    i32 = dict(dtype=torch.int32, device=dev)
+    ys = torch.arange(h, **i32)[:, None]
+    xs = torch.arange(w, **i32)[None, :]
+    tile = _fdiv(ys, TILE_H) * (w // TILE_W) + _fdiv(xs, TILE_W)
+    flat = (tile * cap + slot.clamp(min=0)).reshape(-1).long()
+    tid = torch.where(slot >= 0, bins.ids.reshape(-1)[flat].reshape(h, w), -1)
+    return GBuffer(z=z, tid=tid.to(torch.int32),
+                   b=torch.stack(tuple(b), dim=-1)), bins.overflow

@@ -16,7 +16,10 @@ its frames equal what the JAX package renders with any order.
 
 Kernel B1 (``csrc/raster_queue.cu``, replacing ``_queue_kernel``) runs
 for CUDA tensors; ``raster_attrs_queue_plain`` is its plain PyTorch
-version and serves CPU tensors. There is no fallback between them.
+version and serves CPU tensors. Kernel B7 (the same file, replacing
+``_queue_kernel_zslot``) is B1's depth race alone, for the deferred
+frame; ``raster_zslot_queue_plain`` is its plain version. There is no
+fallback between a kernel and its plain version.
 """
 
 from __future__ import annotations
@@ -41,7 +44,9 @@ _I_CH = 12
 _F_CH = 7  # bias0 bias1 bias2 z0 z10 z20 inv_a2  (+ 3*(n2+n3) attr channels)
 INT32_MAX = 2**31 - 1
 _PLAIN_BATCH_PX = 1 << 21  # pixel evaluations per batch of the plain B1
-_B1_PLANES = ((4, 0), (4, 3))  # (n2, n3) the kernel is instantiated for: V, P
+# (n2, n3) kernel B1 is instantiated for: V; P with the world position
+# unprojected (ray_world); P with it interpolated (ray_world=False)
+_B1_PLANES = ((4, 0), (4, 3), (4, 6))
 
 
 def _fdiv(a, b: int):
@@ -241,31 +246,41 @@ def pack_table(setup, extra_f) -> torch.Tensor:
     return torch.cat([tab, tab.new_zeros((1, tab.shape[1]))])
 
 
-def gather_rows(queue: Queue, tabT: torch.Tensor):
+def gather_rows(queue: Queue, tabT: torch.Tensor, return_flat: bool = False):
     """One row gather per queue slot -> (rows_i i32 [S, 12, chunk],
     rows_f f32 [S, F, chunk]), channel-major per chunk
-    (rustexp_tpu/ops/raster_queue.py:659)."""
+    (rustexp_tpu/ops/raster_queue.py:659).
+
+    With return_flat, also rows_flat f32 [S*chunk + 1, CH]: the gathered
+    rows indexed by queue slot (int channels bitcast), with an all-zero
+    sentinel row last, from which the deferred shade re-fetches a
+    winning pair's channels.
+    """
     s_cap, chunk = queue.ids.shape
     sentinel = tabT.shape[0] - 1
     flat = torch.where(queue.ids < 0, sentinel, queue.ids).reshape(-1)
-    rows = tabT[flat].reshape(s_cap, chunk, -1).permute(0, 2, 1)
+    gathered = tabT[flat]
+    rows = gathered.reshape(s_cap, chunk, -1).permute(0, 2, 1)
     rows_i = rows[:, :_I_CH].contiguous().view(torch.int32)
     rows_f = rows[:, _I_CH:].contiguous()
+    if return_flat:
+        return rows_i, rows_f, torch.cat([gathered, tabT[-1:]])
     return rows_i, rows_f
 
 
 # ---------------------------------------------------------------------------
-# Kernel B1 and its plain version
+# Kernels B1 and B7 and their plain versions
 # ---------------------------------------------------------------------------
 
 
-def _eval_pairs(ci, cf, xs, ys, n2: int, n3: int, planes: bool):
-    """Depth (and attribute planes) of pairs at pixels — _queue_kernel's
-    per-pair math (rustexp_tpu/ops/raster_queue.py:726-775).
+def _barycentrics(ci, cf, xs, ys):
+    """(covered, b0, b1, b2) of pair records at pixels: the 28.4 edge
+    functions (e2 = S - e0 - e1), the sign-OR inside and AABB tests, and
+    the barycentrics f32(e - bias) * inv_a2
+    (rustexp_tpu/ops/raster_queue.py:741-754).
 
     ``ci``/``cf`` index the int/float channels on dim 0; the rest of their
     shape broadcasts against the int32 pixel coordinates ``xs``/``ys``.
-    Returns (zm, lins): zm is +inf outside the triangle or its AABB.
     """
     xf = xs << 4
     yf = ys << 4
@@ -279,8 +294,18 @@ def _eval_pairs(ci, cf, xs, ys, n2: int, n3: int, planes: bool):
     b0 = (e0 - cf[0].to(torch.int32)).to(torch.float32) * inv_a2
     b1 = (e1 - cf[1].to(torch.int32)).to(torch.float32) * inv_a2
     b2 = (e2 - cf[2].to(torch.int32)).to(torch.float32) * inv_a2
+    return inside & in_box, b0, b1, b2
+
+
+def _eval_pairs(ci, cf, xs, ys, n2: int, n3: int, planes: bool):
+    """Depth (and attribute planes) of pairs at pixels — _queue_kernel's
+    per-pair math (rustexp_tpu/ops/raster_queue.py:726-775), with
+    _barycentrics' shapes. Returns (zm, lins): zm is +inf outside the
+    triangle or its AABB.
+    """
+    covered, b0, b1, b2 = _barycentrics(ci, cf, xs, ys)
     zi = lerp_2mad(cf[3], cf[4], cf[5], b2, b0)
-    zm = torch.where(inside & in_box, zi, torch.inf)
+    zm = torch.where(covered, zi, torch.inf)
     if not planes:
         return zm, None
     lins = [lerp_2mad(cf[_F_CH + a], cf[_F_CH + n2 + a],
@@ -303,23 +328,22 @@ def _race_key(zm: torch.Tensor, tri: torch.Tensor) -> torch.Tensor:
     return torch.where(torch.isnan(zm), torch.iinfo(torch.int64).max, key)
 
 
-def raster_attrs_queue_plain(scal, rows_i, rows_f, n2: int, n3: int,
-                             h: int, w: int):
-    """Plain PyTorch version of kernel B1 -> (z, slot, lin) over h + TILE_H rows.
+def _queue_race(scal, rows_i, rows_f, h: int, w: int):
+    """The depth race of kernels B1 and B7, plain: each pixel's winning
+    pair over h + TILE_H rows.
 
-    The kernel walks each tile's pairs in queue order and keeps a pixel's
+    The kernels walk each tile's pairs in queue order and keep a pixel's
     fragment when (z, tri) < (z_cur, tri_cur), starting from the clear
     (1.0, INT32_MAX). That is the lexicographic minimum over the tile's
     pairs and the clear, so this version evaluates batches of pairs as
-    one tensor, takes the minimum with a scatter, finds the winning pair
-    in a second pass, and re-evaluates only the winner's planes (same
-    formula, same bits). Pixels nobody wins keep the clear: z 1.0, slot
-    -1, planes 0.
+    one tensor, takes the minimum with a scatter, and finds the winning
+    pair in a second pass. Returns (pix, ci, cf, xs, ys, slot): the won
+    pixels (flat indices), the winners' int and float channels ([12, n],
+    [F, n]), their int32 pixel coordinates and their queue slots.
     """
     dev = rows_f.device
     s_cap, _, chunk = rows_i.shape
     hp = h + TILE_H
-    npl = n2 + n3
     lane = torch.arange(chunk, device=dev)
     c_idx, p_idx = (lane[None, :] < scal[:, 3:4]).nonzero(as_tuple=True)
     pi = rows_i[c_idx, :, p_idx]                     # [P, 12]
@@ -335,7 +359,7 @@ def raster_attrs_queue_plain(scal, rows_i, rows_f, n2: int, n3: int,
         ys = (gty[lo:hi] * TILE_H)[:, None, None] + iy[None, :, None]
         zm, _ = _eval_pairs(pi[lo:hi].T[:, :, None, None],
                             pf[lo:hi].T[:, :, None, None], xs, ys,
-                            n2, n3, planes=False)
+                            0, 0, planes=False)
         key = _race_key(zm, pi[lo:hi, 11][:, None, None])
         out_y = (ty[lo:hi] * TILE_H)[:, None, None] + iy[None, :, None]
         idx = (out_y * w + xs).to(torch.int64)
@@ -360,14 +384,46 @@ def raster_attrs_queue_plain(scal, rows_i, rows_f, n2: int, n3: int,
     wp = winner[pix]
     xs = (pix % w).to(torch.int32)
     ys = gty[wp] * TILE_H + (_fdiv(pix, w) % TILE_H).to(torch.int32)
-    zm, lins = _eval_pairs(pi[wp].T, pf[wp].T, xs, ys, n2, n3, planes=True)
-    z = torch.ones(hp * w, dtype=torch.float32, device=dev)
+    slot = (c_idx * chunk + p_idx)[wp].to(torch.int32)
+    return pix, pi[wp].T, pf[wp].T, xs, ys, slot
+
+
+def _zslot_frame(pix, zm, slot, h: int, w: int):
+    """z (clear 1.0) and slot (-1) over h + TILE_H rows from the won pixels."""
+    hp = h + TILE_H
+    z = torch.ones(hp * w, dtype=torch.float32, device=zm.device)
     z[pix] = zm
-    slot = torch.full((hp * w,), -1, dtype=torch.int32, device=dev)
-    slot[pix] = (c_idx * chunk + p_idx)[wp].to(torch.int32)
-    lin = torch.zeros((npl, hp * w), dtype=torch.float32, device=dev)
+    slots = torch.full((hp * w,), -1, dtype=torch.int32, device=zm.device)
+    slots[pix] = slot
+    return z.reshape(hp, w), slots.reshape(hp, w)
+
+
+def raster_attrs_queue_plain(scal, rows_i, rows_f, n2: int, n3: int,
+                             h: int, w: int):
+    """Plain PyTorch version of kernel B1 -> (z, slot, lin) over h + TILE_H rows.
+
+    _queue_race finds each pixel's winning pair; only the winner's planes
+    are then evaluated (same formula, same bits as a kernel that carries
+    them through the race). Pixels nobody wins keep the clear: z 1.0,
+    slot -1, planes 0.
+    """
+    pix, ci, cf, xs, ys, slot = _queue_race(scal, rows_i, rows_f, h, w)
+    zm, lins = _eval_pairs(ci, cf, xs, ys, n2, n3, planes=True)
+    z, slots = _zslot_frame(pix, zm, slot, h, w)
+    hp = h + TILE_H
+    lin = torch.zeros((n2 + n3, hp * w), dtype=torch.float32,
+                      device=rows_f.device)
     lin[:, pix] = torch.stack(lins)
-    return z.reshape(hp, w), slot.reshape(hp, w), lin.reshape(npl, hp, w)
+    return z, slots, lin.reshape(n2 + n3, hp, w)
+
+
+def raster_zslot_queue_plain(scal, rows_i, rows_f, h: int, w: int):
+    """Plain PyTorch version of kernel B7, B1's race without the planes
+    -> (z, slot) over h + TILE_H rows. Pixels nobody wins: z 1.0, slot -1.
+    """
+    pix, ci, cf, xs, ys, slot = _queue_race(scal, rows_i, rows_f, h, w)
+    zm, _ = _eval_pairs(ci, cf, xs, ys, 0, 0, planes=False)
+    return _zslot_frame(pix, zm, slot, h, w)
 
 
 @functools.cache
@@ -453,6 +509,83 @@ def raster_attrs_queue(queue: Queue, setup, extra_f, n2: int, n3: int,
         raise ValueError(f"no raster path for device {dev}")
     stale = ~check_queue_valid(queue, setup)
     return z[:h], slot[:h] >= 0, tuple(lin[:, :h]), stale
+
+
+@functools.cache
+def _b7_kernel():
+    """The built kernel library and kernel B7's C entry, typed once."""
+    lib = load_kernel_lib("raster_queue")
+    fn = lib.lib.rq_queue_zslot
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p]
+    return lib, fn
+
+
+def raster_zslot_queue_cuda(scal, rows_i, rows_f, h: int, w: int):
+    """Launch kernel B7 (csrc/raster_queue.cu) -> (z, slot) over h + TILE_H
+    rows. z is unwritten (garbage) where slot < 0 in tiles no chunk
+    visits; slot is prefilled with -1 there. Only rows_f's channels 0-6
+    are read.
+
+    ``raster_zslot_queue_cuda.launches`` counts the launches.
+    """
+    dev = rows_f.device
+    s_cap, n_ich, chunk = rows_i.shape
+    for name, t, dt in (("scal", scal, torch.int32),
+                        ("rows_i", rows_i, torch.int32),
+                        ("rows_f", rows_f, torch.float32)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dt} tensor on "
+                             f"{dev}, got {t.dtype} on {t.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"kernel B7 runs on CUDA tensors, got {dev}")
+    if (scal.shape != (s_cap, 5) or n_ich != _I_CH or rows_f.dim() != 3
+            or rows_f.shape[0] != s_cap or rows_f.shape[1] < _F_CH
+            or rows_f.shape[2] != chunk):
+        raise ValueError(f"bad queue shapes: scal {tuple(scal.shape)}, "
+                         f"rows_i {tuple(rows_i.shape)}, "
+                         f"rows_f {tuple(rows_f.shape)}")
+    if h % TILE_H or w % TILE_W:
+        raise ValueError(f"frame {h}x{w} not divisible by {TILE_H}x{TILE_W}")
+    lib, fn = _b7_kernel()
+    hp = h + TILE_H
+    z = torch.empty((hp, w), dtype=torch.float32, device=dev)
+    slot = torch.full((hp, w), -1, dtype=torch.int32, device=dev)
+    rc = fn(ptr(scal), ptr(rows_i), ptr(rows_f), ptr(z), ptr(slot),
+            s_cap, chunk, TILE_H, TILE_W, rows_f.shape[1], w, stream_ptr(dev))
+    lib.check(rc, "kernel B7 (rq_queue_zslot)")
+    raster_zslot_queue_cuda.launches += 1
+    return z, slot
+
+
+raster_zslot_queue_cuda.launches = 0
+
+
+def raster_zslot_queue(queue: Queue, setup, extra_f, h: int, w: int):
+    """Depth race only, through the flat queue
+    (rustexp_tpu/ops/raster_queue.py:879, tie=True).
+
+    Returns (z, slot, rows_flat, stale): `slot` is the winning queue slot
+    per pixel (-1 = background), z is meaningful only where slot >= 0,
+    `rows_flat` [S*chunk + 1, CH] the slot-indexed channel table for the
+    deferred shade to re-evaluate the winner's planes (gather_rows), and
+    `stale` as raster_attrs_queue's. CUDA tensors launch kernel B7, CPU
+    tensors take the plain version.
+    """
+    if h % TILE_H or w % TILE_W:
+        raise ValueError(f"frame {h}x{w} not divisible by {TILE_H}x{TILE_W}")
+    rows_i, rows_f, rows_flat = gather_rows(
+        queue, pack_table(setup, list(extra_f)), return_flat=True)
+    dev = rows_f.device
+    if dev.type == "cuda":
+        z, slot = raster_zslot_queue_cuda(queue.scal, rows_i, rows_f, h, w)
+    elif dev.type == "cpu":
+        z, slot = raster_zslot_queue_plain(queue.scal, rows_i, rows_f, h, w)
+    else:
+        raise ValueError(f"no raster path for device {dev}")
+    stale = ~check_queue_valid(queue, setup)
+    return z[:h], slot[:h], rows_flat, stale
 
 
 def suggest_queue_config(setup_stats, margin: float = 1.3,

@@ -2,10 +2,10 @@
 
 Port of rustexp_tpu/ops/raster_setup.py (TriSetup, TriSetupP with
 to_trisetup, setup_triangles_planar for the queue path, and
-setup_triangles/setup_triangles_v for the bins path): 28.4 fixed-point
-vertex snap, backface cull via the 2-area cross product, bottom-left
-fill-convention biases folded into the edge constants, and the clipped
-pixel AABB
+setup_triangles/setup_triangles_v for the bins and G-buffer paths):
+28.4 fixed-point vertex snap, backface cull via the 2-area cross product,
+bottom-left fill-convention biases folded into the edge constants, and
+the clipped pixel AABB, with the band renderer's post-snap `y_shift`
 (reference rasterizer.rs:1545-1634). int32 arithmetic wraps like
 XLA's; the float snap truncates and saturates like XLA's convert.
 """
@@ -82,14 +82,22 @@ class TriSetupP(NamedTuple):
         )
 
 
-def setup_triangles_planar(xs, ys, zs, w: int, h: int) -> TriSetupP:
-    """xs/ys/zs f32 [3, T] viewport coordinates per corner -> TriSetupP.
+def setup_triangles_planar(xs, ys, zs, w: int, h: int,
+                           y_shift: int = 0) -> TriSetupP:
+    """xs/ys/zs f32 [3, T] viewport coordinates per corner -> TriSetupP
+    (rustexp_tpu/ops/raster_setup.py:99).
 
-    rustexp_tpu/ops/raster_setup.py:99 (y_shift, the band-sharded
-    translation, is not ported: ROADMAP A16).
+    `y_shift` (pixel rows) translates the frame after the 28.4 snap: the
+    band renderer's translation. Subtracting it from the float coordinate
+    before the snap would differ, since the snap truncates toward zero
+    (a y of 31.97 shifted by 32 rows snaps to 0 locally but to -1 after
+    the global snap), so band rasterization stays bit-identical to the
+    full frame's rows.
     """
     xi = trunc_i32(xs * 16.0)
     yi = trunc_i32(ys * 16.0)
+    if y_shift:
+        yi = yi - (int(y_shift) << 4)
     x0, x1, x2 = xi[0], xi[1], xi[2]
     y0, y1, y2 = yi[0], yi[1], yi[2]
 
@@ -138,19 +146,20 @@ def setup_triangles_planar(xs, ys, zs, w: int, h: int) -> TriSetupP:
     )
 
 
-def setup_triangles(vp, tris, w: int, h: int) -> TriSetup:
+def setup_triangles(vp, tris, w: int, h: int, y_shift: int = 0) -> TriSetup:
     """vp f32 [V, 4] viewport-space vertices (x, y, z, 1/w), tris i32
     [T, 3] -> stacked TriSetup: the bins path's setup
     (rustexp_tpu/ops/raster_setup.py:206)."""
     tris = tris.long()
     return setup_triangles_v(vp[tris[:, 0]], vp[tris[:, 1]], vp[tris[:, 2]],
-                             w, h)
+                             w, h, y_shift)
 
 
-def setup_triangles_v(v0, v1, v2, w: int, h: int) -> TriSetup:
+def setup_triangles_v(v0, v1, v2, w: int, h: int,
+                      y_shift: int = 0) -> TriSetup:
     """Corner-array form: v0/v1/v2 f32 [T, 4] -> TriSetup
-    (rustexp_tpu/ops/raster_setup.py:213; y_shift, the band-sharded
-    translation, is ROADMAP A16).
+    (rustexp_tpu/ops/raster_setup.py:213), with setup_triangles_planar's
+    post-snap `y_shift`.
 
     The same integers as setup_triangles_planar on the same corners, in
     the stacked [T, 3] layout that bin_triangles/bin_pairs pack.
@@ -158,4 +167,4 @@ def setup_triangles_v(v0, v1, v2, w: int, h: int) -> TriSetup:
     xs = torch.stack([v0[:, 0], v1[:, 0], v2[:, 0]])
     ys = torch.stack([v0[:, 1], v1[:, 1], v2[:, 1]])
     zs = torch.stack([v0[:, 2], v1[:, 2], v2[:, 2]])
-    return setup_triangles_planar(xs, ys, zs, w, h).to_trisetup()
+    return setup_triangles_planar(xs, ys, zs, w, h, y_shift).to_trisetup()

@@ -1,7 +1,7 @@
 """The frame pipeline: vertex transform -> raster -> deferred shade -> pack.
 
-Port of rustexp_tpu/raster/pipeline.py for the Fill frame, with both of
-its raster backends:
+Port of rustexp_tpu/raster/pipeline.py for the Fill frame, with its
+three raster backends:
 
 * the flat queue (``backend="queue"`` with a prebuilt queue; the
   benchmark's path for meshes of >= 1,000 triangles):
@@ -9,19 +9,24 @@ its raster backends:
   corner-major [3, 4, T] planes, reference rasterizer.rs:1181-1231) ->
   setup_triangles_planar -> build_queue (cached across frames by the
   callers) -> raster_attrs_queue (kernel B1 on the card) ->
-  _shade_compacted over the queue's shade blocks;
+  _shade_compacted over the queue's shade blocks; or, with defer=True,
+  raster_zslot_queue (kernel B7, the depth race alone) ->
+  _shade_deferred, which re-evaluates each pixel's winning pair;
 * the bins (``backend="pallas"``, and ``"auto"``/``"queue"`` on tileable
   frames without a queue; smaller meshes): transform_vertices ->
   setup_triangles -> bin_triangles/bin_pairs -> raster_attrs_bins
   (kernel B2 on the card) -> a full-frame shade, or _shade_compacted over
-  the occupied blocks when ``raster_rows`` is given.
+  the occupied blocks when ``raster_rows`` is given;
+* the G-buffer oracle (``backend="xla"``, and every frame of partial
+  32x128 tiles): setup_triangles -> raster_gbuffer_xla (plain torch, any
+  size) -> shade_gbuffer. The band renderer (parallel/raster_shard.py)
+  shades the same G-buffer from kernel B3 (raster_gbuffer_pallas).
 
-Both end in core.colors.pack_abgr32_gamma_arith. The 4x4 camera matrices
+All end in core.colors.pack_abgr32_gamma_arith. The 4x4 camera matrices
 are computed on the host in float32 torch (one rounding per op, as the
 reference does) and copied to the frame's device, so a frame is
-bit-identical on the CPU and on the card. Point and line modes, the XLA
-oracle and the deferred-z variant raise NotImplementedError with their
-ROADMAP items.
+bit-identical on the CPU and on the card. Point and line modes raise
+NotImplementedError with their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,10 +39,13 @@ import torch
 
 from ..core.colors import pack_abgr32, pack_abgr32_gamma_arith
 from ..ops import raster_bins as rb
-from ..ops.raster_queue import (SHADE_W, build_queue, choose_shade_w,
-                                queue_stats, raster_attrs_queue,
+from ..ops.ieee import lerp_2mad, lerp_3w
+from ..ops.raster_queue import (_I_CH, SHADE_W, _eval_pairs, build_queue,
+                                choose_shade_w, queue_stats,
+                                raster_attrs_queue, raster_zslot_queue,
                                 suggest_queue_config)
 from ..ops.raster_setup import setup_triangles, setup_triangles_planar
+from ..ops.raster_xla import raster_gbuffer_xla
 from . import shaders as sh
 
 MODE_POINT, MODE_LINE, MODE_FILL = 0, 1, 2
@@ -283,17 +291,18 @@ def vertex_colors(scene: Scene, eye, tick, w: int, h: int, shader_idx: int):
 
 
 def queue_attr_channels(scene: Scene, colors, eye, w: int, h: int, *,
-                        per_pixel: bool):
+                        per_pixel: bool, ray_world: bool = True):
     """Triangle setup and the kernel's attribute channels for one frame
-    -> (setup, extra, n2, n3) (rustexp_tpu/raster/pipeline.py:535-570,
-    ray_world=True).
+    -> (setup, extra, n2, n3) (rustexp_tpu/raster/pipeline.py:535-570).
 
     `colors` is the per-vertex shaded colors in V mode, None in per-pixel
     mode (the baked corner colors are static). The n2 = 4 two-MAD planes
-    are 1/w and RGB/w; per-pixel adds n3 = 3 normal planes (world
-    positions are unprojected from the pixel, not interpolated).
+    are 1/w and RGB/w; per-pixel adds three-weight planes: with ray_world
+    n3 = 3 normal planes (world positions are unprojected from the pixel),
+    without it n3 = 6, world position then normal, interpolated like the
+    reference.
     """
-    xs, ys, zs, iw, n_c, _ = transform_corners_planar(scene, eye, w, h)
+    xs, ys, zs, iw, n_c, world_c = transform_corners_planar(scene, eye, w, h)
     setup = setup_triangles_planar(xs, ys, zs, w, h)
     one = torch.ones_like(iw[0])
 
@@ -313,27 +322,43 @@ def queue_attr_channels(scene: Scene, colors, eye, w: int, h: int, *,
     extra = base + d10 + d20
     n2, n3 = 4, 0
     if per_pixel:
-        # attr_channels_3w planar: (q*iw0, q*iw1, q*iw2) normal triples
-        extra = extra + [n_c[0, k] * iw[0] for k in range(3)] \
-            + [n_c[1, k] * iw[1] for k in range(3)] \
-            + [n_c[2, k] * iw[2] for k in range(3)]
-        n3 = 3
+        # attr_channels_3w planar: (q*iw0, q*iw1, q*iw2) triples
+        cat3 = [([] if ray_world else [world_c[j, k] for k in range(3)])
+                + [n_c[j, k] for k in range(3)] for j in range(3)]
+        n3 = len(cat3[0])
+        extra = extra + [q * iw[j] for j in range(3) for q in cat3[j]]
     return setup, extra, n2, n3
 
 
 def raster_and_shade_queue(scene: Scene, queue, colors, eye, tick, *,
                            w: int, h: int, per_pixel: bool, shader_idx: int,
-                           bg_fb):
-    """Flat-queue Fill path (rustexp_tpu/raster/pipeline.py:501, with the
-    defaults ray_world=True, defer=False). Returns (fb int32 [h, w], stale).
+                           bg_fb, ray_world: bool = True,
+                           defer: bool = False):
+    """Flat-queue Fill path (rustexp_tpu/raster/pipeline.py:501). Returns
+    (fb int32 [h, w], stale).
+
+    ray_world (the default) unprojects per-pixel world positions from the
+    pixel's (x, y, z) and its interpolated 1/w; ray_world=False
+    interpolates them like the reference (three more planes, B1's (4, 6)
+    instantiation). defer=True runs kernel B7 (the depth race alone) and
+    _shade_deferred, which re-evaluates each pixel's winning pair: the
+    same frame as defer=False, bit for bit.
     """
     setup, extra, n2, n3 = queue_attr_channels(scene, colors, eye, w, h,
-                                               per_pixel=per_pixel)
+                                               per_pixel=per_pixel,
+                                               ray_world=ray_world)
+    if defer:
+        z, slot, rows_flat, stale = raster_zslot_queue(queue, setup, extra,
+                                                       h, w)
+        fb = _shade_deferred(queue, scene, z, slot, rows_flat, n2, n3, eye,
+                             tick, shader_idx, bg_fb, w, h, per_pixel,
+                             ray_world)
+        return fb, stale
     z, mask, lin, stale = raster_attrs_queue(queue, setup, extra, n2, n3, h, w)
     if per_pixel:
         fb = _shade_compacted(queue.rows, scene, z, mask, lin, eye, tick,
                               shader_idx, bg_fb, w, h, block_w=queue.shade_w,
-                              ray_world=True)
+                              ray_world=ray_world)
         return fb, stale
 
     wr = 1.0 / lin[0]
@@ -432,48 +457,94 @@ def raster_and_shade_pallas(scene: Scene, setup, vp, world, n_world, colors,
     return torch.where(mask, packed, bg_fb), overflow
 
 
-def _shade_compacted(rows, scene: Scene, z, mask, lin, eye, tick,
-                     shader_idx: int, bg_fb, w: int, h: int,
-                     block_w: int = SHADE_W, ray_world: bool = True):
-    """Deferred per-pixel shading over OCCUPIED shade blocks only
-    (rustexp_tpu/raster/pipeline.py:690, whole frame).
+def shade_gbuffer(gb, scene: Scene, vp, world, n_world, colors, eye, tick,
+                  *, per_pixel: bool, shader_idx: int, bg_fb):
+    """Interpolate each visible pixel's attributes from a G-buffer and
+    shade once (rustexp_tpu/raster/pipeline.py:352): the oracle's and the
+    band renderer's shade. Returns int32 [h, w] ABGR bits.
 
-    `rows` (int32 [Rc], entries >= h*(w//block_w) are padding) lists the
-    block_w-wide row spans that can hold coverage; the planes are gathered
-    to [Rc, block_w], shaded there, and scattered back over the background.
-    With ray_world (the queue path) world positions are unprojected from
-    each pixel's (x, y, z) and its interpolated 1/w; without it (the bins
-    path) lin[4:7] and lin[7:10] are the interpolated world positions and
-    normals.
+    Flat tid -> vertex gathers, then the reference's perspective-correct
+    lerps (rasterizer.rs:1695-1744): w_raster = 1 / (2-MAD of 1/w),
+    colors by the 2-MAD form of a/w, world positions and normals by the
+    three-weight form, each times w_raster, every op rounded once.
+    `colors` is per vertex: shaded (V mode) or baked (per-pixel).
     """
-    ntx = w // block_w
-    n_blk = h * ntx
+    h, w = gb.tid.shape
+    mask = gb.tid >= 0
+    t = gb.tid.clamp(min=0).reshape(-1).long()
+    tris = scene.tris.long()
+    i0, i1, i2 = tris[:, 0][t], tris[:, 1][t], tris[:, 2][t]
+    b = gb.b.reshape(-1, 3)
+    b0, b1, b2 = b[:, 0:1], b[:, 1:2], b[:, 2:3]
+    iw = vp[:, 3:4]
+    iw0, iw1, iw2 = iw[i0], iw[i1], iw[i2]                       # [n, 1]
+    w_raster = 1.0 / lerp_2mad(iw0, iw1 - iw0, iw2 - iw0, b2, b0)
+
+    def persp_2mad(a):
+        base = a[i0] * iw0
+        return lerp_2mad(base, a[i1] * iw1 - base, a[i2] * iw2 - base,
+                         b2, b0) * w_raster
+
+    def persp_3w(a):
+        return lerp_3w(a[i0] * iw0, a[i1] * iw1, a[i2] * iw2,
+                       b1, b2, b0) * w_raster
+
+    out = persp_2mad(colors)
+    if per_pixel:
+        eye_d = _host_eye(eye).to(out.device)
+        out = sh.shader_fn(shader_idx)(persp_3w(world), persp_3w(n_world),
+                                       out, eye_d, tick, scene.cm)
+    packed = pack_abgr32_gamma_arith(out[:, 0], out[:, 1], out[:, 2])
+    return torch.where(mask, packed.reshape(h, w), bg_fb)
+
+
+def _blocks(rows, w: int, h: int, block_w: int):
+    """(rows_g, padr, comp) of a shade-block list: entries >= h*(w//block_w)
+    are padding (padr), rows_g points them at block 0, and comp(plane)
+    gathers a [h, w] plane's listed blocks to [Rc, block_w]."""
+    n_blk = h * (w // block_w)
     padr = rows >= n_blk
     rows_g = torch.where(padr, 0, rows).long()
 
     def comp(plane):
-        return plane.reshape(n_blk, block_w)[rows_g]       # [Rc, block_w]
+        return plane.reshape(n_blk, block_w)[rows_g]
 
-    maskc = comp(mask)
-    wrc = 1.0 / comp(lin[0])
-    cc = torch.stack([comp(p_) * wrc for p_ in lin[1:4]], dim=-1)
-    if ray_world:
-        nc = torch.stack([comp(p_) * wrc for p_ in lin[4:7]], dim=-1)
-        zc = comp(z)
-        yc = torch.div(rows_g, ntx, rounding_mode="floor").to(
-            torch.float32)[:, None]
-        xc = ((rows_g % ntx) * block_w).to(torch.float32)[:, None] \
-            + torch.arange(block_w, dtype=torch.float32,
-                           device=z.device)[None, :]
-        M = inv_world_to_vp(eye, w, h).tolist()
-        pc = torch.stack(
-            [wrc * (M[i][0] * xc + M[i][1] * yc + M[i][2] * zc + M[i][3])
-             for i in range(3)], dim=-1)
-    else:
-        pc = torch.stack([comp(p_) * wrc for p_ in lin[4:7]], dim=-1)
-        nc = torch.stack([comp(p_) * wrc for p_ in lin[7:10]], dim=-1)
-    eye_d = _host_eye(eye).to(z.device)
-    out = sh.shader_fn(shader_idx)(pc, nc, cc, eye_d, tick, scene.cm)
+    return rows_g, padr, comp
+
+
+def _shade_blocks(rows, rows_g, padr, maskc, zc, linc, scene: Scene, eye,
+                  tick, shader_idx: int, bg_fb, w: int, h: int, block_w: int,
+                  per_pixel: bool, ray_world: bool):
+    """Shade compacted blocks and scatter them over the background:
+    _shade_compacted's and _shade_deferred's common tail
+    (rustexp_tpu/raster/pipeline.py:661-687, 737-766).
+
+    maskc, zc and the planes linc are [Rc, block_w] over the blocks
+    `rows` lists (rows_g and padr from _blocks). V mode interpolates colors only; per-pixel shades, with
+    world positions unprojected from each pixel's (x, y, z) and 1/w
+    (ray_world) or interpolated (linc[4:7], normals linc[7:10]).
+    """
+    ntx = w // block_w
+    n_blk = h * ntx
+    wrc = 1.0 / linc[0]
+    out = torch.stack([p_ * wrc for p_ in linc[1:4]], dim=-1)
+    if per_pixel:
+        if ray_world:
+            nc = torch.stack([p_ * wrc for p_ in linc[4:7]], dim=-1)
+            yc = torch.div(rows_g, ntx, rounding_mode="floor").to(
+                torch.float32)[:, None]
+            xc = ((rows_g % ntx) * block_w).to(torch.float32)[:, None] \
+                + torch.arange(block_w, dtype=torch.float32,
+                               device=zc.device)[None, :]
+            M = inv_world_to_vp(eye, w, h).tolist()
+            pc = torch.stack(
+                [wrc * (M[i][0] * xc + M[i][1] * yc + M[i][2] * zc + M[i][3])
+                 for i in range(3)], dim=-1)
+        else:
+            pc = torch.stack([p_ * wrc for p_ in linc[4:7]], dim=-1)
+            nc = torch.stack([p_ * wrc for p_ in linc[7:10]], dim=-1)
+        eye_d = _host_eye(eye).to(wrc.device)
+        out = sh.shader_fn(shader_idx)(pc, nc, out, eye_d, tick, scene.cm)
     packed = pack_abgr32_gamma_arith(out[..., 0], out[..., 1], out[..., 2])
 
     bgv = bg_fb.reshape(n_blk, block_w)
@@ -484,18 +555,76 @@ def _shade_compacted(rows, scene: Scene, z, mask, lin, eye, tick,
     return buf[:n_blk].reshape(h, w)
 
 
+def _shade_compacted(rows, scene: Scene, z, mask, lin, eye, tick,
+                     shader_idx: int, bg_fb, w: int, h: int,
+                     block_w: int = SHADE_W, ray_world: bool = True):
+    """Deferred per-pixel shading over OCCUPIED shade blocks only
+    (rustexp_tpu/raster/pipeline.py:690, whole frame).
+
+    `rows` (int32 [Rc], entries >= h*(w//block_w) are padding) lists the
+    block_w-wide row spans that can hold coverage; the planes are gathered
+    to [Rc, block_w], shaded there, and scattered back over the background.
+    With ray_world (the queue path's default) world positions are
+    unprojected from each pixel's (x, y, z) and its interpolated 1/w;
+    without it (the bins path, and the queue path's ray_world=False)
+    lin[4:7] and lin[7:10] are the interpolated world positions and
+    normals.
+    """
+    rows_g, padr, comp = _blocks(rows, w, h, block_w)
+    return _shade_blocks(rows, rows_g, padr, comp(mask),
+                         comp(z) if ray_world else None,
+                         [comp(p_) for p_ in lin], scene, eye, tick,
+                         shader_idx, bg_fb, w, h, block_w, True, ray_world)
+
+
+def _shade_deferred(queue, scene: Scene, z, slot, rows_flat, n2: int,
+                    n3: int, eye, tick, shader_idx: int, bg_fb, w: int,
+                    h: int, per_pixel: bool, ray_world: bool):
+    """Shading from kernel B7's (z, slot): re-evaluate the WINNING pair
+    only (rustexp_tpu/raster/pipeline.py:594).
+
+    (z, slot) are compacted to the queue's occupied blocks, each pixel's
+    winning pair is fetched with one rows_flat[slot] gather (the zero
+    sentinel row where nobody won), and the edges, barycentrics and
+    attribute planes are re-evaluated with the kernels' formulas on the
+    same integers: the frame of the planes path (defer=False), bit for bit,
+    at one evaluation per pixel instead of one per pair.
+    """
+    block_w = queue.shade_w
+    ntx = w // block_w
+    rows_g, padr, comp = _blocks(queue.rows, w, h, block_w)
+    slotc = comp(slot)
+    maskc = slotc >= 0
+    sentinel = rows_flat.shape[0] - 1
+    px = rows_flat[torch.where(maskc, slotc, sentinel).reshape(-1).long()]
+    shape = (-1,) + tuple(slotc.shape)                    # [CH, Rc, block_w]
+    ci = px[:, :_I_CH].view(torch.int32).T.reshape(shape)
+    cf = px[:, _I_CH:].T.reshape(shape)
+    ys = torch.div(rows_g, ntx, rounding_mode="floor").to(torch.int32)[:, None]
+    xs = ((rows_g % ntx) * block_w).to(torch.int32)[:, None] \
+        + torch.arange(block_w, dtype=torch.int32, device=z.device)[None, :]
+    _, linc = _eval_pairs(ci, cf, xs, ys, n2, n3, planes=True)
+    zc = comp(z) if per_pixel and ray_world else None
+    return _shade_blocks(queue.rows, rows_g, padr, maskc, zc, linc, scene,
+                         eye, tick, shader_idx, bg_fb, w, h, block_w,
+                         per_pixel, ray_world)
+
+
 # ---------------------------------------------------------------------------
 # Backgrounds and the cubemap-cross overlay
 # ---------------------------------------------------------------------------
 
 
-def background(bg_idx: int, w: int, h: int, device: torch.device):
+def background(bg_idx: int, w: int, h: int, device: torch.device,
+               y0: int = 0, full_h: int | None = None):
     """Vertical gradient packed without gamma, int32 [h, w]
     (rustexp_tpu/raster/pipeline.py:774; rasterizer.rs:1268-1299).
     Evaluated on the host (a CUDA division by a scalar multiplies by its
-    reciprocal) and copied to `device`."""
+    reciprocal) and copied to `device`. `y0`/`full_h` evaluate a band of
+    a taller frame's gradient at its global rows (the band renderer)."""
     start, end = BACKGROUNDS[bg_idx]
-    pos = torch.arange(h, dtype=torch.float32) / float(h - 1)
+    pos = torch.arange(y0, y0 + h, dtype=torch.float32) / float(
+        (h if full_h is None else full_h) - 1)
     col = (torch.tensor(start)[None, :] * (1.0 - pos)[:, None]
            + torch.tensor(end)[None, :] * pos[:, None])
     row = pack_abgr32(col[:, 0], col[:, 1], col[:, 2])
@@ -616,10 +745,11 @@ def render_frame(scene: Scene, eye, tick, *, w: int, h: int,
     ``"pallas"``, and ``"auto"``/``"queue"`` on a frame of whole 32x128
     tiles, take the bins with ``raster_cap``/``raster_spans``/
     ``raster_rows`` (suggest_binning; None bins by the dense coverage
-    matrix with capacity T). ``"xla"`` and other frames need the XLA
-    oracle (ROADMAP A4) and raise. With return_overflow=True returns
-    (fb, overflow): the cached queue went stale, or the static bins
-    overflowed; rebuild and render again.
+    matrix with capacity T); ``"xla"``, and every other frame, the
+    G-buffer oracle (raster_gbuffer_xla + shade_gbuffer, any size, no
+    kernel). With return_overflow=True returns (fb, overflow): the cached
+    queue went stale, or the static bins overflowed; rebuild and render
+    again.
     """
     if show_cm is None:
         show_cm = sh.shader_uses_cm(shader_idx)
@@ -627,16 +757,9 @@ def render_frame(scene: Scene, eye, tick, *, w: int, h: int,
         raise NotImplementedError(
             f"render mode {MODE_NAMES[mode]} is not ported yet (ROADMAP A10)")
     tileable = h % rb.TILE_H == 0 and w % rb.TILE_W == 0
-    use_queue = backend == "queue" and raster_queue is not None
-    if not use_queue and not (backend == "pallas" or (
-            backend in ("auto", "queue") and tileable)):
-        raise NotImplementedError(
-            f"render_frame(backend={backend!r}) on a {w}x{h} frame takes the "
-            "XLA oracle (raster_gbuffer_xla + shade_gbuffer), not ported yet "
-            "(ROADMAP A4)")
     sh.shader_fn(shader_idx)  # an unported shader raises before any work
     fb = background(bg_idx, w, h, scene.cp3.device)
-    if use_queue:
+    if backend == "queue" and raster_queue is not None:
         colors = None if per_pixel else vertex_colors(scene, eye, tick, w, h,
                                                       shader_idx)
         fb, overflow = raster_and_shade_queue(
@@ -649,11 +772,19 @@ def render_frame(scene: Scene, eye, tick, *, w: int, h: int,
             eye_d = _host_eye(eye).to(world.device)
             colors = sh.shader_fn(shader_idx)(world, n_world, scene.colors,
                                               eye_d, tick, scene.cm)
-        fb, overflow = raster_and_shade_pallas(
-            scene, setup_triangles(vp, scene.tris, w, h), vp, world, n_world,
-            colors, eye, tick, w=w, h=h, per_pixel=per_pixel,
-            shader_idx=shader_idx, bg_fb=fb, cap=raster_cap,
-            spans=raster_spans, rows_cap=raster_rows)
+        setup = setup_triangles(vp, scene.tris, w, h)
+        if backend == "pallas" or (backend in ("auto", "queue")
+                                   and tileable):
+            fb, overflow = raster_and_shade_pallas(
+                scene, setup, vp, world, n_world, colors, eye, tick, w=w,
+                h=h, per_pixel=per_pixel, shader_idx=shader_idx, bg_fb=fb,
+                cap=raster_cap, spans=raster_spans, rows_cap=raster_rows)
+        else:
+            fb = shade_gbuffer(raster_gbuffer_xla(setup, h, w), scene, vp,
+                               world, n_world, colors, eye, tick,
+                               per_pixel=per_pixel, shader_idx=shader_idx,
+                               bg_fb=fb)
+            overflow = torch.zeros((), dtype=torch.bool, device=fb.device)
     if show_cm:
         fb = overlay_cross(fb, scene.cross)
     fb = fb.view(torch.uint32)

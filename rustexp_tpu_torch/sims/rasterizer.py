@@ -6,7 +6,8 @@ Killeroo, shader 5 CMRefl, envmap 0, bg 0; reference
 RustRasterizerExperiment.hs:68-75) and the same QUEUE_MIN_TRIS routing:
 meshes of >= 1,000 triangles render through a cached flat queue (kernel
 B1), smaller ones through the bins at a cached suggest_binning config
-(kernel B2). There is no Prewarmer: eager PyTorch has no compile to
+(kernel B2), and windows that are not whole 128-px columns and 8-row
+strips through the G-buffer oracle (backend "xla"). There is no Prewarmer: eager PyTorch has no compile to
 hide, and the kernels build once per checkout.
 """
 
@@ -53,14 +54,17 @@ class RasterizerExperiment:
     def _build(scene, eye, w: int, h: int, kind: str):
         if kind == "queue":
             return "queue", pp.build_scene_queue(scene, eye, w, h)
-        return "pallas", pp.suggest_binning(scene, eye, w, h)
+        if kind == "pallas":
+            return "pallas", pp.suggest_binning(scene, eye, w, h)
+        return "xla", None  # the G-buffer oracle needs no structure
 
     def _scene(self, state: RasterState, w: int, h: int, eye):
         """Scene + cached raster work structure (rebuilt when stale).
 
         Big meshes use the flat work queue; small ones the [nT, cap] bins
         (rustexp_tpu/sims/rasterizer.py:136, app/benchmark.py
-        QUEUE_MIN_TRIS).
+        QUEUE_MIN_TRIS). A window that renders through the G-buffer
+        oracle builds neither: the queue's tiles do not fit it.
         """
         key = (state.mesh_idx, state.env_idx, w, h)
         if state._scene_cache is None or state._scene_cache[0] != key:
@@ -70,6 +74,8 @@ class RasterizerExperiment:
             scene = pp.make_scene(m, cubemap.get_cm_set(state.env_idx),
                                   self.device)
             kind = "queue" if m.num_tris >= QUEUE_MIN_TRIS else "pallas"
+            if self._backend(state.backend, kind, w, h) == "xla":
+                kind = "xla"
             state._scene_cache = (key, scene,
                                   self._build(scene, eye, w, h, kind))
         return state._scene_cache[1], state._scene_cache[2]
@@ -78,11 +84,17 @@ class RasterizerExperiment:
         return state  # all per-frame work happens in render (like the reference)
 
     @staticmethod
-    def _frame_kwargs(state: RasterState, work, w: int, h: int):
-        kind, data = work
-        backend = state.backend
+    def _backend(backend: str, kind: str, w: int, h: int) -> str:
+        """"auto" -> the structure's kind on windows of whole 128-px
+        columns and 8-row strips, else "xla" (rustexp_tpu/sims/
+        rasterizer.py:162-164)."""
         if backend == "auto":
-            backend = kind if (w % 128 == 0 and h % 8 == 0) else "xla"
+            return kind if (w % 128 == 0 and h % 8 == 0) else "xla"
+        return backend
+
+    def _frame_kwargs(self, state: RasterState, work, w: int, h: int):
+        kind, data = work
+        backend = self._backend(state.backend, kind, w, h)
         kw = dict(w=w, h=h, mode=state.mode, per_pixel=state.per_pixel,
                   shader_idx=state.shader_idx, bg_idx=state.bg_idx,
                   return_overflow=True, backend=backend)

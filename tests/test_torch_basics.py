@@ -129,8 +129,9 @@ def test_shader_table_names_match_jax():
 def test_port_imports_no_jax():
     """The port runs where jax is not installed and keeps its own copies
     of what it needs: importing every module of it (in a fresh
-    interpreter), the GoL and N-body modules among them, must leave jax
-    and every rustexp_tpu module out of sys.modules."""
+    interpreter), the GoL, N-body, G-buffer and band-rendering modules
+    among them, must leave jax and every rustexp_tpu module out of
+    sys.modules."""
     code = (
         "import sys, pkgutil, importlib, rustexp_tpu_torch\n"
         "for m in pkgutil.walk_packages(rustexp_tpu_torch.__path__,\n"
@@ -142,6 +143,8 @@ def test_port_imports_no_jax():
         "import rustexp_tpu_torch.app.benchmark\n"
         "from rustexp_tpu_torch.ops import gol_bits, gol_stencil, nbody_bh\n"
         "from rustexp_tpu_torch.ops import nbody_pallas, sort_bitonic\n"
+        "from rustexp_tpu_torch.ops import raster_xla\n"
+        "from rustexp_tpu_torch.parallel import raster_shard\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'rustexp_tpu'))\n"
         "assert not bad, bad\n"
@@ -264,15 +267,16 @@ def test_camera_eye_matches_jax(name):
 
 
 def test_unported_shaders_and_modes_raise():
-    """What the port still refuses: shaders other than 5 (A5), the XLA
-    oracle (A4: backend="xla", and "auto" on a frame of partial 32x128
-    tiles) and line mode (A10)."""
+    """What the port still refuses: shaders other than 5 (A5), and point
+    and line modes (A10) on every backend, the G-buffer oracle's
+    (backend="xla", and "auto" on a frame of partial 32x128 tiles)
+    included."""
     with pytest.raises(NotImplementedError, match="A5"):
         tsh.shader_fn(0)
     scene = tpp.make_scene(tmesh.make_sphere(4, 8),
                            tcubemap.make_procedural_set(), CPU)
-    for kw, item in ((dict(backend="xla"), "A4"),
-                     (dict(backend="auto", w=96), "A4"),
+    for kw, item in ((dict(backend="xla", shader_idx=0), "A5"),
+                     (dict(backend="auto", w=96, mode=tpp.MODE_POINT), "A10"),
                      (dict(backend="pallas", mode=tpp.MODE_LINE), "A10")):
         with pytest.raises(NotImplementedError, match=item):
             tpp.render_frame(scene, np.array([0, 0, 2], np.float32), 0.0,

@@ -1,7 +1,7 @@
-"""Kernels B1, B2, B4, B5, B6 and B8 on the card: each CUDA kernel
-against its plain PyTorch version, and whole frames on the card (queue
-and bins paths, the GoL and N-body Experiments) against the same frames
-on the CPU.
+"""Kernels B1 to B8 on the card: each CUDA kernel against its plain
+PyTorch version, and whole frames on the card (queue, deferred queue,
+bins, G-buffer oracle and band paths, the GoL and N-body Experiments)
+against the same frames on the CPU.
 
 These tests need a CUDA device and skip without one. This file imports no
 jax (the card's machine has none), so it runs there on its own:
@@ -21,6 +21,7 @@ from rustexp_tpu_torch.ops import raster_bins as rb
 from rustexp_tpu_torch.ops import raster_queue as rq
 from rustexp_tpu_torch.ops.raster_setup import setup_triangles
 from rustexp_tpu_torch.ops import sort_bitonic as sb
+from rustexp_tpu_torch.parallel import raster_shard
 from rustexp_tpu_torch.raster import camera, pipeline as pp
 from rustexp_tpu_torch.sims.gol import GoLExperiment
 from rustexp_tpu_torch.sims.nbody import NBodyExperiment, stable_orbits
@@ -35,18 +36,20 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("mesh_idx,per_pixel",
-                         [(0, False), (0, True), (6, False), (6, True)])
-def test_b1_kernel_matches_plain_on_card(mesh_idx, per_pixel):
+@pytest.mark.parametrize("mesh_idx,per_pixel,ray_world",
+                         [(0, False, True), (0, True, True), (6, False, True),
+                          (6, True, True), (0, True, False)])
+def test_b1_kernel_matches_plain_on_card(mesh_idx, per_pixel, ray_world):
     """Bit-equal z, slot and planes under the mask, at the main path's
-    512x512 shapes (procedural Killeroo and TorusKnot)."""
+    512x512 shapes (procedural Killeroo and TorusKnot), and KillerooP with
+    ray_world=False (the (4, 6) instantiation)."""
     dev = _card()
     scene = pp.make_scene(mesh.get_mesh(mesh_idx), cubemap.get_cm_set(0), dev)
     eye = camera.camera_eye(mesh.mesh_camera(mesh_idx), 0.0)
     queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
     colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0, W, H, 5)
-    setup, extra, n2, n3 = pp.queue_attr_channels(scene, colors, eye, W, H,
-                                                  per_pixel=per_pixel)
+    setup, extra, n2, n3 = pp.queue_attr_channels(
+        scene, colors, eye, W, H, per_pixel=per_pixel, ray_world=ray_world)
     rows_i, rows_f = rq.gather_rows(queue, rq.pack_table(setup, extra))
     args = (queue.scal, rows_i, rows_f, n2, n3, H, W)
     launches = rq.raster_attrs_queue_cuda.launches
@@ -143,6 +146,120 @@ def test_compacted_bins_frame_on_card_matches_cpu():
         assert not bool(overflow)
         frames.append(fb.cpu().view(torch.int32))
     assert int((frames[0] != frames[1]).sum()) <= 0.003 * W * H
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_idx,per_pixel", [(0, True), (6, True),
+                                                (0, False)])
+def test_b7_kernel_matches_plain_on_card(mesh_idx, per_pixel):
+    """Bit-equal slot on every word and z under slot >= 0, at 512x512 on
+    the scene's queue."""
+    dev = _card()
+    scene = pp.make_scene(mesh.get_mesh(mesh_idx), cubemap.get_cm_set(0), dev)
+    eye = camera.camera_eye(mesh.mesh_camera(mesh_idx), 0.0)
+    queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
+    colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0, W, H, 5)
+    setup, extra, _, _ = pp.queue_attr_channels(scene, colors, eye, W, H,
+                                                per_pixel=per_pixel)
+    rows_i, rows_f = rq.gather_rows(queue, rq.pack_table(setup, extra))
+    args = (queue.scal, rows_i, rows_f, H, W)
+    launches = rq.raster_zslot_queue_cuda.launches
+    zk, sk = rq.raster_zslot_queue_cuda(*args)
+    assert rq.raster_zslot_queue_cuda.launches == launches + 1
+    zp, sp = rq.raster_zslot_queue_plain(*args)
+    won = sp >= 0
+    assert torch.equal(sk, sp) and won.any()
+    assert torch.equal(zk[won].view(torch.int32), zp[won].view(torch.int32))
+
+
+def _gbuffer_bins(mesh_idx, dev, h=H, y_shift=0):
+    scene = pp.make_scene(mesh.get_mesh(mesh_idx), cubemap.get_cm_set(0), dev)
+    eye = camera.camera_eye(mesh.mesh_camera(mesh_idx), 0.0)
+    vp, _, _ = pp.transform_vertices(scene, eye, W, H)
+    setup = setup_triangles(vp, scene.tris, W, h, y_shift=y_shift)
+    bins = rb.bin_triangles(setup, h, W, rb._bins_cap(setup.A.shape[0], None))
+    assert not bool(bins.overflow)
+    return bins
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_idx,h,y_shift", [(0, H, 0), (9, H, 0),
+                                                (6, H, 0), (0, 128, 0),
+                                                (0, 128, 256)])
+def test_b3_kernel_matches_plain_on_card(mesh_idx, h, y_shift):
+    """Bit-equal z, slot and b0-b2 on every word at raster_gbuffer_pallas's
+    default bins: the whole 512x512 frame (Killeroo, Cube, TorusKnot) and
+    128-row bands of it (y_shift)."""
+    dev = _card()
+    bins = _gbuffer_bins(mesh_idx, dev, h, y_shift)
+    args = (bins.counts, bins.setup_i, bins.setup_f, h, W)
+    launches = rb.raster_gbuffer_bins_cuda.launches
+    zk, sk, bk = rb.raster_gbuffer_bins_cuda(*args)
+    assert rb.raster_gbuffer_bins_cuda.launches == launches + 1
+    zp, sp, bp = rb.raster_gbuffer_bins_plain(*args)
+    assert (sp >= 0).any() and torch.equal(sk, sp)
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+    assert torch.equal(bk.view(torch.int32), bp.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_defer_frame_on_card(per_pixel):
+    """raster_and_shade_queue(defer=True) through B7 equals the planes
+    frame through B1 on the card, and the CPU's defer frame."""
+    dev = _card()
+    frames = []
+    for d in (dev, torch.device("cpu")):
+        scene = pp.make_scene(mesh.get_mesh(0), cubemap.get_cm_set(0), d)
+        eye = camera.camera_eye(mesh.mesh_camera(0), 0.0)
+        queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
+        colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0, W,
+                                                         H, 5)
+        kw = dict(w=W, h=H, per_pixel=per_pixel, shader_idx=5,
+                  bg_fb=pp.background(0, W, H, d))
+        fb, _ = pp.raster_and_shade_queue(scene, queue, colors, eye, 0.0,
+                                          defer=True, **kw)
+        if d.type == "cuda":
+            planes, _ = pp.raster_and_shade_queue(scene, queue, colors, eye,
+                                                  0.0, **kw)
+            assert torch.equal(fb, planes)
+        frames.append(fb.cpu())
+    assert int((frames[0] != frames[1]).sum()) <= 0.003 * W * H
+
+
+@pytest.mark.cuda
+def test_gbuffer_frames_on_card():
+    """render_frame(backend="xla") at 512x512 equals backend="pallas" on
+    the card and the CPU's xla frame; the band renderer's four 128-row
+    bands through B3, stitched, and render_frame_sharded(group=None,
+    backend="pallas") equal the card's xla frame; the Experiment at a
+    500x500 window renders through the oracle like the CPU's."""
+    from rustexp_tpu_torch.sims.rasterizer import RasterizerExperiment
+
+    dev = _card()
+    eye = camera.camera_eye(mesh.mesh_camera(0), 0.0)
+    kw = dict(w=W, h=H, per_pixel=True, shader_idx=5)
+    frames = []
+    for d in (dev, torch.device("cpu")):
+        scene = pp.make_scene(mesh.get_mesh(0), cubemap.get_cm_set(0), d)
+        frames.append(pp.render_frame(scene, eye, 0.0, backend="xla", **kw))
+    assert int((frames[0].cpu() != frames[1]).sum()) <= 0.003 * W * H
+    scene = pp.make_scene(mesh.get_mesh(0), cubemap.get_cm_set(0), dev)
+    assert torch.equal(frames[0], pp.render_frame(scene, eye, 0.0,
+                                                  backend="pallas", **kw))
+    plain = pp.render_frame(scene, eye, 0.0, backend="xla", show_cm=False,
+                            **kw)
+    launches = rb.raster_gbuffer_bins_cuda.launches
+    bands = torch.cat([raster_shard.render_band(
+        scene, eye, 0.0, band=b, n_bands=4, backend="pallas", **kw)[0]
+        for b in range(4)])
+    assert rb.raster_gbuffer_bins_cuda.launches == launches + 4
+    assert torch.equal(bands.view(torch.uint32), plain)
+    assert torch.equal(raster_shard.render_frame_sharded(
+        scene, eye, 0.0, None, backend="pallas", **kw), plain)
+    exp = [RasterizerExperiment(d) for d in (dev, torch.device("cpu"))]
+    got = [e.render(e.init(per_pixel=True), 500, 500, 0.0).cpu() for e in exp]
+    assert int((got[0] != got[1]).sum()) <= 0.003 * 500 * 500
 
 
 def _grid(shape, seed, dev):

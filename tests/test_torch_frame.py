@@ -106,15 +106,18 @@ def test_experiment_rebuilds_stale_queue(caplog):
 
 
 def test_bins_path_and_cpu_timing_refused():
-    """The bins path now runs (Cube, 12 triangles, takes it); what is
-    still refused: timing on the CPU, a kernel wrapper given CPU tensors,
-    and the XLA oracle that non-tileable frames need (ROADMAP A4)."""
+    """The bins path runs (Cube, 12 triangles, takes it), and so does a
+    window of partial tiles, through the G-buffer oracle; what is still
+    refused: timing on the CPU, and a kernel wrapper given CPU tensors."""
     te = RasterizerExperiment(CPU)
     st = te.init(mesh_idx=9)
     assert te.render(st, W, H, 0.0).shape == (H, W)
     assert st._scene_cache[2][0] == "pallas"
-    with pytest.raises(NotImplementedError, match="A4"):
-        te.render(st, 120, H, 0.0)
+    fb = te.render(st, 120, H, 0.0)
+    assert st._scene_cache[2] == ("xla", None)
+    assert torch.equal(fb, tpp.render_frame(
+        st._scene_cache[1], camera.camera_eye(jmesh.mesh_camera(9), 0.0),
+        0.0, w=120, h=H, backend="xla"))
     for mesh_idx in (0, 9):
         with pytest.raises(ValueError, match="times the card"):
             tbench.bench_scene(mesh_idx, True, 1, CPU)
@@ -131,3 +134,13 @@ def test_bins_path_and_cpu_timing_refused():
             torch.zeros((4,), dtype=torch.int32),
             torch.zeros((4, 8, 12), dtype=torch.int32),
             torch.zeros((4, 8, 19)), 4, 0, H, W)
+    with pytest.raises(ValueError, match="CUDA"):
+        trb.raster_gbuffer_bins_cuda(
+            torch.zeros((4,), dtype=torch.int32),
+            torch.zeros((4, 8, 12), dtype=torch.int32),
+            torch.zeros((4, 8, 7)), H, W)
+    with pytest.raises(ValueError, match="CUDA"):
+        trq.raster_zslot_queue_cuda(
+            torch.zeros((1, 5), dtype=torch.int32),
+            torch.zeros((1, 12, trq.CHUNK), dtype=torch.int32),
+            torch.zeros((1, 10, trq.CHUNK)), 16, W)

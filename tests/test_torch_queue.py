@@ -1,10 +1,14 @@
 """PyTorch port vs the JAX package: corner transform, triangle setup, the
-flat-queue build (order="tri") and the plain version of kernel B1.
+flat-queue build (order="tri"), the plain versions of kernels B1 and B7,
+and the queue frame's ray_world=False and defer=True forms.
 
 Small shapes: mesh.make_sphere(16, 32) (1,024 triangles, the queue path)
-at 128x128. Every comparison is exact; z and the attribute planes are
-compared under the coverage mask (outside it they are unspecified in both
-packages).
+at 128x128. Every kernel comparison is exact; z and the attribute planes
+are compared under the coverage mask (outside it they are unspecified in
+both packages). Frames are held within the repo's golden bound, 0.3% of
+pixels (the ray_world unprojection is unsealed in JAX, ROADMAP C), and
+the port's deferred frames to its own planes frames bit for bit.
+Measured: 0 pixels.
 """
 
 import numpy as np
@@ -26,6 +30,7 @@ from rustexp_tpu_torch.raster import pipeline as tpp
 
 W = H = 128
 CPU = torch.device("cpu")
+GOLDEN_FRAC = 0.003
 EYES = (camera.cam_orbit(0.7), camera.cam_pan_front(1.3),
         camera.cam_orbit_front(2.0))
 
@@ -175,3 +180,123 @@ def test_b1_plain_race_tie_break():
         assert torch.all(z[:16][covered] == 1.0)
         assert torch.all(lin[0, :16][covered] == 1.0)  # triangle 0's plane
         assert torch.all(slot[:16][covered] == order.index(0))
+
+
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_b7_plain_matches_jax_kernel(scenes, per_pixel):
+    """The plain version of B7 on a JAX-built queue (interop) against JAX
+    raster_zslot_queue, which runs _queue_kernel_zslot in interpret mode
+    here: slot everywhere, z under slot >= 0 (z is unwritten in tiles no
+    chunk visits), and the slot-indexed channel table bit for bit."""
+    sj, st = scenes
+    eye = EYES[2]
+    qj = jpp.build_scene_queue(sj, eye, W, H, per_pixel=per_pixel)
+    qt = interop.queue_from_numpy(
+        {f: np.asarray(getattr(qj, f)) for f in qj._fields}, CPU)
+    colors = None if per_pixel else tpp.vertex_colors(st, eye, 0.0, W, H, 5)
+    sett, extra, _, _ = tpp.queue_attr_channels(st, colors, eye, W, H,
+                                                per_pixel=per_pixel)
+    setj, _ = _setups(scenes, eye)
+    zj, slj, fj, stj = jrq.raster_zslot_queue(
+        qj, setj, tuple(jnp.asarray(e.numpy()) for e in extra), H, W)
+    zt, slt, ft, stt = trq.raster_zslot_queue(qt, sett, extra, H, W)
+    slj = np.asarray(slj)
+    won = slj >= 0
+    assert won.sum() > 0 and np.array_equal(slt.numpy(), slj)
+    assert np.array_equal(np.asarray(zj)[won].view(np.int32),
+                          zt.numpy()[won].view(np.int32))
+    assert np.array_equal(np.asarray(fj).view(np.int32),
+                          ft.numpy().view(np.int32))
+    assert bool(stj) == bool(stt) is False
+
+
+def test_b7_plain_race_tie_break():
+    """B7's plain race is B1's: the lower triangle id wins a z tie in
+    either queue order, and a fragment at exactly z == 1.0 beats the
+    depth clear (the INT32_MAX tie-scratch quirk, ROADMAP C); its z and
+    slot equal the plain B1's."""
+    xs = torch.tensor([[8.0, 8.0], [120.0, 120.0], [8.0, 8.0]])
+    ys = torch.tensor([[2.0, 2.0], [2.0, 2.0], [14.0, 14.0]])
+    setup = tpp.setup_triangles_planar(xs, ys, torch.ones((3, 2)), W, 16)
+    tab = trq.pack_table(setup, [torch.tensor([1.0, 2.0]), torch.zeros(2),
+                                 torch.zeros(2)])
+    for order in ([0, 1], [1, 0]):
+        ids = torch.full((1, trq.CHUNK), -1, dtype=torch.int32)
+        ids[0, :2] = torch.tensor(order)
+        scal = torch.tensor([[0, 0, 1, 2, 0]], dtype=torch.int32)
+        q = trq.Queue(ids, scal, *[None] * 6, shade_w=trq.TILE_W)
+        rows_i, rows_f = trq.gather_rows(q, tab)
+        z, slot = trq.raster_zslot_queue_plain(scal, rows_i, rows_f, 16, W)
+        z1, slot1, _ = trq.raster_attrs_queue_plain(scal, rows_i, rows_f,
+                                                    1, 0, 16, W)
+        covered = slot[:16] >= 0
+        assert covered.sum() > 100
+        assert torch.all(z[:16][covered] == 1.0)
+        assert torch.all(slot[:16][covered] == order.index(0))
+        assert torch.equal(slot, slot1) and torch.equal(z, z1)
+
+
+def _queue_frames(scenes, eye, per_pixel, **kw):
+    """(JAX frame, port frame) of raster_and_shade_queue with `kw`, each
+    package on its own queue."""
+    sj, st = scenes
+    ej = jnp.asarray(eye)
+    colors_j = colors_t = None
+    if not per_pixel:
+        _, world, n_world = jpp.transform_vertices(sj, ej, W, H)
+        colors_j = jpp.sh.shader_fn(5)(world, n_world, sj.colors, ej,
+                                       jnp.float32(0.7), sj.cm)
+        colors_t = tpp.vertex_colors(st, eye, 0.7, W, H, 5)
+    qj = jpp.build_scene_queue(sj, ej, W, H, per_pixel=per_pixel)
+    qt = tpp.build_scene_queue(st, eye, W, H, per_pixel=per_pixel)
+    fj, sj_ = jpp.raster_and_shade_queue(
+        sj, qj, colors_j, ej, jnp.float32(0.7), w=W, h=H,
+        per_pixel=per_pixel, shader_idx=5, bg_fb=jpp.background(0, W, H),
+        **kw)
+    ft, st_ = tpp.raster_and_shade_queue(
+        st, qt, colors_t, eye, 0.7, w=W, h=H, per_pixel=per_pixel,
+        shader_idx=5, bg_fb=tpp.background(0, W, H, CPU), **kw)
+    assert bool(sj_) == bool(st_) is False
+    return np.asarray(fj), ft.view(torch.uint32)
+
+
+@pytest.mark.parametrize("per_pixel,ray_world", [(False, True), (True, True),
+                                                 (True, False)])
+def test_queue_defer_matches_planes_and_jax(scenes, per_pixel, ray_world):
+    """defer=True (B7's race, then _shade_deferred re-evaluates each
+    winner) equals the planes path (defer=False) bit for bit, as JAX pins
+    (tests/test_raster.py:563), and JAX's defer=True frame within the
+    golden bound."""
+    eye = EYES[0]
+    want, got = _queue_frames(scenes, eye, per_pixel, ray_world=ray_world,
+                              defer=True)
+    _, planes = _queue_frames(scenes, eye, per_pixel, ray_world=ray_world)
+    assert torch.equal(got, planes)
+    assert int((want != got.numpy()).sum()) <= GOLDEN_FRAC * W * H
+    bg = np.asarray(jpp.background(0, W, H))
+    assert (want != bg).sum() > W * H // 10
+
+
+def test_queue_ray_world_false_matches_jax(scenes):
+    """ray_world=False: world positions interpolated as three more planes
+    (B1's (4, 6) form) instead of unprojected; P frame against JAX's, and
+    its planes against JAX's kernel (interpret mode) bit for bit."""
+    sj, st = scenes
+    eye = EYES[2]
+    want, got = _queue_frames(scenes, eye, True, ray_world=False)
+    assert int((want != got.numpy()).sum()) <= GOLDEN_FRAC * W * H
+    qj = jpp.build_scene_queue(sj, eye, W, H)
+    qt = interop.queue_from_numpy(
+        {f: np.asarray(getattr(qj, f)) for f in qj._fields}, CPU)
+    sett, extra, n2, n3 = tpp.queue_attr_channels(
+        st, None, eye, W, H, per_pixel=True, ray_world=False)
+    assert (n2, n3) == (4, 6) and (n2, n3) in trq._B1_PLANES
+    setj, _ = _setups(scenes, eye)
+    zj, mj, lj, _ = jrq.raster_attrs_queue(
+        qj, setj, tuple(jnp.asarray(e.numpy()) for e in extra), n2, n3, H, W)
+    zt, mt, lt, _ = trq.raster_attrs_queue(qt, sett, extra, n2, n3, H, W)
+    mj = np.asarray(mj)
+    assert mj.sum() > 0 and np.array_equal(mt.numpy(), mj)
+    for a, b in zip(lj, lt):
+        assert np.array_equal(np.asarray(a)[mj].view(np.int32),
+                              b.numpy()[mj].view(np.int32))
