@@ -19,8 +19,12 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      mismatching words); B7 (B1's depth race alone) on KillerooP and
      TorusKnotP, slot on every word and z where a pair won; B4 (SWAR GoL)
      at packed [8, 256] and [64, 2048] and B8 (the f32 GoL stencil) at
-     256^2 and 512^2, bit for bit; B6 (the bitonic sort) at n = 131,072
-     with the N-body's five payloads, bit for bit; B5 (all-pairs forces) at
+     256^2 and 512^2, bit for bit; B6 (the radix sort) with five payloads,
+     bit for bit and its inputs unchanged, on the N-body's Morton codes at
+     n = 131,072, full-range signed keys and an explicit negative idx at
+     4,096, constant keys at 256 and random keys at 2^20, timed with the
+     library call (stable torch.sort and gathers) by device time in the
+     same run; B5 (all-pairs forces) at
      N = 16,384 and 131,072 with both reciprocals, within B5_RTOL;
   4. runs each main path with the launch counters set to 0 just before it
      and read just after, and fails if its kernel never ran: the queue path
@@ -118,7 +122,9 @@ SFU_OPS_PER_S = 16 * 132 * 1.98e9
 B4_CASES = (((256, 256), 100), ((2048, 2048), 100))  # (cells, generations)
 B8_CASES = (((256, 256), 20), ((512, 512), 20))
 B5_NS = (16384, 131072)
-B6_N = 131072
+# B6: (keys, n); "morton" (the N-body's codes, positions form) is timed
+B6_CASES = (("morton", 131072), ("signed", 4096), ("constant", 256),
+            ("idx", 4096), ("random", 1 << 20))
 # B5 against its plain version: the largest |F_kernel - F_plain| over all
 # particles, relative to the largest |F_plain|. The sums run in another
 # order (the sun's own force nearly cancels, so a per-particle ratio says
@@ -154,10 +160,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-PROFILE_PADS = 4   # spin kernels that open each profiling session
-PROFILE_TRIES = 5  # sessions tried before a measurement fails
-PROFILE_RETRY_S = 0.2  # pause before another try: losses come in runs
-lost_pads = 0      # of the pads, missing from the sessions' records
+PROFILE_PADS = 4   # spin kernels that open, and that close, each session
+PROFILE_TRIES = 12  # sessions tried before a measurement fails
+PROFILE_SETTLE_S = 0.02  # least wait after a session opens and before it
+PROFILE_SETTLE_MAX_S = 6.4  # closes; the most
+settle = PROFILE_SETTLE_S  # the wait the next session starts with
+most_settle = 0.0  # the longest wait a kept session had
+lost_pads = [0, 0]  # opening and closing pads missing from the records
 lost_sessions = 0  # sessions thrown away and tried again
 
 
@@ -165,53 +174,79 @@ def device_events(fn, reps: int, complete=None) -> list:
     """The card's activities (kernels, copies, sets) that torch.profiler
     saw over `reps` fn() calls, after two warm-up calls.
 
-    On the H100 a session now and then loses the activity records at its
-    start, and sometimes all of them, early in a process as well as late.
-    So each session opens with PROFILE_PADS short spin kernels and a
-    synchronize, and their records are dropped: a loss that leaves one of
-    them has spared the work after them, and counts in `lost_pads`. A
-    session that kept no pad, or whose work fails `complete(events)`, is
-    thrown away (counted in `lost_sessions`) and run again after a pause,
-    up to PROFILE_TRIES sessions."""
+    On the H100 the card's timestamps drift against the host's clock by
+    milliseconds, and the profiler drops every record that falls outside
+    the session's window: a session now and then loses the card's records
+    at its start, sometimes all of them, while it keeps every launch call
+    on the host (`app/profiler_loss.py`). So each session waits on the
+    host after it opens and before it closes, and puts PROFILE_PADS short
+    spin kernels, each set followed by a synchronize, before and after
+    the work; their records are dropped. A pad kept on each side shows
+    that no loss reached the work; missing pads count in `lost_pads`.
+    A session without both, or whose work fails `complete(events)`, is
+    thrown away (counted in `lost_sessions`) and run again, up to
+    PROFILE_TRIES sessions. Losses come in spells, so the wait carries
+    from one session to the next: doubled after a lost session, halved
+    after a kept one, within PROFILE_SETTLE_S and PROFILE_SETTLE_MAX_S."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    global lost_pads, lost_sessions
+    def pads():
+        for _ in range(PROFILE_PADS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+
+    global lost_sessions, settle, most_settle
     fn()
     fn()
     for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(PROFILE_PADS):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
+            time.sleep(settle)
+            pads()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            pads()
+            time.sleep(settle)
         events = [e for e in prof.events()
                   if e.device_type == DeviceType.CUDA]
-        pads = sum("spin_kernel" in e.name for e in events)
-        lost_pads += PROFILE_PADS - pads
+        spins = [e.time_range.start for e in events
+                 if "spin_kernel" in e.name]
         work = [e for e in events if "spin_kernel" not in e.name]
-        if pads and (complete is None or complete(work)):
+        starts = [e.time_range.start for e in work] or [0.0]
+        kept = (sum(t < min(starts) for t in spins),
+                sum(t > max(starts) for t in spins))
+        for side in (0, 1):
+            lost_pads[side] += PROFILE_PADS - kept[side]
+        if work and all(kept) and (complete is None or complete(work)):
+            most_settle = max(most_settle, settle)
+            settle = max(settle / 2, PROFILE_SETTLE_S)
             return work
         lost_sessions += 1
-        time.sleep(PROFILE_RETRY_S)
+        settle = min(2 * settle, PROFILE_SETTLE_MAX_S)
     raise RuntimeError(f"{PROFILE_TRIES} profiling sessions in a row lost "
                        f"their records")
 
 
-def device_ms(fn, reps: int, kernel: str) -> float:
-    """Mean device milliseconds of the CUDA kernels whose name contains
-    `kernel`, per fn() call. Unlike CUDA events around back-to-back calls,
-    this does not count the host's launch time when a kernel is shorter
-    than it."""
+def device_ms(fn, reps: int, kernel: str | None, per_call: int | None = 1
+              ) -> float:
+    """Mean device milliseconds per fn() call of the CUDA kernels whose
+    name contains `kernel`, or of all the card's activities (kernels,
+    copies, sets) for None. A session counts only if it holds `per_call`
+    of them per call (None: a whole number above 0). Unlike CUDA events
+    around back-to-back calls, this does not count the host's launch time
+    when a kernel is shorter than it."""
     def spans(events):
         return [e.time_range.end - e.time_range.start for e in events
-                if kernel in e.name]
+                if kernel is None or kernel in e.name]
 
-    got = spans(device_events(fn, reps, lambda ev: len(spans(ev)) == reps))
-    return sum(got) / 1e3 / reps
+    def complete(events):
+        got = len(spans(events))
+        return (got == per_call * reps if per_call else
+                got > 0 and got % reps == 0)
+
+    return sum(spans(device_events(fn, reps, complete))) / 1e3 / reps
 
 
 def busy_ms(events) -> float:
@@ -437,7 +472,7 @@ def b3_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera):
         run = lambda: [rb.raster_gbuffer_bins_cuda(*a) for a in calls]
         out[label] = dict(
             err=err, bad=bad, covered=covered,
-            ms=kernel_ms(run, 20, ("bins_gbuffer_kernel",)),
+            ms=device_ms(run, 20, "bins_gbuffer_kernel", None),
             call_ms=cuda_ms(run, 20),
             plain_ms=cuda_ms(
                 lambda: [rb.raster_gbuffer_bins_plain(*a) for a in calls], 3),
@@ -497,20 +532,6 @@ def b7_vs_plain(dev, pp, rq, meshes, cubemap, camera):
     return out
 
 
-def kernel_ms(fn, reps: int, names: tuple) -> float:
-    """Mean device milliseconds per fn() call of the CUDA kernels whose
-    name contains one of `names` (a call may run several grid launches,
-    the same number in each call)."""
-    def spans(events):
-        return [e.time_range.end - e.time_range.start for e in events
-                if any(n in e.name for n in names)]
-
-    got = spans(device_events(
-        fn, reps, lambda ev: len(spans(ev)) > 0
-        and len(spans(ev)) % reps == 0))
-    return sum(got) / 1e3 / reps
-
-
 def time_bound(bytes_moved: float, ops: float, sfu_ops: float = 0.0):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
     operations over the FP32 rate (special-function operations over
@@ -540,7 +561,8 @@ def b4_vs_plain(dev, gb) -> dict:
         bms, by = time_bound(2 * words * 4, words * k * OPS_SWAR)
         run = lambda: gb.multi_step_packed_cuda(packed, k)
         out[f"{r}x{c}"] = dict(
-            err=float(bad), bad=bad, ms=kernel_ms(run, 10, ("swar_kernel",)),
+            err=float(bad), bad=bad,
+            ms=device_ms(run, 10, "swar_kernel", None),
             call_ms=cuda_ms(run, 10),
             plain_ms=cuda_ms(lambda: gb.multi_step_packed_plain(packed, k), 1),
             bound_ms=bms, bound_by=by,
@@ -563,7 +585,7 @@ def b8_vs_plain(dev, gs) -> dict:
         run = lambda: gs.multi_step_pallas_cuda(g, k)
         out[f"{r}x{c}"] = dict(
             err=float((got - want).abs().max()), bad=bad,
-            ms=kernel_ms(run, 10, ("stencil_kernel",)),
+            ms=device_ms(run, 10, "stencil_kernel", None),
             call_ms=cuda_ms(run, 10),
             plain_ms=cuda_ms(lambda: gs.multi_step_pallas_plain(g, k), 2),
             bound_ms=bms, bound_by=by, work=f"{r}x{c} f32, {k} generations")
@@ -572,37 +594,112 @@ def b8_vs_plain(dev, gs) -> dict:
     return out
 
 
+def b6_parts(run, calls: int, reps: int) -> dict:
+    """Device milliseconds per run() call of B6's launches by kind: count,
+    scan, scatter (the passes before the last) and last scatter (the
+    outputs' writes and gathers), from a session that kept all `calls`
+    launches of each of its `reps` calls."""
+    events = sorted(device_events(run, reps,
+                                  lambda ev: len(ev) == calls * reps),
+                    key=lambda e: e.time_range.start)
+    parts, scatters = {}, 0
+    for e in events:
+        kind = next((k for k in ("count", "scan", "scatter")
+                     if f"{k}_kernel" in e.name), e.name)
+        if kind == "scatter":
+            scatters += 1
+            if scatters % (calls // 3) == 0:
+                kind = "last scatter"
+        parts[kind] = parts.get(kind, 0.0) + (
+            e.time_range.end - e.time_range.start) / 1e3 / reps
+    return parts
+
+
+def b6_case(dev, case: str, n: int, bh, stable_orbits):
+    """(key, idx or None, five payloads) of a B6 case on the card: the
+    N-body's Morton codes of stable orbits carrying px, py, m, vx, vy; or
+    keys from a seed (full-range signed with INT32_MIN, -1, 0 and
+    INT32_MAX; constant; random) carrying four f32 and one int32 payload,
+    with an explicit, permuted, partly negative idx for "idx"."""
+    gen = torch.Generator().manual_seed(n)
+    if case == "morton":
+        px, py, vx, vy, m = stable_orbits(gen, n, device=dev)
+        key = bh.morton_codes(px, py, px.min(), px.max(), py.min(), py.max())
+        return key, None, [px, py, m, vx, vy]
+    lo, hi = -(1 << 31), (1 << 31) - 1
+    if case == "constant":
+        key = torch.zeros(n, dtype=torch.int32)
+    else:
+        key = torch.randint(lo if case == "signed" else 0, hi, (n,),
+                            generator=gen, dtype=torch.int32)
+    if case == "signed":
+        key[:8] = torch.tensor([lo, -1, 0, hi] * 2, dtype=torch.int32)
+        key = key[torch.randperm(n, generator=gen)]
+    idx = None
+    if case == "idx":
+        key %= 7  # ties, broken by the idx
+        idx = (torch.randperm(n, generator=gen).to(torch.int32)
+               - n // 3).to(dev)
+    vals = [torch.randn(n, generator=gen).to(dev) for _ in range(4)]
+    vals.append(torch.randint(-9, 9, (n,), generator=gen,
+                              dtype=torch.int32).to(dev))
+    return key.to(dev), idx, vals
+
+
 def b6_vs_plain(dev, sb, bh, stable_orbits) -> dict:
-    """B6 against its plain version at n = 131,072 on the N-body's Morton
-    sort: the codes of stable orbits with px, py, m, vx, vy carried."""
-    px, py, vx, vy, m = stable_orbits(torch.Generator().manual_seed(1), B6_N,
-                                      device=dev)
-    key = bh.morton_codes(px, py, px.min(), px.max(), py.min(), py.max())
-    idx = torch.arange(B6_N, dtype=torch.int32, device=dev)
-    vals = [px, py, m, vx, vy]
-    kk, ik, vk = sb.sort_kv_cuda(key, idx, vals)
-    kp, ip, vp = sb.sort_kv_plain(key, idx, vals)
-    torch.cuda.synchronize(dev)
-    bad = int((kk != kp).sum()) + int((ik != ip).sum())
-    bad += sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
-               for a, b in zip(vk, vp))
+    """B6 against its plain version, bit for bit on keys, idx and the five
+    payloads, with the inputs unchanged, in B6_CASES; timed on the N-body's
+    Morton sort at n = 131,072 in the positions form, as morton_sort calls
+    it, beside the library call (a stable torch.sort and 6 gathers), both
+    by the card's whole activity per call, B6's by kind of launch too."""
+    out = {}
+    for case, n in B6_CASES:
+        key, idx, vals = b6_case(dev, case, n, bh, stable_orbits)
+        inputs = [key, *vals] + ([] if idx is None else [idx])
+        before = [t.clone() for t in inputs]
+        kk, ik, vk = sb.sort_kv_cuda(key, idx, vals)
+        kp, ip, vp = sb.sort_kv_plain(key, idx, vals)
+        torch.cuda.synchronize(dev)
+        bad = int((kk != kp).sum()) + int((ik != ip).sum())
+        bad += sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                   for a, b in zip(vk, vp))
+        changed = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                      for a, b in zip(inputs, before))
+        distinct = int(torch.unique(key).numel())
+        print(f"B6 {case} n={n}, {len(vals)} payloads, "
+              f"{'explicit idx' if idx is not None else 'positions'}, "
+              f"{distinct} distinct keys: {bad} mismatching words, "
+              f"{changed} input words changed", flush=True)
+        rec = dict(err=float(bad), bad=bad + changed,
+                   work=f"{case}, n {n}, {len(vals)} payloads, {distinct} "
+                        f"distinct keys")
+        if case == "morton":
+            def library(key=key, vals=vals):
+                order = torch.sort(key, stable=True).indices
+                return key[order], [v[order] for v in vals]
 
-    def library():
-        order = torch.sort(key, stable=True).indices
-        return key[order], [v[order] for v in vals]
-
-    bms, by = time_bound(2 * (2 + len(vals)) * B6_N * 4, 0.0)
-    run = lambda: sb.sort_kv_cuda(key, idx, vals)
-    rec = dict(err=float(bad), bad=bad,
-               ms=kernel_ms(run, 10, ("segment_kernel", "substage_kernel")),
-               call_ms=cuda_ms(run, 10),
-               plain_ms=cuda_ms(lambda: sb.sort_kv_plain(key, idx, vals), 10),
-               library_ms=cuda_ms(library, 10), bound_ms=bms, bound_by=by,
-               work=f"n {B6_N}, {len(vals)} payloads, "
-                    f"{int(torch.unique(key).numel())} distinct keys")
-    print(f"B6 n={B6_N}, {len(vals)} payloads: {bad} mismatching words",
-          flush=True)
-    return {str(B6_N): rec}
+            run = lambda: sb.sort_kv_cuda(key, None, vals)
+            calls = sb.sort_kv_cuda.launches
+            run()
+            calls = sb.sort_kv_cuda.launches - calls
+            # the positions form reads the key and the payloads and writes
+            # the key, idx and the payloads, each once
+            rec["bound_ms"], rec["bound_by"] = time_bound(
+                (1 + len(vals) + 2 + len(vals)) * n * 4, 0.0)
+            # in turns: kernel, library, library, kernel
+            p1 = b6_parts(run, calls, 20)
+            l1 = device_ms(library, 20, None, None)
+            l2 = device_ms(library, 20, None, None)
+            p2 = b6_parts(run, calls, 20)
+            parts = {k: (p1.get(k, 0.0) + p2.get(k, 0.0)) / 2
+                     for k in {*p1, *p2}}
+            rec.update(ms=sum(parts.values()), parts=parts,
+                       library_ms=(l1 + l2) / 2, call_ms=cuda_ms(run, 20),
+                       library_event_ms=cuda_ms(library, 20),
+                       plain_ms=cuda_ms(
+                           lambda: sb.sort_kv_plain(key, None, vals), 10))
+        out[f"{case} {n}"] = rec
+    return out
 
 
 def force_errors(fk, fp) -> tuple:
@@ -635,7 +732,7 @@ def b5_vs_plain(dev, npl, stable_orbits) -> dict:
             out[(n, approx)] = dict(
                 err=err, rel=rel, median_rel=med,
                 bad=int(rel > B5_RTOL[approx]),
-                ms=kernel_ms(run, reps, ("forces_kernel",)),
+                ms=device_ms(run, reps, "forces_kernel", None),
                 call_ms=cuda_ms(run, reps),
                 plain_ms=cuda_ms(lambda: npl.forces_pallas_plain(px, py, m),
                                  1),
@@ -955,7 +1052,7 @@ def main() -> int:
     # Phase 2: build every kernel, one nvcc per source, concurrently.
     t0 = time.perf_counter()
     names = ("raster_queue", "raster_bins", "gol_swar", "gol_stencil",
-             "nbody_forces", "sort_bitonic")
+             "nbody_forces", "sort_radix")
     with ThreadPoolExecutor(len(names)) as ex:
         libs = list(ex.map(load_kernel_lib, names))
     for lib in libs:
@@ -1122,8 +1219,17 @@ def main() -> int:
     for kernel, cmp in (("B4", cmp4), ("B8", cmp8), ("B6", cmp6),
                         ("B5", cmp5)):
         for label, r in cmp.items():
-            lib = (f", library {r['library_ms']:.4f} ms (stable torch.sort "
-                   f"and gathers, CUDA events)" if "library_ms" in r else "")
+            if "ms" not in r:
+                continue  # compared, not timed
+            lib = ""
+            if "library_ms" in r:
+                lib = (f", library {r['library_ms']:.4f} ms (stable "
+                       f"torch.sort and 6 gathers, device, profiler; "
+                       f"{r['library_event_ms']:.4f} ms by CUDA events), "
+                       f"kernel / library {r['ms'] / r['library_ms']:.3f}; "
+                       f"kernel by launch "
+                       + ", ".join(f"{k} {v:.4f}" for k, v in
+                                   sorted(r["parts"].items())) + " ms")
             print(f"time {kernel} {r['work']}: kernel {r['ms']:.4f} ms "
                   f"(device, profiler), wrapper call {r['call_ms']:.4f} ms "
                   f"and plain version {r['plain_ms']:.4f} ms (CUDA "
@@ -1152,9 +1258,10 @@ def main() -> int:
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r.get("library_ms")}
 
-    print(f"profiler sessions lost {lost_pads} of their opening pad "
-          f"records; {lost_sessions} sessions were thrown away and run "
-          f"again [{card}]")
+    print(f"profiler sessions lost {lost_pads[0]} of their opening and "
+          f"{lost_pads[1]} of their closing pad records; {lost_sessions} "
+          f"sessions were thrown away and run again; the longest wait a "
+          f"kept session had was {most_settle:.2f} s [{card}]")
     print(card)
     print(json.dumps({"kernels": [
         entry("queue_raster (B1)", "rustexp_tpu_torch/csrc/raster_queue.cu",
@@ -1169,8 +1276,9 @@ def main() -> int:
         entry("nbody_forces (B5)", "rustexp_tpu_torch/csrc/nbody_forces.cu",
               "rustexp_tpu/ops/nbody_pallas.py:38", "B5", cmp5,
               (NBODY_N, True)),
-        entry("sort_bitonic (B6)", "rustexp_tpu_torch/csrc/sort_bitonic.cu",
-              "rustexp_tpu/ops/sort_bitonic.py:125", "B6", cmp6, str(B6_N)),
+        entry("sort_radix (B6)", "rustexp_tpu_torch/csrc/sort_radix.cu",
+              "rustexp_tpu/ops/sort_bitonic.py:125", "B6", cmp6,
+              "morton 131072"),
         entry("queue_zslot (B7)", "rustexp_tpu_torch/csrc/raster_queue.cu",
               "rustexp_tpu/ops/raster_queue.py:799", "B7", cmp7,
               "KillerooP"),

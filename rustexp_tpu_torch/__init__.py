@@ -14,8 +14,9 @@ its hand-written CUDA counterpart for sm_90a: the flat-queue rasterizer
 and its depth race alone (csrc/raster_queue.cu), the binned rasterizer
 and its G-buffer form (csrc/raster_bins.cu), SWAR GoL and the f32 GoL
 stencil (csrc/gol_swar.cu, csrc/gol_stencil.cu), all-pairs N-body forces
-(csrc/nbody_forces.cu) and the bitonic key-value sort
-(csrc/sort_bitonic.cu). ROADMAP.md lists the rest.
+(csrc/nbody_forces.cu) and the key-value sort, a stable radix sort in
+place of JAX's bitonic network (csrc/sort_radix.cu). ROADMAP.md lists
+the rest.
 
 Layout mirrors the JAX package:
   core/      color packing, gamma, frame-time statistics

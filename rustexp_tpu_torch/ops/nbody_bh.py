@@ -57,9 +57,9 @@ def morton_sort(px, py, m, vx=None, vy=None, bits: int = 15):
     """The particle arrays [px, py, m(, vx, vy)] permuted into Z order.
 
     With USE_BITONIC_SORT, power-of-two counts >= 256 go through sort_kv
-    (kernel B6 on the card) with the arrays carried through the network;
-    other counts take a stable argsort and gathers. Both give the same
-    arrays bit for bit.
+    (kernel B6 on the card, a radix sort that gathers the arrays once by
+    its permutation); other counts take a stable argsort and gathers.
+    Both give the same arrays bit for bit.
     """
     code = morton_codes(px, py, px.min(), px.max(), py.min(), py.max(), bits)
     vals = [px, py, m] + ([vx, vy] if vx is not None else [])

@@ -1,16 +1,20 @@
-"""Bitonic key-value sort: kernel B6 and its plain version.
+"""Key-value sort: kernel B6, a stable radix sort, and its plain version.
 
-Port of sort_kv in rustexp_tpu/ops/sort_bitonic.py. The sort key is the
-lexicographic pair (key, idx), idx defaulting to the positions, so the
-result equals a stable argsort of the key applied to every array, bit for
-bit. The payloads (f32 or int32 [n], up to 8) are carried with the keys.
-n must be a power of two >= 256, as for the JAX network.
+Port of sort_kv in rustexp_tpu/ops/sort_bitonic.py, whose Pallas kernel
+is a bitonic network; the module keeps that name, the JAX counterpart's.
+The sort key is the lexicographic pair (key, idx), idx defaulting to the
+positions, so the result equals a stable argsort of the key applied to
+every array, bit for bit. The payloads (f32 or int32 [n], up to 8) are
+carried with the keys. n must be a power of two >= 256, as for the JAX
+network.
 
-Kernel B6 (csrc/sort_bitonic.cu, replacing ``_make_kernel`` and
-``_make_kernel_loop``) runs for CUDA tensors; sort_kv_plain, a stable
-torch.sort of (key, idx) and gathers, is its plain version and serves CPU
-tensors. The same sort and gathers are the kernel's library yardstick on
-the card. merge_kv waits for the sharded sort (ROADMAP A16).
+Kernel B6 (csrc/sort_radix.cu, replacing ``_make_kernel`` and
+``_make_kernel_loop``) is a stable LSD radix sort, 8 bits a pass, that
+carries one permutation and gathers the payloads once; it runs for CUDA
+tensors. sort_kv_plain, a stable torch.sort of (key, idx) and gathers, is
+its plain version and serves CPU tensors. The same sort and gathers are
+the kernel's library yardstick on the card. merge_kv waits for the
+sharded sort (ROADMAP A16).
 """
 
 from __future__ import annotations
@@ -44,8 +48,10 @@ def _check(key: torch.Tensor, idx: torch.Tensor, values) -> int:
 
 def sort_kv_plain(key, idx, values):
     """Plain PyTorch version of kernel B6 -> (key, idx, values) sorted by
-    (key, idx): a stable sort by idx, then a stable sort by key, and one
-    gather per array."""
+    (key, idx), idx None meaning the positions: a stable sort by idx, then
+    a stable sort by key, and one gather per array."""
+    if idx is None:
+        idx = torch.arange(key.shape[0], dtype=torch.int32, device=key.device)
     order = torch.sort(idx, stable=True).indices
     order = order[torch.sort(key[order], stable=True).indices]
     return key[order], idx[order], [v[order] for v in values]
@@ -53,44 +59,53 @@ def sort_kv_plain(key, idx, values):
 
 @functools.cache
 def _b6_kernel():
-    lib = load_kernel_lib("sort_bitonic")
-    fn = lib.lib.sb_sort
+    lib = load_kernel_lib("sort_radix")
+    fn = lib.lib.rs_sort
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.POINTER(ctypes.c_void_p),
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                    ctypes.POINTER(ctypes.c_int)]
+    lib.lib.rs_counts_words.restype = ctypes.c_int
+    lib.lib.rs_counts_words.argtypes = [ctypes.c_int]
     return lib, fn
 
 
 def sort_kv_cuda(key, idx, values):
-    """Launch kernel B6 (csrc/sort_bitonic.cu) -> (key, idx, values)
-    sorted by (key, idx), for contiguous CUDA tensors; idx must be
-    distinct for the order to be unique. One call runs the whole network:
-    a launch per stage that fits a 1,024-element segment in shared memory,
-    one per larger substage, 36 grid launches at n = 131,072;
-    ``sort_kv_cuda.launches`` counts those grid launches.
+    """Launch kernel B6 (csrc/sort_radix.cu) -> (key, idx, values) sorted
+    by (key, idx), for contiguous CUDA tensors. idx None is the positions
+    (4 radix passes, 12 grid launches; the returned idx is then the
+    permutation); an explicit idx, which must be distinct for the order to
+    be unique, adds 4 passes on it first (24 launches).
+    ``sort_kv_cuda.launches`` counts the grid launches.
     """
     dev = key.device
     if dev.type != "cuda":
         raise ValueError(f"kernel B6 runs on CUDA tensors, got {dev}")
-    n = _check(key, idx, values)
-    for t in (key, idx, *values):
+    n = _check(key, key if idx is None else idx, values)
+    arrays = (key, *values) if idx is None else (key, idx, *values)
+    for t in arrays:
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"kernel B6 needs contiguous tensors on {dev}")
     lib, fn = _b6_kernel()
     key_out = torch.empty_like(key)
-    idx_out = torch.empty_like(idx)
+    idx_out = torch.empty_like(key)
     outs = [torch.empty_like(v) for v in values]
+    words = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    perm = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    counts = torch.empty(lib.lib.rs_counts_words(n), dtype=torch.int32,
+                         device=dev)
     nv = len(values)
     vals_in = (ctypes.c_void_p * max(nv, 1))(*[v.data_ptr() for v in values])
     vals_out = (ctypes.c_void_p * max(nv, 1))(*[o.data_ptr() for o in outs])
     launched = ctypes.c_int(0)
-    rc = fn(ptr(key), ptr(idx), vals_in, ptr(key_out), ptr(idx_out),
-            vals_out, nv, n, stream_ptr(dev), ctypes.byref(launched))
+    rc = fn(ptr(key), None if idx is None else ptr(idx), vals_in,
+            ptr(key_out), ptr(idx_out), vals_out, nv, n, ptr(words),
+            ptr(perm), ptr(counts), stream_ptr(dev), ctypes.byref(launched))
     sort_kv_cuda.launches += launched.value
-    lib.check(rc, "kernel B6 (sb_sort)")
+    lib.check(rc, "kernel B6 (rs_sort)")
     return key_out, idx_out, outs
 
 
@@ -102,12 +117,11 @@ def sort_kv(key, values, idx=None):
     [n]) -> (sorted_key, sorted_values). `idx` (int32 [n], distinct)
     replaces the positions as the tiebreak. CUDA tensors launch kernel
     B6, CPU tensors take its plain version."""
-    if idx is None:
-        idx = torch.arange(key.shape[0], dtype=torch.int32, device=key.device)
-    _check(key, idx, values)
+    _check(key, key if idx is None else idx, values)
     if key.device.type == "cuda":
-        skey, _, svals = sort_kv_cuda(key.contiguous(), idx.contiguous(),
-                                      [v.contiguous() for v in values])
+        skey, _, svals = sort_kv_cuda(
+            key.contiguous(), None if idx is None else idx.contiguous(),
+            [v.contiguous() for v in values])
     elif key.device.type == "cpu":
         skey, _, svals = sort_kv_plain(key, idx, values)
     else:

@@ -64,18 +64,20 @@ class RasterizerExperiment:
         Big meshes use the flat work queue; small ones the [nT, cap] bins
         (rustexp_tpu/sims/rasterizer.py:136, app/benchmark.py
         QUEUE_MIN_TRIS). A window that renders through the G-buffer
-        oracle builds neither: the queue's tiles do not fit it.
+        oracle builds neither: the queue's tiles do not fit it. The key
+        holds the resolved route, so a change of ``state.backend`` builds
+        the structure that route needs.
         """
-        key = (state.mesh_idx, state.env_idx, w, h)
-        if state._scene_cache is None or state._scene_cache[0] != key:
-            from ..app.benchmark import QUEUE_MIN_TRIS
+        from ..app.benchmark import QUEUE_MIN_TRIS
 
-            m = mesh.get_mesh(state.mesh_idx)
+        m = mesh.get_mesh(state.mesh_idx)
+        kind = "queue" if m.num_tris >= QUEUE_MIN_TRIS else "pallas"
+        if self._backend(state.backend, kind, w, h) == "xla":
+            kind = "xla"
+        key = (state.mesh_idx, state.env_idx, w, h, kind)
+        if state._scene_cache is None or state._scene_cache[0] != key:
             scene = pp.make_scene(m, cubemap.get_cm_set(state.env_idx),
                                   self.device)
-            kind = "queue" if m.num_tris >= QUEUE_MIN_TRIS else "pallas"
-            if self._backend(state.backend, kind, w, h) == "xla":
-                kind = "xla"
             state._scene_cache = (key, scene,
                                   self._build(scene, eye, w, h, kind))
         return state._scene_cache[1], state._scene_cache[2]

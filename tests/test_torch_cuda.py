@@ -298,31 +298,55 @@ def test_b8_kernel_matches_plain_on_card(shape, k):
                        gs.multi_step_pallas_plain(g, k).view(torch.int32))
 
 
+INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def _b6_keys(case, n, gen):
+    """int32 [n] keys of a B6 case (on the CPU)."""
+    if case == "constant":
+        return torch.zeros(n, dtype=torch.int32)
+    if case == "signed":
+        key = torch.randint(INT32_MIN, INT32_MAX, (n,), generator=gen,
+                            dtype=torch.int32)
+        key[:8] = torch.tensor([INT32_MIN, -1, 0, INT32_MAX] * 2,
+                               dtype=torch.int32)
+        return key[torch.randperm(n, generator=gen)]
+    hi = {"ties": 7, "wide": 1 << 30, "morton": 1000,
+          "idx": 5}.get(case, INT32_MAX)
+    return torch.randint(0, hi, (n,), generator=gen, dtype=torch.int32)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,key_hi", [(256, 7), (4096, 1 << 30),
-                                      (131072, 1000)])
-def test_b6_kernel_matches_plain_on_card(n, key_hi):
-    """Bit-equal keys, idx and five payloads (f32 and int32), ties
-    included, at the N-body's n = 131,072."""
+@pytest.mark.parametrize("case,n", [("ties", 256), ("wide", 4096),
+                                    ("morton", 131072), ("signed", 4096),
+                                    ("constant", 256), ("idx", 4096),
+                                    ("random", 1 << 20)])
+def test_b6_kernel_matches_plain_on_card(case, n):
+    """Bit-equal keys, idx and five payloads (f32 and int32): ties, the
+    N-body's n = 131,072, full-range signed keys with INT32_MIN, -1, 0 and
+    INT32_MAX, constant keys, an explicit permuted and partly negative idx
+    (8 passes), and n = 2^20; the inputs are left unchanged."""
     dev = _card()
     gen = torch.Generator().manual_seed(n)
-    key = torch.randint(0, key_hi, (n,), generator=gen,
-                        dtype=torch.int32).to(dev)
-    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    key = _b6_keys(case, n, gen).to(dev)
+    idx = None
+    if case == "idx":
+        idx = (torch.randperm(n, generator=gen).to(torch.int32)
+               - n // 3).to(dev)
     vals = [torch.randn(n, generator=gen).to(dev) for _ in range(4)]
     vals.append(torch.randint(-9, 9, (n,), generator=gen,
                               dtype=torch.int32).to(dev))
+    before = [t.clone() for t in (key, *vals)]
     launches = sb.sort_kv_cuda.launches
     kk, ik, vk = sb.sort_kv_cuda(key, idx, vals)
-    # one shared-memory pass per stage of 1,024-element segments, one
-    # launch per larger substage: 1, 6 and 36 grid launches
-    seg = min(n, 1024).bit_length() - 1
-    stages = range(seg + 1, n.bit_length())
-    assert sb.sort_kv_cuda.launches == launches + 1 + sum(
-        s - seg + 1 for s in stages)
+    # three launches (count, scan, scatter) per 8-bit pass: 4 passes on
+    # the key, 4 more on an explicit idx
+    assert sb.sort_kv_cuda.launches == launches + (12 if idx is None else 24)
     kp, ip, vp = sb.sort_kv_plain(key, idx, vals)
     assert torch.equal(kk, kp) and torch.equal(ik, ip)
     for a, b in zip(vk, vp):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    for a, b in zip((key, *vals), before):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 

@@ -105,6 +105,20 @@ def test_experiment_rebuilds_stale_queue(caplog):
     assert torch.equal(got, fresh)
 
 
+def test_experiment_rebuilds_on_backend_switch():
+    """A state that rendered through the oracle (backend "xla") and then
+    switches to "auto" builds the queue its route needs; the frames are
+    equal."""
+    te = RasterizerExperiment(CPU)
+    ts = te.init(per_pixel=True, backend="xla")
+    oracle = te.render(ts, W, H, 0.0)
+    assert ts._scene_cache[2] == ("xla", None)
+    ts.backend = "auto"
+    queued = te.render(ts, W, H, 0.0)
+    assert ts._scene_cache[2][0] == "queue"
+    assert torch.equal(oracle, queued)
+
+
 def test_bins_path_and_cpu_timing_refused():
     """The bins path runs (Cube, 12 triangles, takes it), and so does a
     window of partial tiles, through the G-buffer oracle; what is still

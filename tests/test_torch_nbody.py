@@ -98,11 +98,18 @@ def _sort_case(case, n, rng):
         return rng.permutation(1 << 20)[:n].astype(np.int32)
     if case == "sorted":
         return np.arange(n, dtype=np.int32)
+    if case == "signed":
+        info = np.iinfo(np.int32)
+        key = rng.integers(info.min, info.max, n, dtype=np.int32,
+                           endpoint=True)
+        key[:8] = (info.min, -1, 0, info.max, info.min, -1, 0, info.max)
+        return rng.permutation(key)
     return np.arange(n, dtype=np.int32)[::-1].copy()
 
 
 @pytest.mark.parametrize("n", [256, 1024, 4096])
-@pytest.mark.parametrize("case", ["ties", "unique", "sorted", "reversed"])
+@pytest.mark.parametrize("case", ["ties", "unique", "sorted", "reversed",
+                                  "signed"])
 def test_plain_b6_matches_jax(n, case):
     """sort_kv on CPU tensors (B6's plain version) against the Pallas
     network in interpret mode, five payloads, bit for bit."""
@@ -119,10 +126,11 @@ def test_plain_b6_matches_jax(n, case):
 
 
 def test_plain_b6_idx_tiebreak_matches_jax():
-    """An explicit idx replaces the positions as the tiebreak."""
+    """An explicit idx, partly negative, replaces the positions as the
+    tiebreak."""
     rng = np.random.default_rng(7)
     key = rng.integers(0, 5, 512).astype(np.int32)
-    idx = rng.permutation(512).astype(np.int32) + 1000
+    idx = rng.permutation(512).astype(np.int32) - 200
     val = rng.standard_normal(512).astype(np.float32)
     sk, (sv,) = jsb.sort_kv(jnp.asarray(key), [jnp.asarray(val)],
                             idx=jnp.asarray(idx))
@@ -323,3 +331,25 @@ def test_kernels_and_bench_refuse_the_cpu():
                          torch.ones(1000))
     with pytest.raises(ValueError, match="times the card"):
         tbench.bench_nbody(1024, 1, 1, device=CPU)
+
+
+
+def test_plain_b6_returns_the_permutation():
+    """B6's plain version returns idx as the stable sorting permutation in
+    the positions form; constant keys keep the identity, and an explicit
+    idx orders them."""
+    rng = np.random.default_rng(11)
+    key = rng.integers(-3, 3, 1024).astype(np.int32)
+    val = rng.standard_normal(1024).astype(np.float32)
+    sk, si, (sv,) = tsb.sort_kv_plain(torch.from_numpy(key), None,
+                                      [torch.from_numpy(val)])
+    order = np.argsort(key, kind="stable")
+    assert np.array_equal(si.numpy(), order)
+    assert np.array_equal(sk.numpy(), key[order])
+    assert np.array_equal(sv.numpy().view(np.int32), val[order].view(np.int32))
+    zeros = torch.zeros(256, dtype=torch.int32)
+    _, si, _ = tsb.sort_kv_plain(zeros, None, [])
+    assert np.array_equal(si.numpy(), np.arange(256))
+    idx = rng.permutation(256).astype(np.int32) - 100
+    _, si, _ = tsb.sort_kv_plain(zeros, torch.from_numpy(idx), [])
+    assert np.array_equal(si.numpy(), np.sort(idx))
