@@ -18,14 +18,17 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      and on four 128-row bands of Killeroo, 512x512, bit for bit (0
      mismatching words); B7 (B1's depth race alone) on KillerooP and
      TorusKnotP, slot on every word and z where a pair won; B4 (SWAR GoL)
-     at packed [8, 256] and [64, 2048] and B8 (the f32 GoL stencil) at
-     256^2 and 512^2, bit for bit; B6 (the radix sort) with five payloads,
+     at packed [8, 256] in both its forms (resident and tiled), [64, 2048]
+     tiled and [8, 1024] resident, its input unchanged and its launches
+     as planned, and B8 (the f32 GoL stencil) at 256^2 and 512^2, bit for
+     bit, with B4's and B5's registers and spills from ptxas; B6 (the
+     radix sort) with five payloads,
      bit for bit and its inputs unchanged, on the N-body's Morton codes at
      n = 131,072, full-range signed keys and an explicit negative idx at
      4,096, constant keys at 256 and random keys at 2^20, timed with the
      library call (stable torch.sort and gathers) by device time in the
-     same run; B5 (all-pairs forces) at
-     N = 16,384 and 131,072 with both reciprocals, within B5_RTOL;
+     same run; B5 (all-pairs forces) at N = 16,384, 131,072 and 16,385
+     with both reciprocals, within B5_RTOL, its launches as planned;
   4. runs each main path with the launch counters set to 0 just before it
      and read just after, and fails if its kernel never ran: the queue path
      (RasterizerExperiment.render, KillerooV and KillerooP, a few ticks),
@@ -65,6 +68,7 @@ when there is no CUDA device, a build or launch fails, or a check fails.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -106,30 +110,40 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 OPS_PER_TEST = 32
 OPS_B1, OPS_2MAD, OPS_3W = 3, 4, 5
-# GoL: ~45 INT32 operations per packed word and generation (B4,
-# rustexp_tpu/ops/gol_bits.py:54-98), ~11 FP32 operations per cell and
-# generation (B8: 5 adds, 3 compares, and, or, select), both counted at the
-# FP32 rate. B5: 11 FP32 operations per pair (dx and dy, their squares,
-# two adds for d2 + EPS, the product with m_j, rm*dx and rm*dy, two sums)
-# plus one reciprocal on the special-function units, 16 per SM per clock
-# (Hopper white paper) x 132 SMs x 1.98 GHz; the two pipes run side by
-# side, so the bound is the larger time.
-OPS_SWAR = 45
+# Rates per SM per clock (Hopper white paper) x 132 SMs x 1.98 GHz, for
+# work that is not an FMA (the 67 TFLOP/s above counts an FMA as two).
+SM_CLOCKS_PER_S = 132 * 1.98e9
+# GoL B4: 18 integer instructions per packed word and generation, 2 funnel
+# shifts and 16 three-input logic ops (rustexp_tpu/ops/gol_bits.py:54-98
+# written as 17; the SASS of csrc/gol_swar.cu's generation loop has 16.0
+# LOP3 and 2.0 SHF a word, beside the exchange's 4 SEL and 4 SHFL), at
+# the integer pipe's 64 lanes. B8: 11 FP32 operations per cell and
+# generation (5 adds, 3 compares, and, or, select), none an FMA, at 128
+# lanes. B5: 11 FP32 operations per pair (dx and dy, their squares, two
+# adds for d2 + EPS, the product with m_j, rm*dx and rm*dy, two sums) at
+# the FP32 rate plus one reciprocal on the special-function units, 16
+# lanes; the pipes run side by side, so the bound is the larger time.
+INT_LOGIC_OPS_PER_S = 64 * SM_CLOCKS_PER_S
+FP32_NON_FMA_OPS_PER_S = 128 * SM_CLOCKS_PER_S
+SFU_OPS_PER_S = 16 * SM_CLOCKS_PER_S
+OPS_SWAR = 18
 OPS_STENCIL = 11
 OPS_PAIR = 11
-SFU_OPS_PER_S = 16 * 132 * 1.98e9
 
-B4_CASES = (((256, 256), 100), ((2048, 2048), 100))  # (cells, generations)
+# (cells, generations, form): None is the plan's
+B4_CASES = (((256, 256), 100, None), ((256, 256), 100, "tiled"),
+            ((2048, 2048), 100, None), ((256, 1024), 100, "resident"))
 B8_CASES = (((256, 256), 20), ((512, 512), 20))
-B5_NS = (16384, 131072)
+B5_NS = (16384, 131072, 16385)  # the last not a multiple of 256 targets
 # B6: (keys, n); "morton" (the N-body's codes, positions form) is timed
 B6_CASES = (("morton", 131072), ("signed", 4096), ("constant", 256),
             ("idx", 4096), ("random", 1 << 20))
 # B5 against its plain version: the largest |F_kernel - F_plain| over all
 # particles, relative to the largest |F_plain|. The sums run in another
 # order (the sun's own force nearly cancels, so a per-particle ratio says
-# little there); stated per reciprocal form, measured 1.5e-6 for both at
-# N = 131,072 on an H100 (rcp.approx.f32 is within about an ulp).
+# little there); stated per reciprocal form, measured 7.0e-7 for both at
+# N = 131,072 on an H100 with the fused pair and 16 source splits
+# (rcp.approx.f32 is within about an ulp).
 B5_RTOL = {False: 1e-5, True: 1e-5}
 GOL_FRAMES = 4         # Experiment steps per backend, 8 generations each
 NBODY_N = 131072
@@ -138,6 +152,7 @@ NBODY_CPU_CASES = ((4096, 0.85), (1024, 0.85), (10_000, 0.85))
 NBODY_FRAME_FRAC = 0.01  # tests/test_golden.py's N-body bound
 GOL_BENCH_GENS = 65536
 NBODY_BENCH_STEPS = {"bh": 16, "pallas": 32}
+BENCH_RUNS = 3
 
 
 def fail(msg: str) -> int:
@@ -532,12 +547,13 @@ def b7_vs_plain(dev, pp, rq, meshes, cubemap, camera):
     return out
 
 
-def time_bound(bytes_moved: float, ops: float, sfu_ops: float = 0.0):
+def time_bound(bytes_moved: float, ops: float, sfu_ops: float = 0.0,
+               ops_per_s: float = FP32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the FP32 rate (special-function operations over
-    theirs)."""
+    operations over their rate, the FP32 one unless named (special-function
+    operations over theirs)."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = max(ops / FP32_OPS_PER_S, sfu_ops / SFU_OPS_PER_S)
+    t_ops = max(ops / ops_per_s, sfu_ops / SFU_OPS_PER_S)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -549,26 +565,38 @@ def random_grid(shape, seed: int, dev) -> torch.Tensor:
 
 
 def b4_vs_plain(dev, gb) -> dict:
-    """B4 against its plain version at packed [8, 256] and [64, 2048]."""
+    """B4 against its plain version, bit for bit and its input unchanged,
+    in B4_CASES: packed [8, 256] in both forms (the plan's resident one
+    and tiled), [64, 2048] tiled (too large for the resident form) and
+    [8, 1024], the resident form's widest grid."""
     out = {}
-    for (r, c), k in B4_CASES:
+    for (r, c), k, form in B4_CASES:
         packed = gb.pack_rows(random_grid((r, c), r, dev))
-        got = gb.multi_step_packed_cuda(packed, k)
+        before = packed.clone()
+        plan = gb._b4_plan(*packed.shape, k, form)
+        calls = gb.multi_step_packed_cuda.launches
+        got = gb.multi_step_packed_cuda(packed, k, form)
+        calls = gb.multi_step_packed_cuda.launches - calls
         want = gb.multi_step_packed_plain(packed, k)
         torch.cuda.synchronize(dev)
         bad = int((got != want).sum())
+        changed = int((packed != before).sum())
         words = packed.numel()
-        bms, by = time_bound(2 * words * 4, words * k * OPS_SWAR)
-        run = lambda: gb.multi_step_packed_cuda(packed, k)
-        out[f"{r}x{c}"] = dict(
-            err=float(bad), bad=bad,
-            ms=device_ms(run, 10, "swar_kernel", None),
+        bms, by = time_bound(2 * words * 4, words * k * OPS_SWAR,
+                             ops_per_s=INT_LOGIC_OPS_PER_S)
+        run = lambda: gb.multi_step_packed_cuda(packed, k, form)
+        out[f"{r}x{c} {plan.form}"] = dict(
+            err=float(bad), bad=bad + changed + int(calls != plan.launches),
+            ms=device_ms(run, 10, "swar_kernel", plan.launches),
             call_ms=cuda_ms(run, 10),
             plain_ms=cuda_ms(lambda: gb.multi_step_packed_plain(packed, k), 1),
             bound_ms=bms, bound_by=by,
-            work=f"packed {list(packed.shape)}, {k} generations")
-        print(f"B4 {r}x{c} (packed {list(packed.shape)}), {k} generations: "
-              f"{bad} mismatching words", flush=True)
+            work=f"packed {list(packed.shape)}, {k} generations, "
+                 f"{plan.form}, {plan.launches} launches")
+        print(f"B4 {r}x{c} (packed {list(packed.shape)}), {k} generations, "
+              f"{plan.form} form, {calls} launches a call (planned "
+              f"{plan.launches}): {bad} mismatching words, {changed} input "
+              f"words changed", flush=True)
     return out
 
 
@@ -581,7 +609,8 @@ def b8_vs_plain(dev, gs) -> dict:
         want = gs.multi_step_pallas_plain(g, k)
         torch.cuda.synchronize(dev)
         bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-        bms, by = time_bound(2 * g.numel() * 4, g.numel() * k * OPS_STENCIL)
+        bms, by = time_bound(2 * g.numel() * 4, g.numel() * k * OPS_STENCIL,
+                             ops_per_s=FP32_NON_FMA_OPS_PER_S)
         run = lambda: gs.multi_step_pallas_cuda(g, k)
         out[f"{r}x{c}"] = dict(
             err=float((got - want).abs().max()), bad=bad,
@@ -714,15 +743,18 @@ def force_errors(fk, fp) -> tuple:
 
 
 def b5_vs_plain(dev, npl, stable_orbits) -> dict:
-    """B5, both reciprocals, against its plain version at N = 16,384 and
-    131,072 (stable orbits)."""
+    """B5, both reciprocals, against its plain version at B5_NS (stable
+    orbits), with the launches its plan gives."""
     out = {}
     for n in B5_NS:
         px, py, _, _, m = stable_orbits(torch.Generator().manual_seed(2), n,
                                         device=dev)
         want = npl.forces_pallas_plain(px, py, m)
+        splits, launches = npl._b5_plan(n)
         for approx in (False, True):
+            calls = npl.forces_pallas_cuda.launches
             got = npl.forces_pallas_cuda(px, py, m, approx)
+            calls = npl.forces_pallas_cuda.launches - calls
             torch.cuda.synchronize(dev)
             rel, med, err = force_errors(got, want)
             pairs = n * (n - 1)
@@ -731,25 +763,29 @@ def b5_vs_plain(dev, npl, stable_orbits) -> dict:
             reps = 3 if n > 20000 else 10
             out[(n, approx)] = dict(
                 err=err, rel=rel, median_rel=med,
-                bad=int(rel > B5_RTOL[approx]),
-                ms=device_ms(run, reps, "forces_kernel", None),
+                bad=int(rel > B5_RTOL[approx]) + int(calls != launches),
+                ms=device_ms(run, reps, None, launches),
                 call_ms=cuda_ms(run, reps),
                 plain_ms=cuda_ms(lambda: npl.forces_pallas_plain(px, py, m),
                                  1),
                 bound_ms=bms, bound_by=by,
                 work=f"N {n}, {'approximate' if approx else 'exact'} "
-                     f"reciprocal")
+                     f"reciprocal, {splits} source splits, {launches} "
+                     f"launches")
             print(f"B5 N={n} approx_recip={approx}: max |dF| / max |F| "
                   f"{rel:.3e} (tolerance {B5_RTOL[approx]:.0e}), median "
-                  f"per-particle {med:.3e}, max abs error {err:.3e}",
-                  flush=True)
+                  f"per-particle {med:.3e}, max abs error {err:.3e}; "
+                  f"{splits} source splits, {calls} launches a call "
+                  f"(planned {launches})", flush=True)
     return out
 
 
-def gol_paths(dev, card, gol_exp, counters, launches) -> str | None:
-    """The GoL Experiment at 256^2, auto (B4) then pallas (B8), 8
-    generations per step, counted; the card's frames against the CPU's,
-    bit for bit. Returns a failure message or None."""
+def gol_paths(dev, card, gol_exp, counters, launches, b4_per_step: int
+              ) -> str | None:
+    """The GoL Experiment at 256^2, auto (B4, `b4_per_step` launches a
+    step) then pallas (B8), 8 generations per step, counted; the card's
+    frames against the CPU's, bit for bit. Returns a failure message or
+    None."""
     for backend, kernel in (("auto", "B4"), ("pallas", "B8")):
         frames = []
         for d in (dev, torch.device("cpu")):
@@ -767,6 +803,9 @@ def gol_paths(dev, card, gol_exp, counters, launches) -> str | None:
                       f"{got}; {exp.status(st)} [{card}]", flush=True)
                 if got[kernel] == 0:
                     return f"the GoL {backend} path never launched {kernel}"
+                if kernel == "B4" and got[kernel] != GOL_FRAMES * b4_per_step:
+                    return (f"the GoL auto path launched B4 {got[kernel]} "
+                            f"times, not {GOL_FRAMES * b4_per_step}")
                 for k in counters:
                     launches[k] += got[k]
             frames.append(torch.stack(fb))
@@ -779,10 +818,12 @@ def gol_paths(dev, card, gol_exp, counters, launches) -> str | None:
     return None
 
 
-def nbody_paths(dev, card, nb_exp, counters, launches) -> str | None:
+def nbody_paths(dev, card, nb_exp, counters, launches, b5_per_step: int
+                ) -> str | None:
     """The N-body Experiment on the card at N = 131,072 (theta 0.85: block
-    BH, its Morton sort B6; theta 0: brute force, B5) and N = 10,000
-    (BH, argsort), counted. Returns a failure message or None."""
+    BH, its Morton sort B6; theta 0: brute force, B5, `b5_per_step`
+    launches a step) and N = 10,000 (BH, argsort), counted. Returns a
+    failure message or None."""
     for n, theta, kernel in ((NBODY_N, 0.85, "B6"), (NBODY_N, 0.0, "B5"),
                              (10_000, 0.85, None)):
         exp = nb_exp(dev)
@@ -801,6 +842,9 @@ def nbody_paths(dev, card, nb_exp, counters, launches) -> str | None:
         if kernel is not None and got[kernel] == 0:
             return (f"the N-body N={n} theta={theta} path never launched "
                     f"{kernel}")
+        if kernel == "B5" and got[kernel] != NBODY_STEPS * b5_per_step:
+            return (f"the brute N-body path launched B5 {got[kernel]} "
+                    f"times, not {NBODY_STEPS * b5_per_step}")
         if not finite or drawn < 1000:
             return f"N-body N={n}: finite={finite}, {drawn} px drawn"
         for k in counters:
@@ -1018,6 +1062,24 @@ def bench_profiles(dev, records, gb, bh, npl, stable_orbits) -> list[dict]:
     return out
 
 
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel of ptxas's -v report: its name (without the
+    namespace and the argument types), registers and spills."""
+    out, name, spills = [], "?", ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            short = re.search(r"[a-z_]+_kernel(I\w*?EE)?", m.group(1))
+            name = short.group(0) if short else m.group(1)
+            continue
+        if "spill stores" in line:
+            spills = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append(f"{name}: {m.group(1)} registers; {spills}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: no CUDA device")
@@ -1060,6 +1122,10 @@ def main() -> int:
               flush=True)
     print(f"all kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"[{card}]", flush=True)
+    for lib in libs:
+        if lib.name in ("gol_swar", "nbody_forces"):  # B4 and B5
+            for line in ptxas_summary(lib.ptxas):
+                print(f"ptxas {lib.name} {line}", flush=True)
 
     # Phase 3: each kernel against its plain version, on the card.
     cmp1 = b1_vs_plain(dev, pp, rq, meshes, cubemap, camera)
@@ -1156,30 +1222,44 @@ def main() -> int:
                                   counters, launches)
     if msg:
         return fail(msg)
-    for msg in (gol_paths(dev, card, GoLExperiment, counters, launches),
-                nbody_paths(dev, card, NBodyExperiment, counters, launches),
+    for msg in (gol_paths(dev, card, GoLExperiment, counters, launches,
+                          gb._b4_plan(256 // 32, 256, 8).launches),
+                nbody_paths(dev, card, NBodyExperiment, counters, launches,
+                            npl._b5_plan(NBODY_N)[1]),
                 nbody_card_vs_cpu(dev, NBodyExperiment)):
         if msg:
             return fail(msg)
     records = []
-    for label, kernel, run in (
+    # each bench makes a warm-up call and BENCH_RUNS timed ones; B4 and B5
+    # launch what their plans say, B6 12 times a step
+    calls = 1 + BENCH_RUNS
+    for label, kernel, expect, run in (
             ("bench_gol 256^2", "B4",
-             lambda: bench.bench_gol(GOL_BENCH_GENS, 3, 256, device=dev)),
+             calls * gb._b4_plan(256 // 32, 256, GOL_BENCH_GENS).launches,
+             lambda: bench.bench_gol(GOL_BENCH_GENS, BENCH_RUNS, 256,
+                                     device=dev)),
             ("bench_gol 2048^2", "B4",
-             lambda: bench.bench_gol(GOL_BENCH_GENS, 3, 2048, device=dev)),
+             calls * gb._b4_plan(2048 // 32, 2048, GOL_BENCH_GENS).launches,
+             lambda: bench.bench_gol(GOL_BENCH_GENS, BENCH_RUNS, 2048,
+                                     device=dev)),
             ("bench_nbody brute 131072", "B5",
+             calls * NBODY_BENCH_STEPS["pallas"] * npl._b5_plan(NBODY_N)[1],
              lambda: bench.bench_nbody(NBODY_N, NBODY_BENCH_STEPS["pallas"],
-                                       3, "pallas", True, device=dev)),
+                                       BENCH_RUNS, "pallas", True,
+                                       device=dev)),
             ("bench_nbody bh 131072", "B6",
-             lambda: bench.bench_nbody(NBODY_N, NBODY_BENCH_STEPS["bh"], 3,
-                                       "bh", device=dev))):
+             calls * NBODY_BENCH_STEPS["bh"] * 12,
+             lambda: bench.bench_nbody(NBODY_N, NBODY_BENCH_STEPS["bh"],
+                                       BENCH_RUNS, "bh", device=dev))):
         for c in counters.values():
             c.launches = 0
         rec = run()
         got = {k: c.launches for k, c in counters.items()}
-        print(f"launches during {label}: {got}", flush=True)
-        if got[kernel] == 0:
-            return fail(f"{label} never launched kernel {kernel}")
+        print(f"launches during {label}: {got} ({kernel}: {expect} "
+              f"expected, {got[kernel] / calls:g} a call)", flush=True)
+        if got[kernel] != expect:
+            return fail(f"{label} launched kernel {kernel} {got[kernel]} "
+                        f"times, not {expect}")
         if rec.get("finite") is False or rec.get("live_cells") == 0:
             return fail(f"{label}: bad result {rec}")
         for k in counters:
@@ -1272,7 +1352,8 @@ def main() -> int:
               "rustexp_tpu/ops/raster_pallas.py:138", "B3", cmp3,
               "Killeroo"),
         entry("gol_swar (B4)", "rustexp_tpu_torch/csrc/gol_swar.cu",
-              "rustexp_tpu/ops/gol_bits.py:113", "B4", cmp4, "2048x2048"),
+              "rustexp_tpu/ops/gol_bits.py:113", "B4", cmp4,
+              "2048x2048 tiled"),
         entry("nbody_forces (B5)", "rustexp_tpu_torch/csrc/nbody_forces.cu",
               "rustexp_tpu/ops/nbody_pallas.py:38", "B5", cmp5,
               (NBODY_N, True)),

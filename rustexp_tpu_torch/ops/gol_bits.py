@@ -8,10 +8,12 @@ step_roll and step_mxu.
 
 Kernel B4 (csrc/gol_swar.cu, replacing ``_swar_kernel``) runs k
 generations for CUDA tensors; multi_step_packed_plain, built on
-``_gen_bits``, is its plain version and serves CPU tensors. B4 tiles the
-grid with whole-word halos itself, so every 32-row-aligned size takes the
-one kernel: the JAX package's VMEM model (MAX_CELLS, pick_band,
-pick_plan, the banded and chained forms) has no counterpart here.
+``_gen_bits``, is its plain version and serves CPU tensors. B4 has two
+forms, which ``_b4_plan`` picks from the packed grid's size: small grids
+stay in registers for all k generations in one launch, any other
+32-row-aligned size is stepped on tiles with whole-word halos. The JAX
+package's VMEM model (MAX_CELLS, pick_band, pick_plan, the banded and
+chained forms) has no counterpart here.
 
 Packed grids are torch.uint32 at the public functions, as JAX returns
 uint32; inside they are int32 words with the same bits (torch has no
@@ -23,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -98,21 +101,61 @@ def multi_step_packed_plain(packed: torch.Tensor, k: int) -> torch.Tensor:
     return p
 
 
+RESIDENT_MAX_ROWS = 8        # form (a): word rows a thread holds
+RESIDENT_MAX_THREADS = 1024  # form (a): columns, one thread each
+# form (a) runs on one SM, so past some size the tiles on many SMs are
+# faster: an H100 took 0.52 us a generation resident against 0.55 tiled
+# at 256^2 (2,048 words), 1.78 resident at [8, 1024] (8,192 words)
+RESIDENT_MAX_WORDS = 2048
+TILED_GENS = 16              # form (b): generations per launch
+
+
+class B4Plan(NamedTuple):
+    form: str      # "resident" (a) or "tiled" (b)
+    launches: int  # grid launches of the call
+
+
+def _b4_plan(wn: int, cn: int, k: int, form: str | None = None) -> B4Plan:
+    """B4's form and launches for k generations of a packed [wn, cn] grid.
+
+    form (a), "resident": the whole grid in the registers of one block for
+    all k generations, one launch; it can hold at most RESIDENT_MAX_ROWS
+    word rows and RESIDENT_MAX_THREADS columns in whole warps, and is
+    taken up to RESIDENT_MAX_WORDS words. form (b), "tiled":
+    ceil(k / TILED_GENS) launches on halo'd tiles, any size. `form` forces
+    one (a grid form (a) cannot hold raises). k = 0 launches nothing."""
+    fits = (1 <= wn <= RESIDENT_MAX_ROWS and 0 < cn <= RESIDENT_MAX_THREADS
+            and cn % BITS == 0)
+    if form is None:
+        form = ("resident" if fits and wn * cn <= RESIDENT_MAX_WORDS
+                else "tiled")
+    if form == "resident":
+        if not fits:
+            raise ValueError(f"B4's resident form cannot hold a packed "
+                             f"[{wn}, {cn}] grid")
+        return B4Plan("resident", int(k > 0))
+    if form != "tiled":
+        raise ValueError(f"B4 has no form {form!r}")
+    return B4Plan("tiled", -(-k // TILED_GENS))
+
+
 @functools.cache
 def _b4_kernel():
     lib = load_kernel_lib("gol_swar")
     fn = lib.lib.gs_swar
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     return lib, fn
 
 
-def multi_step_packed_cuda(packed: torch.Tensor, k: int) -> torch.Tensor:
+def multi_step_packed_cuda(packed: torch.Tensor, k: int,
+                           form: str | None = None) -> torch.Tensor:
     """Launch kernel B4 (csrc/gol_swar.cu): k generations of a contiguous
-    packed [W, C] CUDA grid -> new int32 words.
+    packed [W, C] CUDA grid -> new int32 words, the input unchanged.
 
-    One call runs ceil(k / 32) grid launches, 32 generations each;
+    ``_b4_plan`` picks the form (``form`` forces one) and the launches:
+    one for the resident form, ceil(k / 16) tiled;
     ``multi_step_packed_cuda.launches`` counts those grid launches.
     """
     p = _words(packed)
@@ -124,14 +167,17 @@ def multi_step_packed_cuda(packed: torch.Tensor, k: int) -> torch.Tensor:
     k = int(k)
     if k < 0:
         raise ValueError(f"k = {k} < 0")
+    wn, cn = p.shape
+    plan = _b4_plan(wn, cn, k, form)
     if k == 0:
         return p.clone()
     lib, fn = _b4_kernel()
     out = torch.empty_like(p)
-    scratch = torch.empty_like(p)
+    scratch = torch.empty_like(p) if plan.launches > 1 else out
     launched = ctypes.c_int(0)
-    rc = fn(ptr(p), ptr(out), ptr(scratch), p.shape[0], p.shape[1], k,
-            stream_ptr(p.device), ctypes.byref(launched))
+    rc = fn(ptr(p), ptr(out), ptr(scratch), wn, cn, k,
+            int(plan.form == "resident"), stream_ptr(p.device),
+            ctypes.byref(launched))
     multi_step_packed_cuda.launches += launched.value
     lib.check(rc, "kernel B4 (gs_swar)")
     return out

@@ -43,13 +43,35 @@ def forces_pallas_plain(px, py, m):
     return fx, fy
 
 
+B5_TARGETS = 256  # targets per block: 128 threads, 2 targets each
+# Blocks a call aims for: splitting the sources over more blocks hid more
+# latency; at N = 131,072 an H100 took 6.44, 5.89 and 5.71 ms with 2, 8
+# and 16 splits (1,024, 4,096 and 8,192 blocks).
+B5_MIN_BLOCKS = 8192
+B5_MAX_SPLITS = 16
+
+
+def _b5_plan(n: int) -> tuple[int, int]:
+    """(splits, launches) of a B5 call at N = n: the fewest source splits,
+    a power of two up to B5_MAX_SPLITS, that give B5_MIN_BLOCKS blocks;
+    one launch for one split, two (the partials' fixed-order sum) for
+    more, none at n = 0."""
+    if n <= 0:
+        return 1, 0
+    blocks = -(-n // B5_TARGETS)
+    splits = 1
+    while splits < B5_MAX_SPLITS and blocks * splits < B5_MIN_BLOCKS:
+        splits *= 2
+    return splits, 1 + (splits > 1)
+
+
 @functools.cache
 def _b5_kernel():
     lib = load_kernel_lib("nbody_forces")
     fn = lib.lib.nb_forces
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     return lib, fn
 
 
@@ -57,8 +79,8 @@ def forces_pallas_cuda(px, py, m, approx_recip: bool = False):
     """Launch kernel B5 (csrc/nbody_forces.cu) -> (fx, fy) without the
     m_i factor, for contiguous f32 [N] CUDA tensors.
 
-    ``forces_pallas_cuda.launches`` counts the grid launches, one per
-    call with N > 0.
+    ``forces_pallas_cuda.launches`` counts the grid launches, as
+    ``_b5_plan`` gives them: 2 a call at N = 131,072 (16 splits).
     """
     dev = px.device
     if dev.type != "cuda":
@@ -73,10 +95,15 @@ def forces_pallas_cuda(px, py, m, approx_recip: bool = False):
     lib, fn = _b5_kernel()
     fx = torch.empty_like(px)
     fy = torch.empty_like(py)
-    rc = fn(ptr(px), ptr(py), ptr(m), ptr(fx), ptr(fy), n, int(approx_recip),
-            stream_ptr(dev))
+    splits, _ = _b5_plan(n)
+    scratch = torch.empty(2 * splits * n if splits > 1 else 0,
+                          dtype=torch.float32, device=dev)
+    launched = ctypes.c_int(0)
+    rc = fn(ptr(px), ptr(py), ptr(m), ptr(fx), ptr(fy),
+            ptr(scratch) if splits > 1 else None, n, int(approx_recip),
+            splits, stream_ptr(dev), ctypes.byref(launched))
+    forces_pallas_cuda.launches += launched.value
     lib.check(rc, "kernel B5 (nb_forces)")
-    forces_pallas_cuda.launches += int(n > 0)
     return fx, fy
 
 

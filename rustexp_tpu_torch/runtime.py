@@ -33,9 +33,11 @@ BUILD_DIR = PKG_DIR.parent / "build" / "rustexp_tpu_torch"
 # -fmad=false: nvcc would otherwise contract a*b+c into one FMA, while the
 # reference (and the JAX package's sealed CPU chains, ops/ieee.py) rounds
 # the product and the sum separately. No -use_fast_math: divisions and
-# int->float conversions must round to nearest.
+# int->float conversions must round to nearest. -Xptxas=-v: ptxas reports
+# each kernel's registers and spills, kept beside the library.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas=-v")
 
 
 def device(kind: str | torch.device | None = None) -> torch.device:
@@ -75,13 +77,16 @@ class KernelLib:
     """One compiled ``csrc/<name>.cu``: the ctypes handle and how it was made.
 
     ``build_seconds`` is the nvcc wall time of this process's build (0.0
-    when an identical build was already on disk).
+    when an identical build was already on disk); ``ptxas`` is what ptxas
+    said of each kernel when the library was built.
     """
 
     def __init__(self, name: str, path: Path, build_seconds: float):
         self.name = name
         self.path = path
         self.build_seconds = build_seconds
+        log = path.with_suffix(".ptxas.txt")
+        self.ptxas = log.read_text() if log.exists() else ""
         self.lib = ctypes.CDLL(str(path))
         self.lib.rustexp_cuda_error_string.restype = ctypes.c_char_p
         self.lib.rustexp_cuda_error_string.argtypes = [ctypes.c_int]
@@ -118,6 +123,7 @@ def load_kernel_lib(name: str) -> KernelLib:
             os.unlink(tmp)
             raise RuntimeError(f"nvcc failed for {src.name} "
                                f"({' '.join(cmd)}):\n{res.stderr}")
+        out.with_suffix(".ptxas.txt").write_text(res.stderr)
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or none
     return KernelLib(name, out, seconds)
 

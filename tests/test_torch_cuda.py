@@ -268,21 +268,32 @@ def _grid(shape, seed, dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("form", [None, "tiled"])
 @pytest.mark.parametrize("shape,k", [((256, 256), 1), ((256, 256), 100),
                                      ((2048, 2048), 65), ((96, 160), 37),
-                                     ((32, 40), 33)])
-def test_b4_kernel_matches_plain_on_card(shape, k):
-    """Bit-equal packed words: the main path's [8, 256] and [64, 2048],
-    ragged tiles, a grid smaller than a tile, and k across the 32-
-    generation launches (odd and even launch counts)."""
+                                     ((32, 40), 33), ((288, 256), 17),
+                                     ((256, 1024), 31), ((32, 1024), 2),
+                                     ((32, 1056), 16), ((32, 32), 5),
+                                     ((160, 96), 0)])
+def test_b4_kernel_matches_plain_on_card(shape, k, form):
+    """Bit-equal packed words, the input unchanged, in the form the plan
+    picks and tiled: the main path's [8, 256] (resident) and [64, 2048]
+    (tiled), ragged tiles, a grid smaller than a tile, both sides of the
+    resident form's limits ([8, 256] and [9, 256] word rows, [8, 1024]
+    past its words, [1, 1024] and [1, 1056] columns, [1, 32] one warp,
+    [3, 160] five), and k = 0, 1 and across the 16-generation launches
+    (odd and even launch counts)."""
     dev = _card()
     packed = gb.pack_rows(_grid(shape, k, dev))
+    before = packed.clone()
+    plan = gb._b4_plan(*packed.shape, k, form)
     launches = gb.multi_step_packed_cuda.launches
-    got = gb.multi_step_packed_cuda(packed, k)
-    assert gb.multi_step_packed_cuda.launches == launches + -(-k // 32)
+    got = gb.multi_step_packed_cuda(packed, k, form)
+    assert gb.multi_step_packed_cuda.launches == launches + plan.launches
+    assert plan.launches == (int(k > 0) if plan.form == "resident"
+                             else -(-k // 16))
     assert torch.equal(got, gb.multi_step_packed_plain(packed, k))
-    assert torch.equal(gb.multi_step_packed_cuda(packed, 0), packed.view(
-        torch.int32))
+    assert torch.equal(packed, before)
 
 
 @pytest.mark.cuda
@@ -351,17 +362,25 @@ def test_b6_kernel_matches_plain_on_card(case, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1024, 16384])
+@pytest.mark.parametrize("n", [1000, 1024, 16384, 16385])
 @pytest.mark.parametrize("approx", [False, True])
-def test_b5_kernel_matches_plain_on_card(n, approx):
+@pytest.mark.parametrize("split", [True, False])
+def test_b5_kernel_matches_plain_on_card(n, approx, split, monkeypatch):
     """Forces within chip_smoke.B5_RTOL of the plain version: the largest
-    |dF| over the largest |F|."""
+    |dF| over the largest |F|, at N a multiple of the block's 256 targets
+    and not (1,000, 16,385), with the plan's 16 source splits and their
+    sum (two launches) and, the plan's block target lowered, unsplit (one
+    launch)."""
     dev = _card()
+    if not split:
+        monkeypatch.setattr(npl, "B5_MIN_BLOCKS", 1)
     px, py, _, _, m = stable_orbits(torch.Generator().manual_seed(n), n,
                                     device=dev)
+    splits, planned = npl._b5_plan(n)
+    assert (splits, planned) == ((16, 2) if split else (1, 1))
     launches = npl.forces_pallas_cuda.launches
     kx, ky = npl.forces_pallas_cuda(px, py, m, approx)
-    assert npl.forces_pallas_cuda.launches == launches + 1
+    assert npl.forces_pallas_cuda.launches == launches + planned
     px_, py_ = npl.forces_pallas_plain(px, py, m)
     rel = float(torch.hypot(kx - px_, ky - py_).max()
                 / torch.hypot(px_, py_).max())

@@ -195,6 +195,39 @@ def test_interop_carries_a_jax_grid():
         jsten.multi_step(jnp.asarray(g), 5, "mxu")))
 
 
+@pytest.mark.parametrize("shape,k,want", [
+    ((8, 256), 65536, ("resident", 1)),   # bench_gol 256^2: one launch
+    ((8, 256), 8, ("resident", 1)),       # the Experiment's step
+    ((8, 256), 0, ("resident", 0)),
+    ((64, 2048), 100, ("tiled", 7)),
+    ((64, 2048), 16, ("tiled", 1)),
+    ((9, 256), 17, ("tiled", 2)),         # one word row past the limit
+    ((8, 288), 31, ("tiled", 2)),         # past RESIDENT_MAX_WORDS
+    ((2, 1024), 1, ("resident", 1)),      # RESIDENT_MAX_THREADS columns
+    ((1, 1056), 16, ("tiled", 1)),        # one warp past them
+    ((1, 32), 5, ("resident", 1)),
+    ((3, 160), 37, ("resident", 1)),      # 5 warps
+    ((1, 40), 33, ("tiled", 3)),          # columns not whole warps
+])
+def test_b4_plan(shape, k, want):
+    """B4's form and launch count by the packed grid's size: resident
+    (one launch of all k generations) or tiled (ceil(k / 16)
+    launches)."""
+    assert tuple(tbits._b4_plan(*shape, k)) == want
+
+
+def test_b4_plan_forced_forms():
+    """A caller may force either form; the resident one only where it can
+    hold the grid, and no other form exists."""
+    assert tuple(tbits._b4_plan(8, 256, 100, "tiled")) == ("tiled", 7)
+    assert tuple(tbits._b4_plan(8, 1024, 1, "resident")) == ("resident", 1)
+    for wn, cn in ((64, 2048), (9, 256), (1, 1056), (1, 40)):
+        with pytest.raises(ValueError, match="resident"):
+            tbits._b4_plan(wn, cn, 1, "resident")
+    with pytest.raises(ValueError, match="form"):
+        tbits._b4_plan(8, 256, 1, "banded")
+
+
 def test_kernels_and_bench_refuse_the_cpu():
     """The CUDA wrappers take CUDA tensors only, and bench_gol times the
     card only."""

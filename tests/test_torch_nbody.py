@@ -333,6 +333,18 @@ def test_kernels_and_bench_refuse_the_cpu():
         tbench.bench_nbody(1024, 1, 1, device=CPU)
 
 
+@pytest.mark.parametrize("n,splits,launches", [
+    (0, 1, 0), (1000, 16, 2), (1024, 16, 2), (16384, 16, 2), (16385, 16, 2),
+    (131072, 16, 2), (140000, 16, 2), (1_048_576, 2, 2),
+    (1_048_577, 2, 2), (2_097_152, 1, 1)])
+def test_b5_plan(n, splits, launches):
+    """B5 splits the sources (a power of two, at most 16) until a call
+    has 8,192 blocks of 256 targets; a split call adds a second launch
+    that sums the partials in order. N = 2^21 (8,192 blocks) is the first
+    that needs no split."""
+    assert tp._b5_plan(n) == (splits, launches)
+
+
 
 def test_plain_b6_returns_the_permutation():
     """B6's plain version returns idx as the stable sorting permutation in
