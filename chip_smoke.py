@@ -11,9 +11,13 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      the main paths' shapes: B1 (the flat-queue raster) on the procedural
      Killeroo and TorusKnot, per-vertex (V) and per-pixel (P), and
      KillerooP with ray_world=False (its (4, 6) form), under the coverage
-     mask; B2 (the binned raster) on CubeV and CubeP at suggest_binning's
-     cap and spans (the suite's shapes) and on TorusKnotP and KillerooP at
-     render_frame(backend="pallas")'s default bins, and B3 (its G-buffer
+     mask, its grid launches a call counted and its time taken over all
+     the card's activity of a call, and on the stress queue
+     (stress_queue below) in all three forms, slot on every word and the
+     clear elsewhere; B2 (the binned raster) on CubeV and CubeP at
+     suggest_binning's cap and spans (the suite's shapes) and on
+     TorusKnotP and KillerooP at render_frame(backend="pallas")'s
+     default bins, and B3 (its G-buffer
      form) on Killeroo and Cube at raster_gbuffer_pallas's default bins
      and on four 128-row bands of Killeroo, 512x512, bit for bit (0
      mismatching words); B7 (B1's depth race alone) on KillerooP and
@@ -21,11 +25,11 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      at packed [8, 256] in both its forms (resident and tiled), [64, 2048]
      tiled and [8, 1024] resident, its input unchanged and its launches
      as planned, and B8 (the f32 GoL stencil) at 256^2 and 512^2, bit for
-     bit, with B4's and B5's registers and spills from ptxas; B6 (the
-     radix sort) with five payloads,
-     bit for bit and its inputs unchanged, on the N-body's Morton codes at
-     n = 131,072, full-range signed keys and an explicit negative idx at
-     4,096, constant keys at 256 and random keys at 2^20, timed with the
+     bit, with B1's, B7's, B4's and B5's registers and spills from ptxas;
+     B6 (the radix sort) with five payloads, bit for bit and its inputs
+     unchanged, on the N-body's Morton codes at n = 131,072, full-range
+     signed keys and an explicit negative idx at 4,096, constant keys at
+     256 and random keys at 2^20, timed with the
      library call (stable torch.sort and gathers) by device time in the
      same run; B5 (all-pairs forces) at N = 16,384, 131,072 and 16,385
      with both reciprocals, within B5_RTOL, its launches as planned;
@@ -60,7 +64,7 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
 
 Its last lines are nvidia-smi's name and power limit, a JSON object of the
 kernels (grid launches on the main paths, error, times and each one's
-bound),
+bound; B1's TorusKnotP numbers under "also"),
 then {"ok": true, "device": {...}}. It exits non-zero, printing no result,
 when there is no CUDA device, a build or launch fails, or a check fails.
 """
@@ -99,20 +103,30 @@ SUITE_RUNS = 3
 PROFILE_FRAMES = 20  # frames per bench scene under torch.profiler
 GOLDEN_FRAC = 0.003  # tests/test_golden.py: <= 0.3% differing pixels
 
-# The least time the card could take (H100 SXM peak rates): bytes
-# over 3.35 TB/s, operations over the 67 TFLOP/s FP32 rate (the int32 edge
-# math counted at that rate too; it is not faster). Per (triangle, pixel
-# of its box in the tile): e0 and e1 (2 mul + 2 add each), e2 (2 sub), the
-# sign-OR test (3), the box test (7), b0 and b2 (sub, convert, mul each),
-# z (2 mul + 2 add), the depth compare and select (2). Per winning pixel:
-# b1 (3), then 4 per two-MAD plane and 5 per three-weight plane.
+# The least time the card could take (H100 SXM peak rates): bytes over
+# 3.35 TB/s, or the operations over the rate of the pipe that runs them,
+# whichever is longer. Rates per SM per clock (Hopper white paper) x 132
+# SMs x 1.98 GHz, for work that is not an FMA (the 67 TFLOP/s FP32 peak
+# counts an FMA as two).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-OPS_PER_TEST = 32
-OPS_B1, OPS_2MAD, OPS_3W = 3, 4, 5
-# Rates per SM per clock (Hopper white paper) x 132 SMs x 1.98 GHz, for
-# work that is not an FMA (the 67 TFLOP/s above counts an FMA as two).
 SM_CLOCKS_PER_S = 132 * 1.98e9
+INT_LOGIC_OPS_PER_S = 64 * SM_CLOCKS_PER_S
+FP32_NON_FMA_OPS_PER_S = 128 * SM_CLOCKS_PER_S
+SFU_OPS_PER_S = 16 * SM_CLOCKS_PER_S
+CONVERT_OPS_PER_S = 16 * SM_CLOCKS_PER_S  # int32 -> f32 (I2F)
+# Rasters (B1, B2, B3, B7), per (triangle, pixel of its box in the tile),
+# as a row of B1's hit loop compiles (SASS of queue_raster_kernel, built
+# for sm_90a): integer, e0 and e1 (an IMAD each, the x terms hoisted per
+# pair), e2 (IADD3), the sign-OR test (LOP3, ISETP), the two de-biases,
+# the tri compare and the z, tri and slot moves (predicated IMAD.MOV);
+# FP32, b0 and b2 (FMUL each), z (2 FMUL + 2 FADD), the +inf select and
+# the two depth compares; two int -> f32 conversions (I2FP). The box test
+# is hoisted per pair and row. Per winning pixel: b1 (an integer de-bias,
+# a conversion and an FMUL), then 4 FP32 per two-MAD plane and 5 per
+# three-weight plane.
+INT_PER_TEST, FP_PER_TEST, CVT_PER_TEST = 11, 9, 2
+OPS_2MAD, OPS_3W = 4, 5
 # GoL B4: 18 integer instructions per packed word and generation, 2 funnel
 # shifts and 16 three-input logic ops (rustexp_tpu/ops/gol_bits.py:54-98
 # written as 17; the SASS of csrc/gol_swar.cu's generation loop has 16.0
@@ -123,9 +137,6 @@ SM_CLOCKS_PER_S = 132 * 1.98e9
 # adds for d2 + EPS, the product with m_j, rm*dx and rm*dy, two sums) at
 # the FP32 rate plus one reciprocal on the special-function units, 16
 # lanes; the pipes run side by side, so the bound is the larger time.
-INT_LOGIC_OPS_PER_S = 64 * SM_CLOCKS_PER_S
-FP32_NON_FMA_OPS_PER_S = 128 * SM_CLOCKS_PER_S
-SFU_OPS_PER_S = 16 * SM_CLOCKS_PER_S
 OPS_SWAR = 18
 OPS_STENCIL = 11
 OPS_PAIR = 11
@@ -312,9 +323,16 @@ def box_px(rec_i, x0, y0, th: int, tw: int) -> torch.Tensor:
 
 
 def bound(bytes_moved: int, tests: int, won: int, n2: int, n3: int):
-    """(bound_ms, bound_by) of one raster call."""
-    return time_bound(bytes_moved, tests * OPS_PER_TEST
-                      + won * (OPS_B1 + OPS_2MAD * n2 + OPS_3W * n3))
+    """(bound_ms, bound_by) of one raster call: `tests` (triangle, pixel)
+    tests inside the boxes, `won` pixels whose n2 + n3 planes are
+    evaluated; the integer, FP32 and conversion pipes run side by side."""
+    t_ops = max((tests * INT_PER_TEST + won) / INT_LOGIC_OPS_PER_S,
+                (tests * FP_PER_TEST + won * (1 + OPS_2MAD * n2 + OPS_3W * n3))
+                / FP32_NON_FMA_OPS_PER_S,
+                (tests * CVT_PER_TEST + won) / CONVERT_OPS_PER_S)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def bit_mismatches(zk, sk, lk, zp, sp, lp, mask) -> int:
@@ -332,52 +350,209 @@ def max_abs_err(zk, lk, zp, lp, mask) -> float:
                float((lk - lp)[:, mask].abs().max()))
 
 
+def queue_inputs(dev, pp, rq, meshes, cubemap, camera, mesh_idx, per_pixel,
+                 ray_world=True):
+    """(scal, rows_i, rows_f, n2, n3, H, W): B1's arguments on the scene's
+    queue at 512x512, tick 0, as the queue path makes them (B7 takes the
+    same but n2 and n3)."""
+    scene = pp.make_scene(meshes.get_mesh(mesh_idx), cubemap.get_cm_set(0),
+                          dev)
+    eye = camera.camera_eye(meshes.mesh_camera(mesh_idx), 0.0)
+    queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
+    colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0, W, H, 5)
+    setup, extra, n2, n3 = pp.queue_attr_channels(
+        scene, colors, eye, W, H, per_pixel=per_pixel, ray_world=ray_world)
+    rows_i, rows_f = rq.gather_rows(queue, rq.pack_table(setup, extra))
+    return queue.scal, rows_i, rows_f, n2, n3, H, W
+
+
+def b1_work(rq, scal, rows_i, rows_f, n2, n3, covered):
+    """(bound_ms, bound_by, live pairs, box tests) of one B1 call: each
+    live pair's channels read once, every output plane written once."""
+    live = (torch.arange(rq.CHUNK, device=scal.device)[None, :]
+            < scal[:, 3:4])                                      # [S, CHUNK]
+    pairs = int(live.sum())
+    rec = rows_i.permute(0, 2, 1)                            # [S, CHUNK, 12]
+    tests = int((box_px(rec, (scal[:, 1] * rq.TILE_W)[:, None],
+                        (scal[:, 4] * rq.TILE_H)[:, None], rq.TILE_H,
+                        rq.TILE_W) * live).sum())
+    planes = 2 + n2 + n3
+    bytes_moved = (scal.numel() * 4 + pairs * (rows_i.shape[1]
+                                               + rows_f.shape[1]) * 4
+                   + planes * (H + rq.TILE_H) * W * 4)
+    bms, by = bound(bytes_moved, tests, covered, n2, n3)
+    return bms, by, pairs, tests
+
+
 def b1_vs_plain(dev, pp, rq, meshes, cubemap, camera):
-    """B1 against its plain version at the main path's shapes.
-    Returns {label: record}."""
+    """B1 against its plain version at the main path's shapes, timed by
+    all the card's activity of a call. Returns {label: record}."""
     out = {}
     for label, mesh_idx, per_pixel, ray_world in B1_SCENES:
-        scene = pp.make_scene(meshes.get_mesh(mesh_idx),
-                              cubemap.get_cm_set(0), dev)
-        eye = camera.camera_eye(meshes.mesh_camera(mesh_idx), 0.0)
-        queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
-        colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0,
-                                                         W, H, 5)
-        setup, extra, n2, n3 = pp.queue_attr_channels(
-            scene, colors, eye, W, H, per_pixel=per_pixel,
-            ray_world=ray_world)
-        rows_i, rows_f = rq.gather_rows(queue, rq.pack_table(setup, extra))
-        args = (queue.scal, rows_i, rows_f, n2, n3, H, W)
+        args = queue_inputs(dev, pp, rq, meshes, cubemap, camera, mesh_idx,
+                         per_pixel, ray_world)
+        n2, n3 = args[3:5]
+        calls = rq.raster_attrs_queue_cuda.launches
         zk, sk, lk = rq.raster_attrs_queue_cuda(*args)
+        calls = rq.raster_attrs_queue_cuda.launches - calls
         zp, sp, lp = rq.raster_attrs_queue_plain(*args)
         torch.cuda.synchronize(dev)
         mask = sp >= 0
         bad = bit_mismatches(zk, sk, lk, zp, sp, lp, mask)
         err = max_abs_err(zk, lk, zp, lp, mask)
-
-        scal = queue.scal
-        live = (torch.arange(rq.CHUNK, device=dev)[None, :]
-                < scal[:, 3:4])                                  # [S, CHUNK]
-        pairs = int(live.sum())
-        rec = rows_i.permute(0, 2, 1)                        # [S, CHUNK, 12]
-        tests = int((box_px(rec, (scal[:, 1] * rq.TILE_W)[:, None],
-                            (scal[:, 4] * rq.TILE_H)[:, None], rq.TILE_H,
-                            rq.TILE_W) * live).sum())
-        bytes_moved = (scal.numel() * 4 + pairs * (rows_i.shape[1]
-                                                   + rows_f.shape[1]) * 4
-                       + zk.numel() * 4 + sk.numel() * 4 + lk.numel() * 4)
-        bms, by = bound(bytes_moved, tests, int(mask.sum()), n2, n3)
-        ms = device_ms(lambda: rq.raster_attrs_queue_cuda(*args), 50,
-                       "queue_raster_kernel")
-        call_ms = cuda_ms(lambda: rq.raster_attrs_queue_cuda(*args), 50)
-        plain_ms = cuda_ms(lambda: rq.raster_attrs_queue_plain(*args), 5)
-        out[label] = dict(err=err, bad=bad, covered=int(mask.sum()), ms=ms,
-                          call_ms=call_ms, plain_ms=plain_ms, bound_ms=bms,
-                          bound_by=by, work=f"{pairs} pairs")
-        print(f"B1 {label}: {int(mask.sum())} covered px, {pairs} pairs, "
-              f"n2={n2} n3={n3}: {bad} mismatching words, max_abs_err "
-              f"{err}", flush=True)
+        covered = int(mask.sum())
+        bms, by, pairs, tests = b1_work(rq, *args[:5], covered)
+        run = lambda: rq.raster_attrs_queue_cuda(*args)
+        out[label] = dict(err=err, bad=bad, covered=covered,
+                          ms=device_ms(run, 50, None, calls),
+                          call_ms=cuda_ms(run, 50),
+                          plain_ms=cuda_ms(
+                              lambda: rq.raster_attrs_queue_plain(*args), 5),
+                          bound_ms=bms, bound_by=by, launches_per_call=calls,
+                          work=f"{pairs} pairs, {tests} box tests, "
+                               f"{calls} grid launches a call")
+        print(f"B1 {label}: {covered} covered px, {pairs} pairs, {tests} "
+              f"box tests, n2={n2} n3={n3}, {calls} grid launches a call: "
+              f"{bad} mismatching words, max_abs_err {err}", flush=True)
     return out
+
+
+# The stress queue of kernel B1's depth race, hand-built. One crowded
+# 16x128 tile holds STRESS_CHUNKS full chunks of pairs, so a kernel that
+# splits a tile's pairs must merge partial winners, and next to it a tile
+# whose chunks are all empty. Random triangles fill the left three
+# quarters of the crowded tile; among them, at slots spread across every
+# chunk: coplanar copies of one triangle under different ids (ids not in
+# slot order) whose depth is exactly 1.0 on the right quarter, where
+# nothing else lies, so they tie with each other and beat the depth clear
+# (1.0, INT32_MAX) there; coplanar copies of another at depth 0, some
+# carrying -0.0 and some +0.0 (the z channels of their slots set by hand),
+# so they tie and the lowest id's own zero is the stored depth; and one
+# triangle id in two slots, drawn in front of everything, whose first slot
+# keeps the pixel. tests/test_torch_cuda.py holds B1 against its plain
+# version on it, tests/test_torch_queue.py the plain race against a
+# serial walk.
+STRESS_CHUNKS = 16
+STRESS_H, STRESS_W = 16, 256  # the crowded tile, and the tile of empty chunks
+N_COPIES = 7
+
+
+def _stress_triangles(rng, n: int, x_lo: float, x_hi: float,
+                      size: float):
+    """Corner coordinates f32 [3, n] of triangles that the setup keeps
+    (counter-clockwise, with pixels in the frame) about [x_lo, x_hi) x
+    [0, STRESS_H)."""
+    import numpy as np
+
+    from rustexp_tpu_torch.ops.raster_setup import setup_triangles_planar
+
+    m = 2 * n
+    cx = rng.uniform(x_lo, x_hi, m)
+    cy = rng.uniform(0.0, STRESS_H, m)
+    xs = (cx + rng.uniform(-size, size, (3, m))).astype(np.float32)
+    ys = (cy + rng.uniform(-size, size, (3, m))).astype(np.float32)
+    area = ((xs[1] - xs[0]) * (ys[2] - ys[0])
+            - (ys[1] - ys[0]) * (xs[2] - xs[0]))
+    flip = area < 0
+    xs[1][flip], xs[2][flip] = xs[2][flip], xs[1][flip].copy()
+    ys[1][flip], ys[2][flip] = ys[2][flip], ys[1][flip].copy()
+    valid = setup_triangles_planar(torch.from_numpy(xs), torch.from_numpy(ys),
+                                   torch.zeros((3, m)), STRESS_W,
+                                   STRESS_H).valid.numpy()
+    keep = np.flatnonzero(valid)[:n]
+    assert keep.size == n
+    return xs[:, keep], ys[:, keep]
+
+
+def stress_queue(n2: int, n3: int, device, seed: int = 0):
+    """(scal, rows_i, rows_f, h, w) of the stress queue for B1's (n2, n3)
+    form, on `device`; the attribute planes are random."""
+    import numpy as np
+
+    from rustexp_tpu_torch.ops import raster_queue as rq
+    from rustexp_tpu_torch.ops.raster_setup import setup_triangles_planar
+
+    rng = np.random.default_rng(seed)
+    n_pairs = STRESS_CHUNKS * rq.CHUNK
+    n_rand = n_pairs - 2 * N_COPIES - 2
+    xs_r, ys_r = _stress_triangles(rng, n_rand, 0.0, 96.0, 6.0)
+    zs_r = np.repeat(rng.uniform(0.05, 0.95, (1, n_rand)), 3, 0)
+    # the copies: one at depth 1.0 over x 100..128, one at 0 over x 0..40
+    one = (np.array([[100.0], [127.9], [100.0]]), np.array([[-1.0], [-1.0],
+                                                            [17.0]]))
+    zero = (np.array([[0.5], [40.0], [0.5]]), np.array([[3.0], [3.0],
+                                                        [13.0]]))
+    dup = (np.array([[50.0], [70.0], [50.0]]), np.array([[2.0], [2.0],
+                                                         [15.0]]))
+    xs = np.concatenate([xs_r, np.repeat(one[0], N_COPIES, 1),
+                         np.repeat(zero[0], N_COPIES, 1), dup[0]], 1)
+    ys = np.concatenate([ys_r, np.repeat(one[1], N_COPIES, 1),
+                         np.repeat(zero[1], N_COPIES, 1), dup[1]], 1)
+    zs = np.concatenate([zs_r, np.ones((3, N_COPIES)),
+                         np.zeros((3, N_COPIES)), np.full((3, 1), 0.01)], 1)
+    n_tri = xs.shape[1]
+    setup = setup_triangles_planar(
+        *(torch.from_numpy(a.astype(np.float32)) for a in (xs, ys, zs)),
+        STRESS_W, STRESS_H)
+    assert bool(setup.valid.all())
+    extra = [torch.from_numpy(rng.normal(size=n_tri).astype(np.float32))
+             for _ in range(3 * (n2 + n3))]
+
+    # slot -> triangle id: the copies' slots interleave over every chunk,
+    # their ids shuffled; the duplicated id sits in chunks 2 and 13
+    spread = np.linspace(5, n_pairs - 5, 2 * N_COPIES).astype(int)
+    one_slots, zero_slots = spread[0::2], spread[1::2]
+    dup_slots = np.array([2 * rq.CHUNK + 77, 13 * rq.CHUNK + 3])
+    ids = np.full(n_pairs, -1, np.int64)
+    ids[one_slots] = n_rand + rng.permutation(N_COPIES)
+    ids[zero_slots] = n_rand + N_COPIES + rng.permutation(N_COPIES)
+    ids[dup_slots] = n_tri - 1
+    free = ids < 0
+    ids[free] = rng.permutation(n_rand)[:int(free.sum())]
+
+    n_ch = STRESS_CHUNKS + 3
+    all_ids = np.full((n_ch, rq.CHUNK), -1, np.int32)
+    all_ids[:STRESS_CHUNKS] = ids.reshape(STRESS_CHUNKS, rq.CHUNK)
+    scal = np.zeros((n_ch, 5), np.int32)
+    scal[:STRESS_CHUNKS] = (0, 0, 0, rq.CHUNK, 0)
+    scal[0, 2] = 1
+    scal[STRESS_CHUNKS] = (0, 1, 1, 0, 0)       # a tile of empty chunks
+    scal[STRESS_CHUNKS + 1] = (0, 1, 0, 0, 0)
+    scal[STRESS_CHUNKS + 2] = (STRESS_H // rq.TILE_H, 0, 1, 0,
+                                STRESS_H // rq.TILE_H)
+    queue = rq.Queue(torch.from_numpy(all_ids), torch.from_numpy(scal),
+                     *[None] * 6, shade_w=rq.TILE_W)
+    rows_i, rows_f = rq.gather_rows(queue, rq.pack_table(setup, extra))
+    # the depth-0 copies alternate -0.0 and +0.0, the lowest id on -0.0
+    sign = np.where(np.arange(N_COPIES) % 2 == 0, -0.0, 0.0)
+    sign[np.argmin(ids[zero_slots])] = -0.0
+    for s, z in zip(zero_slots, sign):
+        rows_f[s // rq.CHUNK, 3:6, s % rq.CHUNK] = float(z)
+    dev = torch.device(device)
+    return (queue.scal.to(dev), rows_i.to(dev), rows_f.to(dev), STRESS_H,
+            STRESS_W)
+
+
+def b1_stress(dev, rq) -> int:
+    """B1 against its plain version on the stress queue (stress_queue) in
+    each (n2, n3) form: slot on every word, z and
+    planes under slot >= 0, the clear (z 1.0, planes 0) elsewhere.
+    Returns the mismatching words."""
+    bad = 0
+    for n2, n3 in rq._B1_PLANES:
+        args = stress_queue(n2, n3, dev)
+        args = args[:3] + (n2, n3) + args[3:]
+        zk, sk, lk = rq.raster_attrs_queue_cuda(*args)
+        zp, sp, lp = rq.raster_attrs_queue_plain(*args)
+        torch.cuda.synchronize(dev)
+        mask = sp >= 0
+        words = bit_mismatches(zk, sk, lk, zp, sp, lp, mask)
+        words += int((zk[~mask] != 1.0).sum() + (lk[:, ~mask] != 0.0).sum())
+        print(f"B1 stress queue n2={n2} n3={n3}: {int(mask.sum())} covered "
+              f"px of {tuple(sk.shape)}: {words} mismatching words",
+              flush=True)
+        bad += words
+    return bad
 
 
 def b2_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera):
@@ -505,16 +680,9 @@ def b7_vs_plain(dev, pp, rq, meshes, cubemap, camera):
     on every word, z under slot >= 0. Returns {label: record}."""
     out = {}
     for label, mesh_idx, per_pixel in B7_SCENES:
-        scene = pp.make_scene(meshes.get_mesh(mesh_idx),
-                              cubemap.get_cm_set(0), dev)
-        eye = camera.camera_eye(meshes.mesh_camera(mesh_idx), 0.0)
-        queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
-        colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0,
-                                                         W, H, 5)
-        setup, extra, _, _ = pp.queue_attr_channels(
-            scene, colors, eye, W, H, per_pixel=per_pixel)
-        rows_i, rows_f = rq.gather_rows(queue, rq.pack_table(setup, extra))
-        args = (queue.scal, rows_i, rows_f, H, W)
+        scal, rows_i, rows_f, _, _, h, w = queue_inputs(
+            dev, pp, rq, meshes, cubemap, camera, mesh_idx, per_pixel)
+        args = (scal, rows_i, rows_f, h, w)
         zk, sk = rq.raster_zslot_queue_cuda(*args)
         zp, sp = rq.raster_zslot_queue_plain(*args)
         torch.cuda.synchronize(dev)
@@ -523,7 +691,6 @@ def b7_vs_plain(dev, pp, rq, meshes, cubemap, camera):
         bad += int((zk.view(torch.int32) != zp.view(torch.int32))[won].sum())
         err = float((zk - zp)[won].abs().max()) if won.any() else 0.0
 
-        scal = queue.scal
         live = (torch.arange(rq.CHUNK, device=dev)[None, :]
                 < scal[:, 3:4])                                  # [S, CHUNK]
         pairs = int(live.sum())
@@ -1123,12 +1290,16 @@ def main() -> int:
     print(f"all kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"[{card}]", flush=True)
     for lib in libs:
-        if lib.name in ("gol_swar", "nbody_forces"):  # B4 and B5
+        # B1 and B7, B4, B5
+        if lib.name in ("raster_queue", "gol_swar", "nbody_forces"):
             for line in ptxas_summary(lib.ptxas):
                 print(f"ptxas {lib.name} {line}", flush=True)
 
     # Phase 3: each kernel against its plain version, on the card.
     cmp1 = b1_vs_plain(dev, pp, rq, meshes, cubemap, camera)
+    stress_bad = b1_stress(dev, rq)
+    if stress_bad:
+        return fail(f"B1 on the stress queue: {stress_bad} mismatching words")
     cmp2 = b2_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera)
     cmp3 = b3_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera)
     cmp7 = b7_vs_plain(dev, pp, rq, meshes, cubemap, camera)
@@ -1270,8 +1441,10 @@ def main() -> int:
     for kernel, cmp in (("B1", cmp1), ("B2", cmp2), ("B3", cmp3),
                         ("B7", cmp7)):
         for label, r in cmp.items():
+            what = ("all the call's activity" if kernel == "B1"
+                    else "device")
             print(f"time {kernel} {label} 512x512 ({r['work']}): kernel "
-                  f"{r['ms']:.4f} ms (device, profiler), wrapper call "
+                  f"{r['ms']:.4f} ms ({what}, profiler), wrapper call "
                   f"{r['call_ms']:.4f} ms and plain version "
                   f"{r['plain_ms']:.4f} ms (CUDA events), bound "
                   f"{r['bound_ms']:.5f} ms ({r['bound_by']}) [{card}]")
@@ -1329,14 +1502,19 @@ def main() -> int:
     print(f"run_suite per-scene best us (procedural stand-ins) "
           f"{json.dumps(suite['scene_us'])} [{card}]")
 
-    def entry(name, source, replaces, kernel, cmp, label):
+    def entry(name, source, replaces, kernel, cmp, label, *more):
         r = cmp[label]
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[kernel],
-                "max_abs_err": max(c["err"] for c in cmp.values()),
-                "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r.get("library_ms")}
+        e = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": launches[kernel],
+             "max_abs_err": max(c["err"] for c in cmp.values()),
+             "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": r.get("library_ms")}
+        if more:  # the same numbers at other shapes of the main path
+            e["also"] = {m: {k: cmp[m][k] for k in
+                             ("ms", "plain_ms", "bound_ms", "bound_by")}
+                         for m in more}
+        return e
 
     print(f"profiler sessions lost {lost_pads[0]} of their opening and "
           f"{lost_pads[1]} of their closing pad records; {lost_sessions} "
@@ -1345,7 +1523,8 @@ def main() -> int:
     print(card)
     print(json.dumps({"kernels": [
         entry("queue_raster (B1)", "rustexp_tpu_torch/csrc/raster_queue.cu",
-              "rustexp_tpu/ops/raster_queue.py:690", "B1", cmp1, "KillerooP"),
+              "rustexp_tpu/ops/raster_queue.py:690", "B1", cmp1, "KillerooP",
+              "TorusKnotP"),
         entry("bins_raster (B2)", "rustexp_tpu_torch/csrc/raster_bins.cu",
               "rustexp_tpu/ops/raster_pallas.py:338", "B2", cmp2, "CubeP"),
         entry("bins_gbuffer (B3)", "rustexp_tpu_torch/csrc/raster_bins.cu",

@@ -13,29 +13,41 @@
 // What it computes. The queue is a list of chunks of CHUNK (tile, triangle)
 // pairs; scal[c] = (ty, tx, first, count, global_ty) names chunk c's 16x128
 // output tile. The chunks of one tile are consecutive and the first of them
-// has first == 1. For every pair and every pixel of its tile: 28.4
-// fixed-point edge functions in wrapping int32, the sign-OR inside test
-// plus the triangle's AABB, barycentrics f32(e - bias) * inv_a2 rounded
-// once, z by the 2-MAD lerp, and a depth race on (z, triangle id): a
-// fragment wins when z < z_cur, or z == z_cur and tri < tri_cur. Winners
-// store z, their queue slot and the n2 2-MAD plus n3 3-weight planes.
+// has first == 1; B1 also needs the tiles in order (ty * ntx + tx
+// ascending), as build_queue lays them out. For every pair and every pixel
+// of its tile: 28.4 fixed-point edge functions in wrapping int32, the
+// sign-OR inside test plus the triangle's AABB, barycentrics f32(e - bias) *
+// inv_a2 rounded once, z by the 2-MAD lerp, and a depth race on (z, triangle
+// id): a fragment wins when z < z_cur, or z == z_cur and tri < tri_cur,
+// walking the tile's pairs in queue order (so the first of two equal keys, a
+// triangle sitting in two slots, keeps the pixel). Winners store z, their
+// queue slot and the n2 2-MAD plus n3 3-weight planes.
 //
 // B7 stores z and the slot alone, and reads only the race's channels of
 // each pair (12 int and float channels 0-6).
 //
-// Design. The TPU grid walks chunks in order on one core. Here one block
-// per chunk with first == 1 owns that tile and walks the tile's chunks in
-// queue order, so the race runs in the same order with no atomics; the
-// other blocks exit at once. 256 threads hold 8 pixels each (one column,
-// every other row) and keep the race state in registers. Each chunk's pair
-// constants (12 int and 7 + 3(n2+n3) float channels x 128 pairs, at most
-// 25 KB, with n3 = 6) are staged in shared memory and read as broadcasts.
+// B1's design. The walk is a lexicographic minimum over (z, tri, slot), so
+// it may run in any order and be merged. A block owns a 4 x 32 rectangle of
+// one tile (16 a tile; the grid covers every tile of the frame, so each
+// output word is written once, by one grid), finds its tile's chunks by a
+// search of scal, and its 4 warps race the tile's pairs dealt out
+// round-robin in queue order (neighbouring pairs tend to lie side by side on
+// the screen, so this spreads the pairs that meet the rectangle over the
+// warps). A warp loads 32 pairs at once (one a lane; the rows are
+// channel-major per chunk), keeps those whose AABB meets the rectangle,
+// stages them in shared memory and races them one by one over the rectangle,
+// each lane a column, the rows off the box masked, the race state in
+// registers. The block then merges its warps' winners on (z, tri, slot) and
+// evaluates each pixel's planes once, for its winner, from rows_f at the
+// winning slot: the same operations on the same pair give the same bits as a
+// walk that carried the planes.
 //
-// Bound. INT32/FP32 issue per (pair, pixel): about 25 operations for the
-// edge, box and depth test, plus 2 or 3 per attribute plane on a win. With
-// the constants in shared memory the pair loop reads no device memory, so
-// what is left is that arithmetic, spread over one block per occupied tile
-// (at most 128 at 512x512, fewer than the card's 132 SMs can hold).
+// Bound. Bytes: every output plane written once (z, slot, n2 + n3 planes
+// over h + 16 rows) and each live pair's channels read once. The work is
+// the (pair, pixel) tests inside the pairs' boxes, here rounded up to a
+// box row of the rectangle's width, and one plane evaluation per won
+// pixel. What it costs besides is latency: each block waits on the search
+// of scal, its pairs' loads and its winners' loads in turn.
 //
 // Rounding. Built with -fmad=false, and every product and sum of a sealed
 // chain is also spelled __fmul_rn/__fadd_rn, so no FMA can form: each op
@@ -51,7 +63,7 @@ namespace {
 constexpr int TILE_H = 16;
 constexpr int TILE_W = 128;
 constexpr int CHUNK = 128;
-constexpr int THREADS = 256;
+constexpr int THREADS = 256;                // B7's blocks
 constexpr int ROW_STEP = THREADS / TILE_W;  // rows one pass of the block covers
 constexpr int PX = TILE_H / ROW_STEP;       // pixels per thread
 constexpr int I_CH = 12;  // A0 A1 B0 B1 C0 C1 S min_x min_y max_x max_y tri
@@ -74,8 +86,26 @@ __device__ __forceinline__ float bary(uint32_t e, int bias, float inv_a2) {
                        e - static_cast<uint32_t>(bias))), inv_a2);
 }
 
+// B1's block: an RECT_H x RECT_W rectangle of one tile (a lane a column)
+// and NWARP warps, each racing its share of the tile's pairs.
+constexpr int RECT_H = 4;
+constexpr int RECT_W = 32;
+constexpr int NWARP = 4;
+constexpr int B1_THREADS = NWARP * 32;
+constexpr int RECTS_X = TILE_W / RECT_W;
+constexpr int RECTS = (TILE_H / RECT_H) * RECTS_X;
+static_assert(TILE_H % RECT_H == 0 && NWARP >= 1, "rectangle shape");
+
+// What a warp stages of one pair that may cover its rectangle: A0 A1 B0
+// B1 | C0 C1 S tri | bias0 bias2 min_x max_x | z0 z10 z20 inv_a2 (bits)
+// | first row, end row (within the rectangle), slot. 20 words: eight
+// lanes' 16-byte stores fall in distinct banks.
+struct Staged {
+  int4 q[5];
+};
+
 template <int N2, int N3>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(B1_THREADS)
 queue_raster_kernel(const int* __restrict__ scal,
                     const int* __restrict__ rows_i,
                     const float* __restrict__ rows_f,
@@ -84,108 +114,239 @@ queue_raster_kernel(const int* __restrict__ scal,
   constexpr int NP = N2 + N3;
   constexpr int FCH = F_CH + 3 * NP;
   static_assert(NP > 0, "at least one attribute plane");
-  __shared__ int si[I_CH * CHUNK];
-  __shared__ float sf[FCH * CHUNK];
+  __shared__ int s_seg[2], s_lo, s_hi;
+  // The race's stage, then (after a barrier) the warps' winners.
+  __shared__ union {
+    Staged stage[NWARP][32];
+    struct {
+      float z[NWARP][RECT_H][32];
+      int tri[NWARP][RECT_H][32];
+      int slot[NWARP][RECT_H][32];
+    } part;
+  } sm;
 
-  const int c0 = blockIdx.x;
-  if (scal[5 * c0 + 2] != 1) return;  // walked by its tile's first block
-  const int ty = scal[5 * c0 + 0];
-  const int tx = scal[5 * c0 + 1];
-  const int row0 = threadIdx.x / TILE_W;
-  const int x = tx * TILE_W + threadIdx.x % TILE_W;
+  const int ntx = w / TILE_W;
+  const int ty = blockIdx.x / ntx, tx = blockIdx.x - ty * ntx;
+  const int ry = blockIdx.y / RECTS_X, rx = blockIdx.y - ry * RECTS_X;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int x0 = tx * TILE_W + rx * RECT_W;
+  const int x = x0 + lane;
   const uint32_t xf = static_cast<uint32_t>(x) << 4;
+
+  // The tile's chunks. Builders lay the chunks out in tile order (key ty *
+  // ntx + tx ascending; build_queue puts its pad chunks, ty = nty, last),
+  // so the tile's segment [s_seg[0], s_seg[1]) comes from two searches:
+  // warp 0 finds the first key >= the tile's, warp 1 the first key past
+  // it, each narrowing by 32 a round (one load a lane; two rounds up to
+  // 1,024 chunks). Then the segment's chunks that hold pairs give the ends
+  // of the race, the last one's count packed under its index (s_cap <
+  // 2^23, count <= 128); its chunks share the tile's global row.
+  const int tile = blockIdx.x;
+  if (threadIdx.x == 0) {
+    s_lo = INT_MAX;
+    s_hi = -1;
+  }
+  if (warp < 2) {
+    const int target = tile + warp;
+    int lo = 0, hi = s_cap;  // keys before lo are < target, from hi on >=
+    for (;;) {
+      const int n = hi - lo, s = (n + 31) / 32;
+      const int c = lo + lane * s;
+      const bool less =
+          lane * s < n && scal[5 * c] * ntx + scal[5 * c + 1] < target;
+      const int k = __popc(__ballot_sync(0xffffffffu, less));
+      if (k == 0 || s <= 1) {
+        lo += k * s;
+        break;
+      }
+      hi = min(lo + k * s, hi);
+      lo += (k - 1) * s + 1;
+    }
+    if (lane == 0) s_seg[warp] = lo;
+  }
+  __syncthreads();
+  for (int c = s_seg[0] + threadIdx.x; c < s_seg[1]; c += B1_THREADS) {
+    const int cnt = scal[5 * c + 3];
+    if (cnt > 0) {
+      atomicMin(&s_lo, c);
+      atomicMax(&s_hi, c << 8 | min(cnt, CHUNK));
+    }
+  }
+  __syncthreads();
+  const bool busy = s_hi >= 0;
+  const int c_lo = s_lo, c_hi = s_hi >> 8, cnt_hi = s_hi & 0xff;
+  const int gty = busy ? scal[5 * c_lo + 4] : 0;
 
   // The clear. tri starts at INT32_MAX, so a fragment at exactly z == 1.0
   // beats it: the JAX kernel's quirk (raster_queue.py:717-724), kept for
   // frame parity; the reference's own depth test is strict (ROADMAP C).
-  float z[PX];
-  int tri[PX];
-  int slot[PX];
-  float lin[PX][NP];
+  float z[RECT_H];
+  int tri[RECT_H];
+  int slot[RECT_H];
 #pragma unroll
-  for (int k = 0; k < PX; ++k) {
+  for (int k = 0; k < RECT_H; ++k) {
     z[k] = 1.0f;
     tri[k] = INT_MAX;
     slot[k] = -1;
-#pragma unroll
-    for (int a = 0; a < NP; ++a) lin[k][a] = 0.0f;
   }
 
-  for (int c = c0; c < s_cap; ++c) {
-    const int* sc = scal + 5 * c;
-    if (c != c0 && (sc[2] != 0 || sc[0] != ty || sc[1] != tx)) break;
-    const int cnt = min(max(sc[3], 0), CHUNK);
-    const int gty = sc[4];
-    __syncthreads();  // nobody reads the previous chunk's constants any more
-    const int* gi = rows_i + static_cast<size_t>(c) * I_CH * CHUNK;
-    const float* gf = rows_f + static_cast<size_t>(c) * FCH * CHUNK;
-    for (int k = threadIdx.x; k < I_CH * CHUNK; k += THREADS) si[k] = gi[k];
-    for (int k = threadIdx.x; k < FCH * CHUNK; k += THREADS) sf[k] = gf[k];
-    __syncthreads();
-
-    for (int p = 0; p < cnt; ++p) {
-      // int32 edge math in uint32: the same wraparound, without the
-      // undefined behaviour of signed overflow.
-      const uint32_t A0 = si[0 * CHUNK + p], A1 = si[1 * CHUNK + p];
-      const uint32_t B0 = si[2 * CHUNK + p], B1 = si[3 * CHUNK + p];
-      const uint32_t C0 = si[4 * CHUNK + p], C1 = si[5 * CHUNK + p];
-      const uint32_t S = si[6 * CHUNK + p];
-      const int mnx = si[7 * CHUNK + p], mny = si[8 * CHUNK + p];
-      const int mxx = si[9 * CHUNK + p], mxy = si[10 * CHUNK + p];
-      const int tp = si[11 * CHUNK + p];
-      const int bias0 = static_cast<int>(sf[0 * CHUNK + p]);
-      const int bias1 = static_cast<int>(sf[1 * CHUNK + p]);
-      const int bias2 = static_cast<int>(sf[2 * CHUNK + p]);
-      const float z0 = sf[3 * CHUNK + p], z10 = sf[4 * CHUNK + p];
-      const float z20 = sf[5 * CHUNK + p], inv_a2 = sf[6 * CHUNK + p];
-      const bool in_x = x >= mnx && x < mxx;
-      const uint32_t ex0 = A0 * xf + C0, ex1 = A1 * xf + C1;
+  // Pixel rows come from the global row gty, output rows from ty.
+  const int y0 = gty * TILE_H + ry * RECT_H;
+  if (busy) {
+    // The tile's pairs as virtual slots v = (c - c_lo) * CHUNK + p (a
+    // slot past its chunk's count holds no pair). Warp w takes every
+    // NWARP-th, from w on, in queue order: neighbouring pairs tend to lie
+    // side by side on the screen, so dealing them out spreads the pairs
+    // that meet the rectangle over the warps.
+    const int n_v = (c_hi - c_lo) * CHUNK + cnt_hi;
+    Staged* st = sm.stage[warp];
+    for (int g = warp; g < n_v; g += 32 * NWARP) {
+      const int v = g + lane * NWARP;
+      bool hit = false;
+      if (v < n_v) {
+        const int c = c_lo + v / CHUNK, p = v % CHUNK;
+        const int* sc = scal + 5 * c;
+        const int* gi = rows_i + static_cast<size_t>(c) * I_CH * CHUNK + p;
+        const float* gf = rows_f + static_cast<size_t>(c) * FCH * CHUNK + p;
+        // every channel the race reads, loaded together
+        int ci[I_CH];
 #pragma unroll
-      for (int k = 0; k < PX; ++k) {
-        const int y = gty * TILE_H + row0 + k * ROW_STEP;
-        const uint32_t yf = static_cast<uint32_t>(y) << 4;
-        // e = A*xf + B*yf + C; wrapping addition is associative
-        const uint32_t e0 = ex0 + B0 * yf;
-        const uint32_t e1 = ex1 + B1 * yf;
-        const uint32_t e2 = S - e0 - e1;
-        const bool inside = static_cast<int32_t>(e0 | e1 | e2) >= 0;
-        const bool in_box = in_x && y >= mny && y < mxy;
-        const float b0 = bary(e0, bias0, inv_a2);
-        const float b2 = bary(e2, bias2, inv_a2);
-        const float zi = lerp_2mad(z0, z10, z20, b2, b0);
-        const float zm = (inside && in_box) ? zi : __int_as_float(0x7f800000);
-        if (zm < z[k] || (zm == z[k] && tp < tri[k])) {
-          const float b1 = bary(e1, bias1, inv_a2);
-          z[k] = zm;
-          tri[k] = tp;
-          slot[k] = c * CHUNK + p;
+        for (int ch = 0; ch < I_CH; ++ch) ci[ch] = __ldg(gi + ch * CHUNK);
+        float cf[F_CH];
 #pragma unroll
-          for (int a = 0; a < N2; ++a)
-            lin[k][a] = lerp_2mad(sf[(F_CH + a) * CHUNK + p],
-                                  sf[(F_CH + N2 + a) * CHUNK + p],
-                                  sf[(F_CH + 2 * N2 + a) * CHUNK + p], b2, b0);
-          constexpr int OFF = F_CH + 3 * N2;
-#pragma unroll
-          for (int a = 0; a < N3; ++a)
-            lin[k][N2 + a] = lerp_3w(sf[(OFF + a) * CHUNK + p],
-                                     sf[(OFF + N3 + a) * CHUNK + p],
-                                     sf[(OFF + 2 * N3 + a) * CHUNK + p],
-                                     b1, b2, b0);
+        for (int ch = 0; ch < F_CH; ++ch) cf[ch] = __ldg(gf + ch * CHUNK);
+        const int mnx = ci[7], mny = ci[8], mxx = ci[9], mxy = ci[10];
+        hit = p < min(sc[3], CHUNK) && mnx < x0 + RECT_W && mxx > x0 &&
+              mny < y0 + RECT_H && mxy > y0;
+        if (hit) {
+          Staged s;
+          s.q[0] = make_int4(ci[0], ci[1], ci[2], ci[3]);
+          s.q[1] = make_int4(ci[4], ci[5], ci[6], ci[11]);
+          s.q[2] = make_int4(static_cast<int>(cf[0]), static_cast<int>(cf[2]),
+                             mnx, mxx);
+          s.q[3] = make_int4(__float_as_int(cf[3]), __float_as_int(cf[4]),
+                             __float_as_int(cf[5]), __float_as_int(cf[6]));
+          s.q[4] = make_int4(max(mny - y0, 0), min(mxy - y0, RECT_H),
+                             c * CHUNK + p, 0);
+          st[lane] = s;
         }
       }
+      unsigned m = __ballot_sync(0xffffffffu, hit);
+      __syncwarp();
+      // A warp's pairs in queue order: a strict compare keeps the first of
+      // a tie.
+      while (m) {
+        const Staged s = st[__ffs(m) - 1];
+        m &= m - 1;
+        // int32 edge math in uint32: the same wraparound, without the
+        // undefined behaviour of signed overflow.
+        const uint32_t A0 = s.q[0].x, A1 = s.q[0].y;
+        const uint32_t B0 = s.q[0].z, B1 = s.q[0].w;
+        const uint32_t C0 = s.q[1].x, C1 = s.q[1].y, S = s.q[1].z;
+        const int tp = s.q[1].w;
+        const int bias0 = s.q[2].x, bias2 = s.q[2].y;
+        const bool in_x = x >= s.q[2].z && x < s.q[2].w;
+        const float z0 = __int_as_float(s.q[3].x);
+        const float z10 = __int_as_float(s.q[3].y);
+        const float z20 = __int_as_float(s.q[3].z);
+        const float inv_a2 = __int_as_float(s.q[3].w);
+        const int k_lo = s.q[4].x, k_hi = s.q[4].y, sl = s.q[4].z;
+        const uint32_t ex0 = A0 * xf + C0, ex1 = A1 * xf + C1;
+        // Every row of the rectangle, those off the box masked: no branch
+        // between rows, so their chains interleave.
+#pragma unroll
+        for (int k = 0; k < RECT_H; ++k) {
+          const uint32_t yf = static_cast<uint32_t>(y0 + k) << 4;
+          // e = A*xf + B*yf + C; wrapping addition is associative
+          const uint32_t e0 = ex0 + B0 * yf;
+          const uint32_t e1 = ex1 + B1 * yf;
+          const uint32_t e2 = S - e0 - e1;
+          const bool inside = static_cast<int32_t>(e0 | e1 | e2) >= 0;
+          const float zi = lerp_2mad(z0, z10, z20, bary(e2, bias2, inv_a2),
+                                     bary(e0, bias0, inv_a2));
+          const bool in_box = in_x && k >= k_lo && k < k_hi;
+          const float zm =
+              (inside && in_box) ? zi : __int_as_float(0x7f800000);
+          if (zm < z[k] || (zm == z[k] && tp < tri[k])) {
+            z[k] = zm;
+            tri[k] = tp;
+            slot[k] = sl;
+          }
+        }
+      }
+      __syncwarp();
     }
   }
 
-  // Each tile row is 128 consecutive words: the stores coalesce.
+  __syncthreads();  // no warp reads its stage any more
+#pragma unroll
+  for (int k = 0; k < RECT_H; ++k) {
+    sm.part.z[warp][k][lane] = z[k];
+    sm.part.tri[warp][k][lane] = tri[k];
+    sm.part.slot[warp][k][lane] = slot[k];
+  }
+  __syncthreads();
+
+  // Merge the warps' winners: the least (z, tri), and of equal ones the
+  // lowest slot, as a walk in queue order keeps the first (within a warp
+  // the race ran in slot order); then evaluate the winner's planes once.
+  // Each rectangle row is 32 consecutive words: the stores coalesce.
   const size_t plane = static_cast<size_t>(hp) * w;
+  for (int k = warp; k < RECT_H; k += NWARP) {
+    float zb = sm.part.z[0][k][lane];
+    int tb = sm.part.tri[0][k][lane];
+    int sb = sm.part.slot[0][k][lane];
 #pragma unroll
-  for (int k = 0; k < PX; ++k) {
+    for (int v = 1; v < NWARP; ++v) {
+      const float zv = sm.part.z[v][k][lane];
+      const int tv = sm.part.tri[v][k][lane];
+      const int sv = sm.part.slot[v][k][lane];
+      if (zv < zb || (zv == zb && (tv < tb || (tv == tb && sv < sb)))) {
+        zb = zv;
+        tb = tv;
+        sb = sv;
+      }
+    }
+    float lin[NP];
+#pragma unroll
+    for (int a = 0; a < NP; ++a) lin[a] = 0.0f;
+    if (sb >= 0) {
+      const int c = sb / CHUNK, p = sb % CHUNK;
+      const int* gi = rows_i + static_cast<size_t>(c) * I_CH * CHUNK + p;
+      const float* gf = rows_f + static_cast<size_t>(c) * FCH * CHUNK + p;
+      const uint32_t yf = static_cast<uint32_t>(y0 + k) << 4;
+      const float inv_a2 = __ldg(gf + 6 * CHUNK);
+      const uint32_t e0 = static_cast<uint32_t>(__ldg(gi + 0 * CHUNK)) * xf +
+                          static_cast<uint32_t>(__ldg(gi + 4 * CHUNK)) +
+                          static_cast<uint32_t>(__ldg(gi + 2 * CHUNK)) * yf;
+      const uint32_t e1 = static_cast<uint32_t>(__ldg(gi + 1 * CHUNK)) * xf +
+                          static_cast<uint32_t>(__ldg(gi + 5 * CHUNK)) +
+                          static_cast<uint32_t>(__ldg(gi + 3 * CHUNK)) * yf;
+      const uint32_t e2 =
+          static_cast<uint32_t>(__ldg(gi + 6 * CHUNK)) - e0 - e1;
+      const float b0 = bary(e0, static_cast<int>(__ldg(gf)), inv_a2);
+      const float b1 = bary(e1, static_cast<int>(__ldg(gf + CHUNK)), inv_a2);
+      const float b2 =
+          bary(e2, static_cast<int>(__ldg(gf + 2 * CHUNK)), inv_a2);
+#pragma unroll
+      for (int a = 0; a < N2; ++a)
+        lin[a] = lerp_2mad(__ldg(gf + (F_CH + a) * CHUNK),
+                           __ldg(gf + (F_CH + N2 + a) * CHUNK),
+                           __ldg(gf + (F_CH + 2 * N2 + a) * CHUNK), b2, b0);
+      constexpr int OFF = F_CH + 3 * N2;
+#pragma unroll
+      for (int a = 0; a < N3; ++a)
+        lin[N2 + a] = lerp_3w(__ldg(gf + (OFF + a) * CHUNK),
+                              __ldg(gf + (OFF + N3 + a) * CHUNK),
+                              __ldg(gf + (OFF + 2 * N3 + a) * CHUNK),
+                              b1, b2, b0);
+    }
     const size_t i =
-        static_cast<size_t>(ty * TILE_H + row0 + k * ROW_STEP) * w + x;
-    z_out[i] = z[k];
-    slot_out[i] = slot[k];
+        static_cast<size_t>(ty * TILE_H + ry * RECT_H + k) * w + x;
+    z_out[i] = zb;  // the winner's own bits; 1.0 where none won
+    slot_out[i] = sb;
 #pragma unroll
-    for (int a = 0; a < NP; ++a) lin_out[a * plane + i] = lin[k][a];
+    for (int a = 0; a < NP; ++a) lin_out[a * plane + i] = lin[a];
   }
 }
 
@@ -193,7 +354,8 @@ template <int N2, int N3>
 cudaError_t launch(const void* scal, const void* rows_i, const void* rows_f,
                    void* z, void* slot, void* lin, int s_cap, int hp, int w,
                    cudaStream_t stream) {
-  queue_raster_kernel<N2, N3><<<s_cap, THREADS, 0, stream>>>(
+  const dim3 grid((hp / TILE_H) * (w / TILE_W), RECTS);
+  queue_raster_kernel<N2, N3><<<grid, B1_THREADS, 0, stream>>>(
       static_cast<const int*>(scal), static_cast<const int*>(rows_i),
       static_cast<const float*>(rows_f), static_cast<float*>(z),
       static_cast<int*>(slot), static_cast<float*>(lin), s_cap, hp, w);
@@ -288,19 +450,21 @@ queue_zslot_kernel(const int* __restrict__ scal,
 
 }  // namespace
 
-// Launch B1 on `stream`. Pointers are device pointers: scal i32 [s_cap, 5],
-// rows_i i32 [s_cap, 12, chunk], rows_f f32 [s_cap, 7 + 3(n2+n3), chunk];
-// z f32, slot i32 (prefilled with -1 by the caller) and lin f32 [n2+n3]
-// planes, each [hp, w]. Returns the CUDA error code of the launch (0 = ok).
+// Launch B1 on `stream` (one grid). Pointers are device pointers: scal
+// i32 [s_cap, 5] in tile order, rows_i i32 [s_cap, 12, chunk], rows_f f32
+// [s_cap, 7 + 3(n2+n3), chunk]; z f32, slot i32 and lin f32 [n2+n3]
+// planes, each [hp, w], all written: z 1.0, slot -1 and planes 0 where no
+// pair won.
+// Returns the CUDA error code of the launch (0 = ok).
 extern "C" int rq_queue_raster(const void* scal, const void* rows_i,
                                const void* rows_f, void* z, void* slot,
                                void* lin, int s_cap, int chunk, int tile_h,
                                int tile_w, int n2, int n3, int hp, int w,
                                void* stream) {
   if (chunk != CHUNK || tile_h != TILE_H || tile_w != TILE_W ||
-      w % TILE_W != 0 || hp % TILE_H != 0)
+      w % TILE_W != 0 || hp % TILE_H != 0 || hp <= 0 || w <= 0 ||
+      s_cap >= (1 << 23))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (s_cap <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (n2 == 4 && n3 == 0)  // per-vertex shading: 1/w and RGB

@@ -332,14 +332,15 @@ def _queue_race(scal, rows_i, rows_f, h: int, w: int):
     """The depth race of kernels B1 and B7, plain: each pixel's winning
     pair over h + TILE_H rows.
 
-    The kernels walk each tile's pairs in queue order and keep a pixel's
-    fragment when (z, tri) < (z_cur, tri_cur), starting from the clear
-    (1.0, INT32_MAX). That is the lexicographic minimum over the tile's
-    pairs and the clear, so this version evaluates batches of pairs as
-    one tensor, takes the minimum with a scatter, and finds the winning
-    pair in a second pass. Returns (pix, ci, cf, xs, ys, slot): the won
-    pixels (flat indices), the winners' int and float channels ([12, n],
-    [F, n]), their int32 pixel coordinates and their queue slots.
+    JAX's kernels walk each tile's pairs in queue order and keep a
+    pixel's fragment when (z, tri) < (z_cur, tri_cur), starting from the
+    clear (1.0, INT32_MAX). That is the lexicographic minimum of (z, tri,
+    slot) over the tile's pairs and the clear, so this version evaluates
+    batches of pairs as one tensor, takes the minimum of (z, tri) with a
+    scatter, and finds the lowest winning slot in a second pass. Returns
+    (pix, ci, cf, xs, ys, slot): the won pixels (flat indices), the
+    winners' int and float channels ([12, n], [F, n]), their int32 pixel
+    coordinates and their queue slots.
     """
     dev = rows_f.device
     s_cap, _, chunk = rows_i.shape
@@ -371,16 +372,19 @@ def _queue_race(scal, rows_i, rows_f, h: int, w: int):
     for lo in range(0, n_pairs, step):
         key, idx = batch(lo, lo + step)
         best.scatter_reduce_(0, idx, key, reduce="amin")
-    winner = torch.full((hp * w,), -1, dtype=torch.int64, device=dev)
+    # A triangle may sit in more than one slot of a tile, and its copies
+    # tie on (z, tri): the kernels' walk keeps the first, so among the
+    # pairs that reach the minimum the lowest one (in slot order) wins.
+    winner = torch.full((hp * w,), n_pairs, dtype=torch.int64, device=dev)
     for lo in range(0, n_pairs, step):
         key, idx = batch(lo, lo + step)
         pair = torch.arange(lo, min(lo + step, n_pairs), device=dev)
         pair = pair[:, None].expand(-1, TILE_H * TILE_W).reshape(-1)
-        # (z, tri) is unique within a tile, so one pair hits per pixel
-        winner.scatter_reduce_(0, idx, torch.where(key == best[idx], pair, -1),
-                               reduce="amax")
+        winner.scatter_reduce_(
+            0, idx, torch.where(key == best[idx], pair, n_pairs),
+            reduce="amin")
 
-    pix = (winner >= 0).nonzero().squeeze(1)
+    pix = (winner < n_pairs).nonzero().squeeze(1)
     wp = winner[pix]
     xs = (pix % w).to(torch.int32)
     ys = gty[wp] * TILE_H + (_fdiv(pix, w) % TILE_H).to(torch.int32)
@@ -440,10 +444,12 @@ def _b1_kernel():
 def raster_attrs_queue_cuda(scal, rows_i, rows_f, n2: int, n3: int,
                             h: int, w: int):
     """Launch kernel B1 (csrc/raster_queue.cu) -> (z, slot, lin) over
-    h + TILE_H rows. z and lin are unwritten (garbage) where slot < 0 in
-    tiles no chunk visits; slot is prefilled with -1 there.
+    h + TILE_H rows, every word written by the one grid: where no pair
+    won, z 1.0, slot -1 and planes 0, as the plain version gives. The
+    kernel finds a tile's chunks by a search, so scal must hold them in
+    tile order (ty * ntx + tx ascending), as build_queue lays them out.
 
-    ``raster_attrs_queue_cuda.launches`` counts the launches.
+    ``raster_attrs_queue_cuda.launches`` counts the grid launches.
     """
     dev = rows_f.device
     s_cap, n_ich, chunk = rows_i.shape
@@ -469,7 +475,7 @@ def raster_attrs_queue_cuda(scal, rows_i, rows_f, n2: int, n3: int,
     lib, fn = _b1_kernel()
     hp = h + TILE_H
     z = torch.empty((hp, w), dtype=torch.float32, device=dev)
-    slot = torch.full((hp, w), -1, dtype=torch.int32, device=dev)
+    slot = torch.empty((hp, w), dtype=torch.int32, device=dev)
     lin = torch.empty((npl, hp, w), dtype=torch.float32, device=dev)
     rc = fn(ptr(scal), ptr(rows_i), ptr(rows_f), ptr(z), ptr(slot), ptr(lin),
             s_cap, chunk, TILE_H, TILE_W, n2, n3, hp, w, stream_ptr(dev))

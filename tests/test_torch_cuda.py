@@ -1,7 +1,8 @@
 """Kernels B1 to B8 on the card: each CUDA kernel against its plain
-PyTorch version, and whole frames on the card (queue, deferred queue,
-bins, G-buffer oracle and band paths, the GoL and N-body Experiments)
-against the same frames on the CPU.
+PyTorch version (B1 also on a hand-built queue that stresses its race),
+and whole frames on the card (queue, deferred queue, bins, G-buffer
+oracle and band paths, the GoL and N-body Experiments) against the same
+frames on the CPU.
 
 These tests need a CUDA device and skip without one. This file imports no
 jax (the card's machine has none), so it runs there on its own:
@@ -12,6 +13,7 @@ jax (the card's machine has none), so it runs there on its own:
 import pytest
 import torch
 
+from chip_smoke import stress_queue
 from rustexp_tpu_torch.assets import cubemap, mesh
 from rustexp_tpu_torch.ops import gol_bits as gb
 from rustexp_tpu_torch.ops import gol_stencil as gs
@@ -61,6 +63,29 @@ def test_b1_kernel_matches_plain_on_card(mesh_idx, per_pixel, ray_world):
     assert torch.equal(zk[mask].view(torch.int32), zp[mask].view(torch.int32))
     assert torch.equal(lk[:, mask].view(torch.int32),
                        lp[:, mask].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n2,n3", rq._B1_PLANES)
+def test_b1_kernel_matches_plain_on_stress_queue(n2, n3):
+    """The stress queue (chip_smoke.stress_queue): 2,048 pairs in one tile, so
+    its pairs split across warps; coplanar copies under other ids tying
+    at z == 1.0 and at -0.0/+0.0 in different splits; one id in two
+    slots; a tile of empty chunks. Slot on every word, z and planes bit
+    for bit under slot >= 0, and the clear (z 1.0, planes 0) elsewhere."""
+    dev = _card()
+    scal, rows_i, rows_f, h, w = stress_queue(n2, n3, dev)
+    args = (scal, rows_i, rows_f, n2, n3, h, w)
+    launches = rq.raster_attrs_queue_cuda.launches
+    zk, sk, lk = rq.raster_attrs_queue_cuda(*args)
+    assert rq.raster_attrs_queue_cuda.launches == launches + 1
+    zp, sp, lp = rq.raster_attrs_queue_plain(*args)
+    mask = sp >= 0
+    assert torch.equal(sk, sp) and mask.sum() > 1000
+    assert torch.equal(zk[mask].view(torch.int32), zp[mask].view(torch.int32))
+    assert torch.equal(lk[:, mask].view(torch.int32),
+                       lp[:, mask].view(torch.int32))
+    assert torch.all(zk[~mask] == 1.0) and torch.all(lk[:, ~mask] == 0.0)
 
 
 @pytest.mark.cuda

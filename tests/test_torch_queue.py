@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from chip_smoke import stress_queue
 from rustexp_tpu.assets import cubemap as jcubemap
 from rustexp_tpu.assets import mesh as jmesh
 from rustexp_tpu.ops import raster_queue as jrq
@@ -180,6 +181,176 @@ def test_b1_plain_race_tie_break():
         assert torch.all(z[:16][covered] == 1.0)
         assert torch.all(lin[0, :16][covered] == 1.0)  # triangle 0's plane
         assert torch.all(slot[:16][covered] == order.index(0))
+
+
+def test_duplicated_triangle_keeps_first_slot():
+    """One triangle in two slots of one tile ties with itself on (z, tri)
+    at every pixel it covers: the kernels' walk keeps the first slot, so
+    the plain B1 and B7 give slot 0, as JAX's raster_zslot_queue (the
+    Pallas kernel in interpret mode, tie=True) does on the same queue."""
+    xs = np.array([[8.0], [120.0], [8.0]], np.float32)
+    ys = np.array([[2.0], [2.0], [14.0]], np.float32)
+    zs = np.full((3, 1), 0.5, np.float32)
+    ids = np.full((1, trq.CHUNK), -1, np.int32)
+    ids[0, :2] = 0
+    scal = np.array([[0, 0, 1, 2, 0]], np.int32)
+    extra = [np.array([1.0], np.float32), np.zeros(1, np.float32),
+             np.zeros(1, np.float32)]
+
+    setup = tpp.setup_triangles_planar(*map(torch.from_numpy, (xs, ys, zs)),
+                                       W, 16)
+    q = trq.Queue(torch.from_numpy(ids), torch.from_numpy(scal),
+                  *[None] * 6, shade_w=trq.TILE_W)
+    rows_i, rows_f = trq.gather_rows(
+        q, trq.pack_table(setup, list(map(torch.from_numpy, extra))))
+    z1, slot1, _ = trq.raster_attrs_queue_plain(q.scal, rows_i, rows_f,
+                                                1, 0, 16, W)
+    z7, slot7 = trq.raster_zslot_queue_plain(q.scal, rows_i, rows_f, 16, W)
+    covered = slot1[:16] >= 0
+    assert covered.sum() > 100
+    assert torch.all(slot1[:16][covered] == 0)
+    assert torch.equal(slot7, slot1) and torch.equal(z7[:16][covered],
+                                                     z1[:16][covered])
+
+    setj = _jit_setup(*map(jnp.asarray, (xs, ys, zs)), W, 16)
+    qj = jrq.Queue(ids=jnp.asarray(ids), scal=jnp.asarray(scal),
+                   ranges=jnp.zeros((1, 4), jnp.int32),
+                   built_valid=jnp.ones(1, bool), overflow=jnp.asarray(False),
+                   rows=jnp.zeros(1, jnp.int32),
+                   ylim=jnp.asarray([[0, 16]], jnp.int32),
+                   xlim=jnp.asarray([[0, W]], jnp.int32), shade_w=jrq.TILE_W)
+    _, slotj, _, _ = jrq.raster_zslot_queue(
+        qj, setj, tuple(map(jnp.asarray, extra)), 16, W)
+    assert np.array_equal(np.asarray(slotj), slot7[:16].numpy())
+
+
+def _permute_tiles(scal, ids, seed: int):
+    """ids with the pairs of each tile shuffled across its chunks."""
+    rng = np.random.default_rng(seed)
+    ids = ids.copy()
+    flat = ids.reshape(-1)
+    c = 0
+    while c < scal.shape[0]:
+        e = c + 1
+        while e < scal.shape[0] and scal[e, 2] == 0:
+            e += 1
+        slots = np.concatenate([k * trq.CHUNK + np.arange(scal[k, 3])
+                                for k in range(c, e)])
+        flat[slots] = flat[rng.permutation(slots)]
+        c = e
+    return ids
+
+
+@pytest.mark.parametrize("eye_i", range(len(EYES)))
+def test_b1_race_ignores_pair_order(scenes, eye_i):
+    """The race is a lexicographic minimum over (z, tri), so its result
+    does not depend on the order of a tile's pairs: with the pairs of
+    every tile shuffled across its chunks, the port's plain B1 and JAX's
+    raster_attrs_queue (interpret mode) give the same mask, z and planes,
+    bit for bit under the mask, and the same winning triangle at every
+    pixel as on the queue in its built order."""
+    sj, st = scenes
+    eye = EYES[eye_i]
+    qj = jpp.build_scene_queue(sj, eye, W, H, per_pixel=True)
+    leaves = {f: np.asarray(getattr(qj, f)) for f in qj._fields}
+    scal = leaves["scal"]
+    assert ((scal[:, 2] == 0) & (scal[:, 3] > 0)).any(), \
+        "no tile holds two chunks"
+    perm = _permute_tiles(scal, leaves["ids"], eye_i)
+    assert not np.array_equal(perm, leaves["ids"])
+    sett, extra, n2, n3 = tpp.queue_attr_channels(st, None, eye, W, H,
+                                                  per_pixel=True)
+    setj, _ = _setups(scenes, eye)
+    extra_j = tuple(jnp.asarray(e.numpy()) for e in extra)
+    got = []
+    for ids in (leaves["ids"], perm):
+        qj_ = qj._replace(ids=jnp.asarray(ids))
+        qt = interop.queue_from_numpy({**leaves, "ids": ids}, CPU)
+        zj, mj, lj, _ = jrq.raster_attrs_queue(qj_, setj, extra_j, n2, n3,
+                                               H, W)
+        zt, _, lt, _ = trq.raster_attrs_queue(qt, sett, extra, n2, n3, H, W)
+        _, slot, _ = trq.raster_attrs_queue_plain(
+            qt.scal, *trq.gather_rows(qt, trq.pack_table(sett, extra)),
+            n2, n3, H, W)
+        slot = slot[:H].numpy()
+        won = np.where(slot >= 0, ids.reshape(-1)[np.maximum(slot, 0)], -1)
+        got.append((np.asarray(mj), np.asarray(zj), np.stack(lj),
+                    zt.numpy(), torch.stack(lt).numpy(), won))
+    (mj, zj, lj, zt, lt, won), (mj2, zj2, lj2, zt2, lt2, won2) = got
+    assert mj.sum() > 0 and np.array_equal(mj, mj2)
+    assert np.array_equal(won, won2) and np.array_equal(won >= 0, mj)
+    for a in (zj, zj2, zt, zt2):
+        assert np.array_equal(a[mj].view(np.int32), zj[mj].view(np.int32))
+    for a in (lj, lj2, lt, lt2):
+        assert np.array_equal(a[:, mj].view(np.int32),
+                              lj[:, mj].view(np.int32))
+
+
+def _serial_walk(scal, rows_i, rows_f, n2, n3, h, w):
+    """The kernels' walk written out in numpy: each tile's pairs in queue
+    order, a fragment kept when (z, tri) < (z_cur, tri_cur), from the
+    clear (1.0, INT32_MAX); each op rounds once, ints wrap."""
+    hp = h + trq.TILE_H
+    z = np.ones((hp, w), np.float32)
+    tri = np.full((hp, w), trq.INT32_MAX, np.int64)
+    slot = np.full((hp, w), -1, np.int32)
+    lin = np.zeros((n2 + n3, hp, w), np.float32)
+    iy, ix = np.mgrid[:trq.TILE_H, :trq.TILE_W].astype(np.int32)
+    with np.errstate(over="ignore"):
+        for c in range(scal.shape[0]):
+            ty, tx, _, cnt, gty = scal[c]
+            xs, ys = tx * trq.TILE_W + ix, gty * trq.TILE_H + iy
+            out = np.s_[ty * trq.TILE_H:(ty + 1) * trq.TILE_H,
+                        tx * trq.TILE_W:(tx + 1) * trq.TILE_W]
+            for p in range(min(max(cnt, 0), trq.CHUNK)):
+                ci, cf = rows_i[c, :, p], rows_f[c, :, p]
+                e0 = ci[0] * (xs << 4) + ci[2] * (ys << 4) + ci[4]
+                e1 = ci[1] * (xs << 4) + ci[3] * (ys << 4) + ci[5]
+                e2 = ci[6] - e0 - e1
+                cov = (((e0 | e1 | e2) >= 0) & (xs >= ci[7]) & (ys >= ci[8])
+                       & (xs < ci[9]) & (ys < ci[10]))
+                b0, b1, b2 = ((e - np.int32(cf[k])).astype(np.float32) * cf[6]
+                              for k, e in enumerate((e0, e1, e2)))
+                zm = np.where(cov, cf[3] + cf[4] * b2 + cf[5] * b0, np.inf)
+                up = (zm < z[out]) | ((zm == z[out]) & (ci[11] < tri[out]))
+                z[out][up], tri[out][up] = zm[up], ci[11]
+                slot[out][up] = c * trq.CHUNK + p
+                f = cf[trq._F_CH:]
+                for a in range(n2):
+                    v = f[a] + f[n2 + a] * b2 + f[2 * n2 + a] * b0
+                    lin[a][out][up] = v[up]
+                for a in range(n3):
+                    g = f[3 * n2:]
+                    v = g[a] * b1 + g[n3 + a] * b2 + g[2 * n3 + a] * b0
+                    lin[n2 + a][out][up] = v[up]
+    return z, slot, lin
+
+
+@pytest.mark.parametrize("n2,n3", trq._B1_PLANES)
+def test_b1_plain_matches_serial_walk_on_stress_queue(n2, n3):
+    """The plain B1 and B7 on the stress queue (chip_smoke.stress_queue: 16
+    chunks in one tile; copies of a triangle under other ids tying at
+    z == 1.0 and at -0.0/+0.0; one id in two slots; a tile of empty
+    chunks) against the serial walk: slot everywhere, z and planes bit
+    for bit under slot >= 0."""
+    scal, rows_i, rows_f, h, w = stress_queue(n2, n3, CPU)
+    z, slot, lin = trq.raster_attrs_queue_plain(scal, rows_i, rows_f,
+                                                n2, n3, h, w)
+    z7, slot7 = trq.raster_zslot_queue_plain(scal, rows_i, rows_f, h, w)
+    zw, slotw, linw = _serial_walk(scal.numpy(), rows_i.numpy(),
+                                   rows_f.numpy(), n2, n3, h, w)
+    won = slotw >= 0
+    assert np.array_equal(slot.numpy(), slotw)
+    assert np.array_equal(slot7.numpy(), slotw)
+    for got in (z, z7):
+        assert np.array_equal(got.numpy()[won].view(np.int32),
+                              zw[won].view(np.int32))
+    assert np.array_equal(lin.numpy()[:, won].view(np.int32),
+                          linw[:, won].view(np.int32))
+    zb = zw[won].view(np.int32)
+    assert (zw[won] == 1.0).sum() > 100       # ties at 1.0 beat the clear
+    assert (zb == np.int32(-2**31)).sum() > 100   # the lowest id's -0.0
+    assert not won[:, trq.TILE_W:].any()      # the tile of empty chunks
 
 
 @pytest.mark.parametrize("per_pixel", [False, True])
