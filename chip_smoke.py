@@ -17,15 +17,17 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      clear elsewhere; B2 (the binned raster) on CubeV and CubeP at
      suggest_binning's cap and spans (the suite's shapes) and on
      TorusKnotP and KillerooP at render_frame(backend="pallas")'s
-     default bins, and B3 (its G-buffer
-     form) on Killeroo and Cube at raster_gbuffer_pallas's default bins
-     and on four 128-row bands of Killeroo, 512x512, bit for bit (0
-     mismatching words); B7 (B1's depth race alone) on KillerooP and
-     TorusKnotP, slot on every word and z where a pair won; B4 (SWAR GoL)
-     at packed [8, 256] in both its forms (resident and tiled), [64, 2048]
-     tiled and [8, 1024] resident, its input unchanged and its launches
-     as planned, and B8 (the f32 GoL stencil) at 256^2 and 512^2, bit for
-     bit, with B1's, B7's, B4's and B5's registers and spills from ptxas;
+     default bins, and B3 (its G-buffer form) on Killeroo and Cube at
+     raster_gbuffer_pallas's default bins, on four 128-row bands of
+     Killeroo, 512x512, and on the stress bins (stress_bins below), bit
+     for bit (0 mismatching words); B7 (B1's depth race alone) on
+     KillerooP and TorusKnotP, slot on every word and z where a pair won;
+     B4 (SWAR GoL) at packed [8, 256] in both its forms (resident and
+     tiled), [64, 2048] tiled and [8, 1024] resident, its input unchanged
+     and its launches as planned, and B8 (the f32 GoL stencil) at 256^2 x
+     8 generations (the GoL Experiment's call), 256^2 and 512^2 x 20, bit
+     for bit, its plan printed and its launches as planned, with the
+     registers and spills of every kernel but B6's from ptxas;
      B6 (the radix sort) with five payloads, bit for bit and its inputs
      unchanged, on the N-body's Morton codes at n = 131,072, full-range
      signed keys and an explicit negative idx at 4,096, constant keys at
@@ -131,20 +133,23 @@ OPS_2MAD, OPS_3W = 4, 5
 # shifts and 16 three-input logic ops (rustexp_tpu/ops/gol_bits.py:54-98
 # written as 17; the SASS of csrc/gol_swar.cu's generation loop has 16.0
 # LOP3 and 2.0 SHF a word, beside the exchange's 4 SEL and 4 SHFL), at
-# the integer pipe's 64 lanes. B8: 11 FP32 operations per cell and
-# generation (5 adds, 3 compares, and, or, select), none an FMA, at 128
-# lanes. B5: 11 FP32 operations per pair (dx and dy, their squares, two
-# adds for d2 + EPS, the product with m_j, rm*dx and rm*dy, two sums) at
-# the FP32 rate plus one reciprocal on the special-function units, 16
-# lanes; the pipes run side by side, so the bound is the larger time.
+# the integer pipe's 64 lanes. B8 steps the same function on the same
+# packed words (32 cells a word, kernel csrc/gol_stencil.cu), so its least
+# work is B4's count per 32 cells and generation. B5: 11 FP32 operations
+# per pair (dx and dy, their squares, two adds for d2 + EPS, the product
+# with m_j, rm*dx and rm*dy, two sums) at the FP32 rate plus one
+# reciprocal on the special-function units, 16 lanes; the pipes run side
+# by side, so the bound is the larger time.
 OPS_SWAR = 18
-OPS_STENCIL = 11
 OPS_PAIR = 11
 
 # (cells, generations, form): None is the plan's
 B4_CASES = (((256, 256), 100, None), ((256, 256), 100, "tiled"),
             ((2048, 2048), 100, None), ((256, 1024), 100, "resident"))
-B8_CASES = (((256, 256), 20), ((512, 512), 20))
+# B8: (cells, generations); the GoL Experiment's "pallas" call is 256^2 x 8
+# (GOL_EXPERIMENT_B8), 512^2 x 20 the throughput case
+B8_CASES = (((256, 256), 8), ((256, 256), 20), ((512, 512), 20))
+GOL_EXPERIMENT_B8 = "256x256 x8"
 B5_NS = (16384, 131072, 16385)  # the last not a multiple of 256 targets
 # B6: (keys, n); "morton" (the N-body's codes, positions form) is timed
 B6_CASES = (("morton", 131072), ("signed", 4096), ("constant", 256),
@@ -438,17 +443,17 @@ N_COPIES = 7
 
 
 def _stress_triangles(rng, n: int, x_lo: float, x_hi: float,
-                      size: float):
+                      size: float, w: int = STRESS_W, h: int = STRESS_H):
     """Corner coordinates f32 [3, n] of triangles that the setup keeps
-    (counter-clockwise, with pixels in the frame) about [x_lo, x_hi) x
-    [0, STRESS_H)."""
+    (counter-clockwise, with pixels in the w x h frame) about [x_lo, x_hi)
+    x [0, h)."""
     import numpy as np
 
     from rustexp_tpu_torch.ops.raster_setup import setup_triangles_planar
 
     m = 2 * n
     cx = rng.uniform(x_lo, x_hi, m)
-    cy = rng.uniform(0.0, STRESS_H, m)
+    cy = rng.uniform(0.0, h, m)
     xs = (cx + rng.uniform(-size, size, (3, m))).astype(np.float32)
     ys = (cy + rng.uniform(-size, size, (3, m))).astype(np.float32)
     area = ((xs[1] - xs[0]) * (ys[2] - ys[0])
@@ -457,8 +462,8 @@ def _stress_triangles(rng, n: int, x_lo: float, x_hi: float,
     xs[1][flip], xs[2][flip] = xs[2][flip], xs[1][flip].copy()
     ys[1][flip], ys[2][flip] = ys[2][flip], ys[1][flip].copy()
     valid = setup_triangles_planar(torch.from_numpy(xs), torch.from_numpy(ys),
-                                   torch.zeros((3, m)), STRESS_W,
-                                   STRESS_H).valid.numpy()
+                                   torch.zeros((3, m)), w,
+                                   h).valid.numpy()
     keep = np.flatnonzero(valid)[:n]
     assert keep.size == n
     return xs[:, keep], ys[:, keep]
@@ -553,6 +558,124 @@ def b1_stress(dev, rq) -> int:
               flush=True)
         bad += words
     return bad
+
+
+# The stress bins of kernel B3's depth race, hand-built on one row of three
+# 32x128 tiles (cap 1,280). Tile 0 is crowded: 1,163 live slots, so a
+# kernel that splits a tile's slots must merge partial winners, past one
+# 256-slot stage and past 4 warps x 32. Random small triangles fill its
+# left three quarters (each box meets few 4x32 rectangles); among them, at
+# slots spread over the whole bin: coplanar copies at depth exactly 1.0 on
+# the right quarter, where nothing else lies, which tie and never beat the
+# clear (1.0, -1); coplanar copies at depth 0 over two regions, their z
+# channels set by hand to +0.0 and -0.0 in turn, the first slot carrying
+# +0.0 over one region and -0.0 over the other, so they tie and the first
+# slot keeps the pixel with its own zero; and one triangle in two slots,
+# in front of everything, whose first slot keeps the pixel. Tile 1 is empty
+# (count 0) over slots that hold live triangles, and tile 2 holds 37 live
+# slots. Past each count, up to a multiple of 8, the slots are the empty
+# record (a box that admits no pixel), as the binning leaves them and as
+# the TPU kernel's groups of 8 read them; past that they hold live
+# triangles in front of everything, which only a race that ignored the
+# count would draw. tests/test_torch_cuda.py holds B3 against its plain
+# version on them, tests/test_torch_gbuffer.py the plain B3 against the
+# TPU kernel in interpret mode.
+BINS_H, BINS_W, BINS_CAP = 32, 384, 1280
+BINS_COUNTS = (1163, 0, 37)
+
+
+def stress_bins(device, seed: int = 0):
+    """(bins, h, w): the stress bins as a BinnedTris on `device`, made from
+    numpy arrays by interop.bins_from_numpy."""
+    import numpy as np
+
+    from rustexp_tpu_torch import interop
+    from rustexp_tpu_torch.ops import raster_queue as rq
+    from rustexp_tpu_torch.ops.raster_setup import setup_triangles_planar
+
+    rng = np.random.default_rng(seed)
+    n0, n2 = BINS_COUNTS[0], BINS_COUNTS[2]
+    # the first slot past each count's multiple of 8
+    end0, end2 = -(-n0 // 8) * 8, -(-n2 // 8) * 8
+
+    def tris(n, x_lo, x_hi, size, z_lo, z_hi):
+        xs, ys = _stress_triangles(rng, n, x_lo, x_hi, size, BINS_W, BINS_H)
+        return xs, ys, np.repeat(rng.uniform(z_lo, z_hi, (1, n)), 3, 0)
+
+    def copies(n, xs, ys, z):
+        return (np.repeat(np.array(xs, np.float32)[:, None], n, 1),
+                np.repeat(np.array(ys, np.float32)[:, None], n, 1),
+                np.full((3, n), z, np.float32))
+
+    n_copy = 7
+    n_rand = n0 - 3 * n_copy - 2
+    groups = [
+        tris(n_rand, 0.0, 96.0, 6.0, 0.05, 0.95),                 # tile 0
+        copies(n_copy, (100.0, 127.9, 100.0), (-1.0, -1.0, 33.0), 1.0),
+        copies(n_copy, (0.5, 40.0, 0.5), (1.0, 1.0, 15.0), 0.0),
+        copies(n_copy, (0.5, 40.0, 0.5), (17.0, 17.0, 31.0), 0.0),
+        copies(1, (50.0, 70.0, 50.0), (2.0, 2.0, 30.0), 0.01),
+        tris(BINS_CAP - end0, 0.0, 128.0, 10.0, 0.0, 0.004),      # stale
+        tris(n2, 256.0, 384.0, 30.0, 0.1, 0.9),                   # tile 2
+        tris(BINS_CAP - end2, 256.0, 384.0, 30.0, 0.0, 0.004),    # stale
+        tris(BINS_CAP, 128.0, 256.0, 20.0, 0.0, 0.9)]             # tile 1
+    xs, ys, zs = (np.concatenate([g[i] for g in groups], 1) for i in range(3))
+    start = np.cumsum([0] + [g[0].shape[1] for g in groups])
+    setup = setup_triangles_planar(
+        *(torch.from_numpy(a.astype(np.float32)) for a in (xs, ys, zs)),
+        BINS_W, BINS_H)
+    assert bool(setup.valid.all())
+    tab = rq.pack_table(setup, []).numpy()  # its last row: the empty record
+
+    # tile 0: the copies' slots spread over the bin, their order shuffled;
+    # the duplicate in slots 211 and 1002, which a kernel that deals slots
+    # out to 2 or 4 warps gives to different warps; the random triangles
+    # in the rest
+    ids = np.full((len(BINS_COUNTS), BINS_CAP), tab.shape[0] - 1, np.int64)
+    special = np.linspace(3, n0 - 3, 3 * n_copy).astype(int)
+    dup = np.array([211, 1002])
+    assert not np.isin(dup, special).any()
+    ids[0, special] = start[1] + rng.permutation(3 * n_copy)
+    ids[0, dup] = start[4]
+    free = np.setdiff1d(np.arange(n0), np.concatenate([special, dup]))
+    ids[0, free] = start[0] + rng.permutation(n_rand)
+    ids[0, end0:] = start[5] + np.arange(BINS_CAP - end0)
+    ids[1] = start[8] + np.arange(BINS_CAP)
+    ids[2, :n2] = start[6] + np.arange(n2)
+    ids[2, end2:] = start[7] + np.arange(BINS_CAP - end2)
+    rec = tab[ids]                                           # [3, cap, 19]
+    setup_i = np.ascontiguousarray(rec[..., :12]).view(np.int32)
+    setup_f = np.ascontiguousarray(rec[..., 12:19])
+    # the depth-0 copies' z channels: +0.0 and -0.0 in turn in slot order,
+    # from +0.0 over the upper region and from -0.0 over the lower
+    for g, first in ((2, 1.0), (3, -1.0)):
+        slots = np.flatnonzero((ids[0, :n0] >= start[g])
+                               & (ids[0, :n0] < start[g + 1]))
+        for j, sl in enumerate(slots):
+            setup_f[0, sl, 3:6] = np.copysign(np.float32(0.0),
+                                              first * (-1) ** j)
+    d = dict(setup_i=setup_i, setup_f=setup_f, ids=ids.astype(np.int32),
+             counts=np.array(BINS_COUNTS, np.int32),
+             overflow=np.array(False))
+    return interop.bins_from_numpy(d, device), BINS_H, BINS_W
+
+
+def b3_stress(dev, rb) -> int:
+    """B3 against its plain version on the stress bins (stress_bins), bit
+    for bit on every word. Returns the mismatching words."""
+    bins, h, w = stress_bins(dev)
+    args = (bins.counts, bins.setup_i, bins.setup_f, h, w)
+    zk, sk, bk = rb.raster_gbuffer_bins_cuda(*args)
+    zp, sp, bp = rb.raster_gbuffer_bins_plain(*args)
+    torch.cuda.synchronize(dev)
+    words = int((sk != sp).sum())
+    words += int((zk.view(torch.int32) != zp.view(torch.int32)).sum())
+    words += int((bk.view(torch.int32) != bp.view(torch.int32)).sum())
+    print(f"B3 stress bins: counts {bins.counts.tolist()} (cap "
+          f"{bins.setup_i.shape[1]}), {int((sp >= 0).sum())} covered px of "
+          f"{tuple(sp.shape)}, {int((sp >= 1024).sum())} won past slot "
+          f"1,023: {words} mismatching words", flush=True)
+    return words
 
 
 def b2_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera):
@@ -768,25 +891,35 @@ def b4_vs_plain(dev, gb) -> dict:
 
 
 def b8_vs_plain(dev, gs) -> dict:
-    """B8 against its plain version at 256^2 and 512^2."""
+    """B8 against its plain version in B8_CASES, bit for bit, with the
+    launches its plan gives; the plan printed per case."""
     out = {}
     for (r, c), k in B8_CASES:
         g = random_grid((r, c), r + 1, dev).to(torch.float32)
+        plan = gs._b8_plan(r, c, k)
+        calls = gs.multi_step_pallas_cuda.launches
         got = gs.multi_step_pallas_cuda(g, k)
+        calls = gs.multi_step_pallas_cuda.launches - calls
         want = gs.multi_step_pallas_plain(g, k)
         torch.cuda.synchronize(dev)
         bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
-        bms, by = time_bound(2 * g.numel() * 4, g.numel() * k * OPS_STENCIL,
-                             ops_per_s=FP32_NON_FMA_OPS_PER_S)
+        # the f32 grid read and written once; 18 integer ops per 32 cells
+        # and generation
+        bms, by = time_bound(2 * g.numel() * 4, g.numel() / 32 * k * OPS_SWAR,
+                             ops_per_s=INT_LOGIC_OPS_PER_S)
         run = lambda: gs.multi_step_pallas_cuda(g, k)
-        out[f"{r}x{c}"] = dict(
-            err=float((got - want).abs().max()), bad=bad,
-            ms=device_ms(run, 10, "stencil_kernel", None),
+        work = (f"{r}x{c} f32, {k} generations, {plan.launches} launches "
+                f"of {plan.blocks} one-warp blocks, {plan.halo} generations "
+                f"a launch")
+        out[f"{r}x{c} x{k}"] = dict(
+            err=float((got - want).abs().max()),
+            bad=bad + int(calls != plan.launches),
+            ms=device_ms(run, 10, "stencil_kernel", plan.launches),
             call_ms=cuda_ms(run, 10),
             plain_ms=cuda_ms(lambda: gs.multi_step_pallas_plain(g, k), 2),
-            bound_ms=bms, bound_by=by, work=f"{r}x{c} f32, {k} generations")
-        print(f"B8 {r}x{c}, {k} generations: {bad} mismatching words",
-              flush=True)
+            bound_ms=bms, bound_by=by, work=work)
+        print(f"B8 {work} (plan {plan}): {calls} launches a call (planned "
+              f"{plan.launches}), {bad} mismatching words", flush=True)
     return out
 
 
@@ -947,12 +1080,12 @@ def b5_vs_plain(dev, npl, stable_orbits) -> dict:
     return out
 
 
-def gol_paths(dev, card, gol_exp, counters, launches, b4_per_step: int
+def gol_paths(dev, card, gol_exp, counters, launches, per_step: dict
               ) -> str | None:
-    """The GoL Experiment at 256^2, auto (B4, `b4_per_step` launches a
-    step) then pallas (B8), 8 generations per step, counted; the card's
-    frames against the CPU's, bit for bit. Returns a failure message or
-    None."""
+    """The GoL Experiment at 256^2, auto (B4) then pallas (B8), 8
+    generations per step, counted, each kernel launched `per_step[kernel]`
+    times a step; the card's frames against the CPU's, bit for bit.
+    Returns a failure message or None."""
     for backend, kernel in (("auto", "B4"), ("pallas", "B8")):
         frames = []
         for d in (dev, torch.device("cpu")):
@@ -970,9 +1103,10 @@ def gol_paths(dev, card, gol_exp, counters, launches, b4_per_step: int
                       f"{got}; {exp.status(st)} [{card}]", flush=True)
                 if got[kernel] == 0:
                     return f"the GoL {backend} path never launched {kernel}"
-                if kernel == "B4" and got[kernel] != GOL_FRAMES * b4_per_step:
-                    return (f"the GoL auto path launched B4 {got[kernel]} "
-                            f"times, not {GOL_FRAMES * b4_per_step}")
+                if got[kernel] != GOL_FRAMES * per_step[kernel]:
+                    return (f"the GoL {backend} path launched {kernel} "
+                            f"{got[kernel]} times, not "
+                            f"{GOL_FRAMES * per_step[kernel]}")
                 for k in counters:
                     launches[k] += got[k]
             frames.append(torch.stack(fb))
@@ -1290,8 +1424,9 @@ def main() -> int:
     print(f"all kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"[{card}]", flush=True)
     for lib in libs:
-        # B1 and B7, B4, B5
-        if lib.name in ("raster_queue", "gol_swar", "nbody_forces"):
+        # B1 and B7, B2 and B3, B4, B5, B8
+        if lib.name in ("raster_queue", "raster_bins", "gol_swar",
+                        "nbody_forces", "gol_stencil"):
             for line in ptxas_summary(lib.ptxas):
                 print(f"ptxas {lib.name} {line}", flush=True)
 
@@ -1302,6 +1437,9 @@ def main() -> int:
         return fail(f"B1 on the stress queue: {stress_bad} mismatching words")
     cmp2 = b2_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera)
     cmp3 = b3_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera)
+    stress_bad = b3_stress(dev, rb)
+    if stress_bad:
+        return fail(f"B3 on the stress bins: {stress_bad} mismatching words")
     cmp7 = b7_vs_plain(dev, pp, rq, meshes, cubemap, camera)
     for kernel, cmp in (("B1", cmp1), ("B2", cmp2), ("B3", cmp3),
                         ("B7", cmp7)):
@@ -1394,7 +1532,8 @@ def main() -> int:
     if msg:
         return fail(msg)
     for msg in (gol_paths(dev, card, GoLExperiment, counters, launches,
-                          gb._b4_plan(256 // 32, 256, 8).launches),
+                          {"B4": gb._b4_plan(256 // 32, 256, 8).launches,
+                           "B8": gs._b8_plan(256, 256, 8).launches}),
                 nbody_paths(dev, card, NBodyExperiment, counters, launches,
                             npl._b5_plan(NBODY_N)[1]),
                 nbody_card_vs_cpu(dev, NBodyExperiment)):
@@ -1543,7 +1682,8 @@ def main() -> int:
               "rustexp_tpu/ops/raster_queue.py:799", "B7", cmp7,
               "KillerooP"),
         entry("gol_stencil (B8)", "rustexp_tpu_torch/csrc/gol_stencil.cu",
-              "rustexp_tpu/ops/gol_stencil.py:99", "B8", cmp8, "512x512"),
+              "rustexp_tpu/ops/gol_stencil.py:99", "B8", cmp8,
+              GOL_EXPERIMENT_B8, "512x512 x20"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

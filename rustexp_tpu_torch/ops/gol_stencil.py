@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -101,21 +102,50 @@ def multi_step_pallas_plain(g: torch.Tensor, k: int) -> torch.Tensor:
     return g
 
 
+TILE = 32       # kernel B8's tile: TILE x TILE cells, one warp
+MAX_HALO = 8    # generations per launch at most (the tile's halo)
+
+
+class B8Plan(NamedTuple):
+    halo: int      # generations per launch (the last may run fewer)
+    launches: int  # grid launches of the call
+    blocks: int    # one-warp blocks per launch
+
+
+def _b8_plan(rows: int, cols: int, k: int) -> B8Plan:
+    """Kernel B8's launches for k generations of a [rows, cols] grid.
+
+    A launch steps `halo` generations on 32 x 32 tiles that overlap by
+    `halo` cells on each side, so it covers the grid with
+    ceil(rows / inner) x ceil(cols / inner) blocks, inner = 32 - 2 halo.
+    The fewest launches of at most MAX_HALO generations, ceil(k / 8),
+    share the generations evenly, which keeps the halo and so the tiles'
+    overlap small: 20 generations are 3 launches of 7, 7 and 6, and 8 are
+    one launch of 8. k = 0 launches nothing."""
+    if k <= 0:
+        return B8Plan(MAX_HALO, 0, 0)
+    halo = -(-k // -(-k // MAX_HALO))
+    inner = TILE - 2 * halo
+    return B8Plan(halo, -(-k // halo),
+                  -(-rows // inner) * -(-cols // inner))
+
+
 @functools.cache
 def _b8_kernel():
     lib = load_kernel_lib("gol_stencil")
     fn = lib.lib.gs_stencil
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 \
         + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     return lib, fn
 
 
 def multi_step_pallas_cuda(g: torch.Tensor, k: int) -> torch.Tensor:
     """Launch kernel B8 (csrc/gol_stencil.cu): k generations of the f32
-    stencil on a contiguous [R, C] f32 CUDA tensor -> a new tensor.
+    stencil on a contiguous [R, C] f32 CUDA tensor of 0s and 1s -> a new
+    tensor.
 
-    One call runs ceil(k / 8) grid launches, eight generations each;
+    ``_b8_plan`` gives the generations per launch and the launches;
     ``multi_step_pallas_cuda.launches`` counts those grid launches.
     """
     if g.device.type != "cuda":
@@ -128,11 +158,13 @@ def multi_step_pallas_cuda(g: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError(f"k = {k} < 0")
     if k == 0:
         return g.clone()
+    rows, cols = g.shape
+    plan = _b8_plan(rows, cols, k)
     lib, fn = _b8_kernel()
     out = torch.empty_like(g)
-    scratch = torch.empty_like(g)
+    scratch = torch.empty_like(g) if plan.launches > 1 else out
     launched = ctypes.c_int(0)
-    rc = fn(ptr(g), ptr(out), ptr(scratch), g.shape[0], g.shape[1], k,
+    rc = fn(ptr(g), ptr(out), ptr(scratch), rows, cols, k, plan.halo,
             stream_ptr(g.device), ctypes.byref(launched))
     multi_step_pallas_cuda.launches += launched.value
     lib.check(rc, "kernel B8 (gs_stencil)")

@@ -1,8 +1,8 @@
 """Kernels B1 to B8 on the card: each CUDA kernel against its plain
-PyTorch version (B1 also on a hand-built queue that stresses its race),
-and whole frames on the card (queue, deferred queue, bins, G-buffer
-oracle and band paths, the GoL and N-body Experiments) against the same
-frames on the CPU.
+PyTorch version (B1 and B3 also on hand-built inputs that stress their
+races), and whole frames on the card (queue, deferred queue, bins,
+G-buffer oracle and band paths, the GoL and N-body Experiments) against
+the same frames on the CPU.
 
 These tests need a CUDA device and skip without one. This file imports no
 jax (the card's machine has none), so it runs there on its own:
@@ -13,7 +13,7 @@ jax (the card's machine has none), so it runs there on its own:
 import pytest
 import torch
 
-from chip_smoke import stress_queue
+from chip_smoke import stress_bins, stress_queue
 from rustexp_tpu_torch.assets import cubemap, mesh
 from rustexp_tpu_torch.ops import gol_bits as gb
 from rustexp_tpu_torch.ops import gol_stencil as gs
@@ -228,6 +228,24 @@ def test_b3_kernel_matches_plain_on_card(mesh_idx, h, y_shift):
 
 
 @pytest.mark.cuda
+def test_b3_kernel_matches_plain_on_stress_bins():
+    """The stress bins (chip_smoke.stress_bins): 1,163 live slots in one
+    tile, split over warps and merged; copies tying at z == 1.0 and at
+    +0.0/-0.0; one triangle in two slots; an empty tile; live records past
+    the counts. Slot, z and b0-b2 bit for bit on every word."""
+    dev = _card()
+    bins, h, w = stress_bins(dev)
+    args = (bins.counts, bins.setup_i, bins.setup_f, h, w)
+    launches = rb.raster_gbuffer_bins_cuda.launches
+    zk, sk, bk = rb.raster_gbuffer_bins_cuda(*args)
+    assert rb.raster_gbuffer_bins_cuda.launches == launches + 1
+    zp, sp, bp = rb.raster_gbuffer_bins_plain(*args)
+    assert (sp >= 1024).any() and torch.equal(sk, sp)
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+    assert torch.equal(bk.view(torch.int32), bp.view(torch.int32))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("per_pixel", [False, True])
 def test_defer_frame_on_card(per_pixel):
     """raster_and_shade_queue(defer=True) through B7 equals the planes
@@ -321,17 +339,41 @@ def test_b4_kernel_matches_plain_on_card(shape, k, form):
     assert torch.equal(packed, before)
 
 
+def _gun(shape, at, dev):
+    """A [shape] int32 grid holding the Gosper glider gun with its top-left
+    cell at `at`, wrapped around the torus."""
+    from rustexp_tpu_torch.assets.gol_patterns import GUN, pattern_to_array
+
+    gun = torch.from_numpy(pattern_to_array(GUN)).to(torch.int32)
+    g = torch.zeros(shape, dtype=torch.int32)
+    g[:gun.shape[0], :gun.shape[1]] = gun
+    return torch.roll(g, at, (0, 1)).to(dev)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,k", [((256, 256), 5), ((512, 512), 20),
-                                     ((96, 160), 17), ((20, 30), 9)])
-def test_b8_kernel_matches_plain_on_card(shape, k):
+@pytest.mark.parametrize("shape,k,fill", [
+    ((256, 256), 5, "random"), ((512, 512), 20, "random"),
+    ((96, 160), 17, "random"), ((20, 30), 9, "random"),
+    ((256, 256), 8, "random"), ((640, 1024), 20, "random"),
+    ((256, 256), 0, "random"), ((96, 160), 1, "random"),
+    ((96, 160), 150, "gun")])
+def test_b8_kernel_matches_plain_on_card(shape, k, fill):
+    """Bit-equal cells and the plan's launches: the GoL Experiment's call
+    (256^2, 8 generations: one launch), 512^2 x 20 (three), the largest
+    grid the guard allows, grids smaller than a tile, k = 0 and 1, and a
+    glider gun across the torus's edges whose gliders cross the tiles'
+    edges and the torus for 150 generations (19 launches)."""
     dev = _card()
-    g = _grid(shape, k, dev).to(torch.float32)
+    g = (_grid(shape, k, dev) if fill == "random"
+         else _gun(shape, (90, 140), dev)).to(torch.float32)
+    plan = gs._b8_plan(*shape, k)
     launches = gs.multi_step_pallas_cuda.launches
     got = gs.multi_step_pallas_cuda(g, k)
-    assert gs.multi_step_pallas_cuda.launches == launches + -(-k // 8)
-    assert torch.equal(got.view(torch.int32),
-                       gs.multi_step_pallas_plain(g, k).view(torch.int32))
+    assert gs.multi_step_pallas_cuda.launches == launches + plan.launches
+    want = gs.multi_step_pallas_plain(g, k)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if fill == "gun":
+        assert int(want.sum()) > int(g.sum()) + 20  # gliders were emitted
 
 
 INT32_MIN, INT32_MAX = -(1 << 31), (1 << 31) - 1

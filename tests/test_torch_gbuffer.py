@@ -1,7 +1,8 @@
 """PyTorch port vs the JAX package: the G-buffer paths.
 
 The XLA oracle (raster_gbuffer_xla), the plain version of kernel B3
-against the Pallas _tile_kernel in interpret mode, raster_gbuffer_pallas,
+against the Pallas _tile_kernel in interpret mode (also on the stress
+bins of chip_smoke.stress_bins), raster_gbuffer_pallas,
 shade_gbuffer, render_frame(backend="xla") and the "auto" route on frames
 of partial tiles, the Experiment at untileable windows, triangle setup
 with the band translation y_shift, the banded background, and the band
@@ -31,6 +32,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 from jax.sharding import Mesh
 
+from chip_smoke import BINS_CAP, stress_bins
 from rustexp_tpu.assets import cubemap as jcubemap
 from rustexp_tpu.assets import mesh as jmesh
 from rustexp_tpu.ops import raster_pallas as jrp
@@ -179,6 +181,29 @@ def test_b3_plain_matches_jax_kernel(case, cap, chunk):
                           (z, slot, *b)):
         assert np.array_equal(_bits(a), _bits(g)), name
     assert (slot >= 0).sum() > 100
+
+
+def test_b3_plain_matches_jax_kernel_on_stress_bins():
+    """The plain B3 on the stress bins (chip_smoke.stress_bins: 1,163 live
+    slots in one tile, copies tying at z == 1.0 and at +0.0/-0.0, one
+    triangle in two slots, an empty tile, live records past the counts)
+    against the Pallas _tile_kernel in interpret mode on the same arrays:
+    slot, z, b0, b1 and b2 bit for bit, over five 256-slot chunks."""
+    bins, h, w = stress_bins(CPU)
+    bj = jrp.BinnedTris(**{f: jnp.asarray(getattr(bins, f).numpy())
+                           for f in jrp.BinnedTris._fields})
+    want = _jax_tile_kernel(bj, h, w, BINS_CAP, 256)
+    z, slot, b = trb.raster_gbuffer_bins_plain(bins.counts, bins.setup_i,
+                                               bins.setup_f, h, w)
+    for name, a, g in zip(("z", "slot", "b0", "b1", "b2"), want,
+                          (z, slot, *b)):
+        assert np.array_equal(_bits(a), _bits(g)), name
+    zb = _bits(z)
+    assert (zb == 0).any() and (zb == np.int32(-2 ** 31)).any()
+    assert (slot == 211).any() and not (slot == 1002).any()
+    assert (slot[:, 128:256] == -1).all() and (slot >= 1024).any()
+    assert not (slot[:, :128] >= 1163).any()
+    assert not (slot[:, 256:] >= 37).any()
 
 
 @pytest.mark.parametrize("case", ["sphere", "soup0", "soup2", "soup3"])

@@ -228,6 +228,23 @@ def test_b4_plan_forced_forms():
         tbits._b4_plan(8, 256, 1, "banded")
 
 
+@pytest.mark.parametrize("shape,k,want", [
+    ((256, 256), 8, (8, 1, 256)),         # the Experiment's step
+    ((512, 512), 20, (7, 3, 841)),        # 7, 7 and 6 generations
+    ((256, 256), 20, (7, 3, 225)),
+    ((640, 1024), 20, (7, 3, 2052)),      # the guard's largest grid
+    ((256, 256), 1, (1, 1, 81)),          # a halo of one: 30 x 30 interiors
+    ((20, 30), 9, (5, 2, 2)),             # smaller than a tile
+    ((96, 160), 150, (8, 19, 60)),
+    ((256, 256), 0, (8, 0, 0)),
+])
+def test_b8_plan(shape, k, want):
+    """B8's generations a launch, launches (ceil(k / 8), the generations
+    shared evenly) and one-warp blocks a launch (32 x 32 tiles that
+    overlap by the halo)."""
+    assert tuple(tsten._b8_plan(*shape, k)) == want
+
+
 def test_kernels_and_bench_refuse_the_cpu():
     """The CUDA wrappers take CUDA tensors only, and bench_gol times the
     card only."""
