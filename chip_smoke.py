@@ -20,8 +20,10 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      default bins, and B3 (its G-buffer form) on Killeroo and Cube at
      raster_gbuffer_pallas's default bins, on four 128-row bands of
      Killeroo, 512x512, and on the stress bins (stress_bins below), bit
-     for bit (0 mismatching words); B7 (B1's depth race alone) on
-     KillerooP and TorusKnotP, slot on every word and z where a pair won;
+     for bit (0 mismatching words); B7 (B1's depth race alone, the same
+     kernel template with no planes) on KillerooP, KillerooV and
+     TorusKnotP, timed by all the card's activity of a call, and on the
+     stress queue, z and slot on every word;
      B4 (SWAR GoL) at packed [8, 256] in both its forms (resident and
      tiled), [64, 2048] tiled and [8, 1024] resident, its input unchanged
      and its launches as planned, and B8 (the f32 GoL stencil) at 256^2 x
@@ -90,7 +92,8 @@ B1_SCENES = (("KillerooV", 0, False, True), ("KillerooP", 0, True, True),
 # B3 at raster_gbuffer_pallas's default bins: (label, mesh, bands). A
 # G-buffer carries no attributes, so V and P frames give B3 the same input.
 B3_SCENES = (("Killeroo", 0, 1), ("Cube", 9, 1), ("Killeroo 4 bands", 0, 4))
-B7_SCENES = (("KillerooP", 0, True), ("TorusKnotP", 6, True))
+B7_SCENES = (("KillerooP", 0, True), ("KillerooV", 0, False),
+             ("TorusKnotP", 6, True))
 UNTILEABLE = 500  # an Experiment window of partial tiles: the G-buffer oracle
 PATH_FRAMES = 10  # frames per G-buffer or deferred path under the profiler
 # (label, mesh, per_pixel, binning): "suite" = suggest_binning's cap and
@@ -799,20 +802,22 @@ def b3_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera):
 
 
 def b7_vs_plain(dev, pp, rq, meshes, cubemap, camera):
-    """B7 against its plain version on the scene's queue at 512x512: slot
-    on every word, z under slot >= 0. Returns {label: record}."""
+    """B7 against its plain version on the scene's queue at 512x512: z and
+    slot on every word (the clear, z 1.0 and slot -1, where no pair won),
+    timed by all the card's activity of a call. Returns {label: record}."""
     out = {}
     for label, mesh_idx, per_pixel in B7_SCENES:
         scal, rows_i, rows_f, _, _, h, w = queue_inputs(
             dev, pp, rq, meshes, cubemap, camera, mesh_idx, per_pixel)
         args = (scal, rows_i, rows_f, h, w)
+        calls = rq.raster_zslot_queue_cuda.launches
         zk, sk = rq.raster_zslot_queue_cuda(*args)
+        calls = rq.raster_zslot_queue_cuda.launches - calls
         zp, sp = rq.raster_zslot_queue_plain(*args)
         torch.cuda.synchronize(dev)
         won = sp >= 0
-        bad = int((sk != sp).sum())
-        bad += int((zk.view(torch.int32) != zp.view(torch.int32))[won].sum())
-        err = float((zk - zp)[won].abs().max()) if won.any() else 0.0
+        bad = zslot_mismatches(zk, sk, zp, sp)
+        err = float((zk - zp).abs().max())
 
         live = (torch.arange(rq.CHUNK, device=dev)[None, :]
                 < scal[:, 3:4])                                  # [S, CHUNK]
@@ -828,13 +833,36 @@ def b7_vs_plain(dev, pp, rq, meshes, cubemap, camera):
         run = lambda: rq.raster_zslot_queue_cuda(*args)
         out[label] = dict(
             err=err, bad=bad, covered=int(won.sum()),
-            ms=device_ms(run, 50, "queue_zslot_kernel"),
+            ms=device_ms(run, 50, None, calls),
             call_ms=cuda_ms(run, 50),
             plain_ms=cuda_ms(lambda: rq.raster_zslot_queue_plain(*args), 5),
-            bound_ms=bms, bound_by=by, work=f"{pairs} pairs")
-        print(f"B7 {label}: {int(won.sum())} covered px, {pairs} pairs: "
-              f"{bad} mismatching words, max_abs_err {err}", flush=True)
+            bound_ms=bms, bound_by=by, launches_per_call=calls,
+            work=f"{pairs} pairs, {tests} box tests, {calls} grid launches "
+                 f"a call")
+        print(f"B7 {label}: {int(won.sum())} covered px, {pairs} pairs, "
+              f"{calls} grid launches a call: {bad} mismatching words, "
+              f"max_abs_err {err}", flush=True)
     return out
+
+
+def zslot_mismatches(zk, sk, zp, sp) -> int:
+    """Words of (z, slot) that differ, both on every word."""
+    return int((sk != sp).sum()) + int(
+        (zk.view(torch.int32) != zp.view(torch.int32)).sum())
+
+
+def b7_stress(dev, rq) -> int:
+    """B7 against its plain version on the stress queue (stress_queue in
+    its (4, 0) form): z and slot on every word. Returns the mismatching
+    words."""
+    scal, rows_i, rows_f, h, w = stress_queue(4, 0, dev)
+    zk, sk = rq.raster_zslot_queue_cuda(scal, rows_i, rows_f, h, w)
+    zp, sp = rq.raster_zslot_queue_plain(scal, rows_i, rows_f, h, w)
+    torch.cuda.synchronize(dev)
+    words = zslot_mismatches(zk, sk, zp, sp)
+    print(f"B7 stress queue: {int((sp >= 0).sum())} covered px of "
+          f"{tuple(sk.shape)}: {words} mismatching words", flush=True)
+    return words
 
 
 def time_bound(bytes_moved: float, ops: float, sfu_ops: float = 0.0,
@@ -1310,7 +1338,7 @@ def gbuffer_paths(dev, card, pp, shard, meshes, cubemap, camera, exp_cls,
                         f"planes, {cpu_diff} vs CPU, {drawn} drawn"), []
         profiles += [
             (f"Killeroo{tag} {W}x{H} deferred (B7)",
-             lambda f=queue_frame: f(dev, 0.0, True), "queue_zslot_kernel"),
+             lambda f=queue_frame: f(dev, 0.0, True), "queue_raster_kernel"),
             (f"Killeroo{tag} {W}x{H} planes (B1)",
              lambda f=queue_frame: f(dev, 0.0, False), "queue_raster_kernel")]
     return None, profiles
@@ -1441,6 +1469,9 @@ def main() -> int:
     if stress_bad:
         return fail(f"B3 on the stress bins: {stress_bad} mismatching words")
     cmp7 = b7_vs_plain(dev, pp, rq, meshes, cubemap, camera)
+    stress_bad = b7_stress(dev, rq)
+    if stress_bad:
+        return fail(f"B7 on the stress queue: {stress_bad} mismatching words")
     for kernel, cmp in (("B1", cmp1), ("B2", cmp2), ("B3", cmp3),
                         ("B7", cmp7)):
         for label, r in cmp.items():
@@ -1580,7 +1611,7 @@ def main() -> int:
     for kernel, cmp in (("B1", cmp1), ("B2", cmp2), ("B3", cmp3),
                         ("B7", cmp7)):
         for label, r in cmp.items():
-            what = ("all the call's activity" if kernel == "B1"
+            what = ("all the call's activity" if kernel in ("B1", "B7")
                     else "device")
             print(f"time {kernel} {label} 512x512 ({r['work']}): kernel "
                   f"{r['ms']:.4f} ms ({what}, profiler), wrapper call "

@@ -5,30 +5,28 @@
 // kernel that raster_attrs_queue launches through pl.pallas_call). Python
 // wrapper: rustexp_tpu_torch/ops/raster_queue.py::raster_attrs_queue_cuda;
 // its plain PyTorch version, raster_attrs_queue_plain, sits beside it.
-// B7 replaces _queue_kernel_zslot (raster_zslot_queue's pallas_call):
-// B1's walk and race with no planes, for the deferred frame, whose shade
+// B7 replaces _queue_kernel_zslot (raster_zslot_queue's pallas_call): the
+// same kernel template with no planes, for the deferred frame, whose shade
 // re-evaluates the winner's planes once per pixel. Wrapper:
 // raster_zslot_queue_cuda; plain version: raster_zslot_queue_plain.
 //
 // What it computes. The queue is a list of chunks of CHUNK (tile, triangle)
 // pairs; scal[c] = (ty, tx, first, count, global_ty) names chunk c's 16x128
-// output tile. The chunks of one tile are consecutive and the first of them
-// has first == 1; B1 also needs the tiles in order (ty * ntx + tx
-// ascending), as build_queue lays them out. For every pair and every pixel
-// of its tile: 28.4 fixed-point edge functions in wrapping int32, the
-// sign-OR inside test plus the triangle's AABB, barycentrics f32(e - bias) *
-// inv_a2 rounded once, z by the 2-MAD lerp, and a depth race on (z, triangle
-// id): a fragment wins when z < z_cur, or z == z_cur and tri < tri_cur,
-// walking the tile's pairs in queue order (so the first of two equal keys, a
-// triangle sitting in two slots, keeps the pixel). Winners store z, their
-// queue slot and the n2 2-MAD plus n3 3-weight planes.
+// output tile. The chunks of one tile are consecutive and the tiles come in
+// order (ty * ntx + tx ascending), as build_queue lays them out. For every
+// pair and every pixel of its tile: 28.4 fixed-point edge functions in
+// wrapping int32, the sign-OR inside test plus the triangle's AABB,
+// barycentrics f32(e - bias) * inv_a2 rounded once, z by the 2-MAD lerp,
+// and a depth race on (z, triangle id): a fragment wins when z < z_cur, or
+// z == z_cur and tri < tri_cur, walking the tile's pairs in queue order (so
+// the first of two equal keys, a triangle sitting in two slots, keeps the
+// pixel). Winners store z and their queue slot; B1's also store the n2
+// 2-MAD plus n3 3-weight planes. The race reads a pair's 12 int channels
+// and float channels 0-6; B7's rows_f may carry more, fch a pair.
 //
-// B7 stores z and the slot alone, and reads only the race's channels of
-// each pair (12 int and float channels 0-6).
-//
-// B1's design. The walk is a lexicographic minimum over (z, tri, slot), so
-// it may run in any order and be merged. A block owns a 4 x 32 rectangle of
-// one tile (16 a tile; the grid covers every tile of the frame, so each
+// The design. The walk is a lexicographic minimum over (z, tri, slot), so
+// it may run in any order and be merged. A block owns a 4 x 32 rectangle
+// of one tile (16 a tile; the grid covers every tile of the frame, so each
 // output word is written once, by one grid), finds its tile's chunks by a
 // search of scal, and its 4 warps race the tile's pairs dealt out
 // round-robin in queue order (neighbouring pairs tend to lie side by side on
@@ -37,17 +35,17 @@
 // channel-major per chunk), keeps those whose AABB meets the rectangle,
 // stages them in shared memory and races them one by one over the rectangle,
 // each lane a column, the rows off the box masked, the race state in
-// registers. The block then merges its warps' winners on (z, tri, slot) and
+// registers. The block then merges its warps' winners on (z, tri, slot); B1
 // evaluates each pixel's planes once, for its winner, from rows_f at the
-// winning slot: the same operations on the same pair give the same bits as a
-// walk that carried the planes.
+// winning slot: the same operations on the same pair give the same bits as
+// a walk that carried the planes.
 //
-// Bound. Bytes: every output plane written once (z, slot, n2 + n3 planes
-// over h + 16 rows) and each live pair's channels read once. The work is
-// the (pair, pixel) tests inside the pairs' boxes, here rounded up to a
-// box row of the rectangle's width, and one plane evaluation per won
-// pixel. What it costs besides is latency: each block waits on the search
-// of scal, its pairs' loads and its winners' loads in turn.
+// Bound. Bytes: every output plane written once (z, slot and B1's n2 + n3
+// planes over h + 16 rows) and each live pair's race channels read once.
+// The work is the (pair, pixel) tests inside the pairs' boxes, here rounded
+// up to a box row of the rectangle's width, and B1's one plane evaluation
+// per won pixel. What it costs besides is latency: each block waits on the
+// search of scal, its pairs' loads and (B1) its winners' loads in turn.
 //
 // Rounding. Built with -fmad=false, and every product and sum of a sealed
 // chain is also spelled __fmul_rn/__fadd_rn, so no FMA can form: each op
@@ -63,9 +61,6 @@ namespace {
 constexpr int TILE_H = 16;
 constexpr int TILE_W = 128;
 constexpr int CHUNK = 128;
-constexpr int THREADS = 256;                // B7's blocks
-constexpr int ROW_STEP = THREADS / TILE_W;  // rows one pass of the block covers
-constexpr int PX = TILE_H / ROW_STEP;       // pixels per thread
 constexpr int I_CH = 12;  // A0 A1 B0 B1 C0 C1 S min_x min_y max_x max_y tri
 constexpr int F_CH = 7;   // bias0 bias1 bias2 z0 z10 z20 inv_a2, then planes
 
@@ -86,15 +81,18 @@ __device__ __forceinline__ float bary(uint32_t e, int bias, float inv_a2) {
                        e - static_cast<uint32_t>(bias))), inv_a2);
 }
 
-// B1's block: an RECT_H x RECT_W rectangle of one tile (a lane a column)
-// and NWARP warps, each racing its share of the tile's pairs.
+// A block: an RECT_H x RECT_W rectangle of one tile (a lane a column) and
+// NWARP warps, each racing its share of the tile's pairs. B1 and B7 share
+// the shape: for B7 it won a sweep of 2 and 4 warps and 4 to 16 rows
+// (PERF.md section 6), fewer warps or taller rectangles losing on crowded
+// tiles.
 constexpr int RECT_H = 4;
 constexpr int RECT_W = 32;
 constexpr int NWARP = 4;
-constexpr int B1_THREADS = NWARP * 32;
+constexpr int THREADS = NWARP * 32;
 constexpr int RECTS_X = TILE_W / RECT_W;
 constexpr int RECTS = (TILE_H / RECT_H) * RECTS_X;
-static_assert(TILE_H % RECT_H == 0 && NWARP >= 1, "rectangle shape");
+static_assert(TILE_H % RECT_H == 0 && NWARP >= 2, "block shape");
 
 // What a warp stages of one pair that may cover its rectangle: A0 A1 B0
 // B1 | C0 C1 S tri | bias0 bias2 min_x max_x | z0 z10 z20 inv_a2 (bits)
@@ -104,16 +102,65 @@ struct Staged {
   int4 q[5];
 };
 
+// The winner's n2 + n3 planes at pixel (xf, y), from rows_f at its slot
+// sb (0 where no pair won), stored `plane` words apart from `out`.
 template <int N2, int N3>
-__global__ void __launch_bounds__(B1_THREADS)
+__device__ __forceinline__ void store_planes(const int* __restrict__ rows_i,
+                                             const float* __restrict__ rows_f,
+                                             int sb, uint32_t xf, int y,
+                                             float* __restrict__ out,
+                                             size_t plane) {
+  constexpr int NP = N2 + N3;
+  constexpr int FCH = F_CH + 3 * NP;
+  float lin[NP];
+#pragma unroll
+  for (int a = 0; a < NP; ++a) lin[a] = 0.0f;
+  if (sb >= 0) {
+    const int c = sb / CHUNK, p = sb % CHUNK;
+    const int* gi = rows_i + static_cast<size_t>(c) * I_CH * CHUNK + p;
+    const float* gf = rows_f + static_cast<size_t>(c) * FCH * CHUNK + p;
+    const uint32_t yf = static_cast<uint32_t>(y) << 4;
+    const float inv_a2 = __ldg(gf + 6 * CHUNK);
+    const uint32_t e0 = static_cast<uint32_t>(__ldg(gi + 0 * CHUNK)) * xf +
+                        static_cast<uint32_t>(__ldg(gi + 4 * CHUNK)) +
+                        static_cast<uint32_t>(__ldg(gi + 2 * CHUNK)) * yf;
+    const uint32_t e1 = static_cast<uint32_t>(__ldg(gi + 1 * CHUNK)) * xf +
+                        static_cast<uint32_t>(__ldg(gi + 5 * CHUNK)) +
+                        static_cast<uint32_t>(__ldg(gi + 3 * CHUNK)) * yf;
+    const uint32_t e2 = static_cast<uint32_t>(__ldg(gi + 6 * CHUNK)) - e0 - e1;
+    const float b0 = bary(e0, static_cast<int>(__ldg(gf)), inv_a2);
+    const float b1 = bary(e1, static_cast<int>(__ldg(gf + CHUNK)), inv_a2);
+    const float b2 = bary(e2, static_cast<int>(__ldg(gf + 2 * CHUNK)), inv_a2);
+#pragma unroll
+    for (int a = 0; a < N2; ++a)
+      lin[a] = lerp_2mad(__ldg(gf + (F_CH + a) * CHUNK),
+                         __ldg(gf + (F_CH + N2 + a) * CHUNK),
+                         __ldg(gf + (F_CH + 2 * N2 + a) * CHUNK), b2, b0);
+    constexpr int OFF = F_CH + 3 * N2;
+#pragma unroll
+    for (int a = 0; a < N3; ++a)
+      lin[N2 + a] = lerp_3w(__ldg(gf + (OFF + a) * CHUNK),
+                            __ldg(gf + (OFF + N3 + a) * CHUNK),
+                            __ldg(gf + (OFF + 2 * N3 + a) * CHUNK), b1, b2,
+                            b0);
+  }
+#pragma unroll
+  for (int a = 0; a < NP; ++a) out[a * plane] = lin[a];
+}
+
+// B1 for N2 + N3 > 0 planes, B7 for none (lin_out unused). rows_f's
+// chunks are fch channels apart: for B1 the compile-time F_CH + 3 * (N2 +
+// N3), for B7 the argument (its rows_f may carry the planes it ignores).
+template <int N2, int N3>
+__global__ void __launch_bounds__(THREADS)
 queue_raster_kernel(const int* __restrict__ scal,
                     const int* __restrict__ rows_i,
                     const float* __restrict__ rows_f,
                     float* __restrict__ z_out, int* __restrict__ slot_out,
-                    float* __restrict__ lin_out, int s_cap, int hp, int w) {
+                    float* __restrict__ lin_out, int s_cap, int fch_arg,
+                    int hp, int w) {
   constexpr int NP = N2 + N3;
-  constexpr int FCH = F_CH + 3 * NP;
-  static_assert(NP > 0, "at least one attribute plane");
+  const int fch = NP > 0 ? F_CH + 3 * NP : fch_arg;
   __shared__ int s_seg[2], s_lo, s_hi;
   // The race's stage, then (after a barrier) the warps' winners.
   __shared__ union {
@@ -165,7 +212,7 @@ queue_raster_kernel(const int* __restrict__ scal,
     if (lane == 0) s_seg[warp] = lo;
   }
   __syncthreads();
-  for (int c = s_seg[0] + threadIdx.x; c < s_seg[1]; c += B1_THREADS) {
+  for (int c = s_seg[0] + threadIdx.x; c < s_seg[1]; c += THREADS) {
     const int cnt = scal[5 * c + 3];
     if (cnt > 0) {
       atomicMin(&s_lo, c);
@@ -207,7 +254,7 @@ queue_raster_kernel(const int* __restrict__ scal,
         const int c = c_lo + v / CHUNK, p = v % CHUNK;
         const int* sc = scal + 5 * c;
         const int* gi = rows_i + static_cast<size_t>(c) * I_CH * CHUNK + p;
-        const float* gf = rows_f + static_cast<size_t>(c) * FCH * CHUNK + p;
+        const float* gf = rows_f + static_cast<size_t>(c) * fch * CHUNK + p;
         // every channel the race reads, loaded together
         int ci[I_CH];
 #pragma unroll
@@ -289,9 +336,8 @@ queue_raster_kernel(const int* __restrict__ scal,
 
   // Merge the warps' winners: the least (z, tri), and of equal ones the
   // lowest slot, as a walk in queue order keeps the first (within a warp
-  // the race ran in slot order); then evaluate the winner's planes once.
-  // Each rectangle row is 32 consecutive words: the stores coalesce.
-  const size_t plane = static_cast<size_t>(hp) * w;
+  // the race ran in slot order); then (B1) evaluate the winner's planes
+  // once. Each rectangle row is 32 consecutive words: the stores coalesce.
   for (int k = warp; k < RECT_H; k += NWARP) {
     float zb = sm.part.z[0][k][lane];
     int tb = sm.part.tri[0][k][lane];
@@ -307,145 +353,33 @@ queue_raster_kernel(const int* __restrict__ scal,
         sb = sv;
       }
     }
-    float lin[NP];
-#pragma unroll
-    for (int a = 0; a < NP; ++a) lin[a] = 0.0f;
-    if (sb >= 0) {
-      const int c = sb / CHUNK, p = sb % CHUNK;
-      const int* gi = rows_i + static_cast<size_t>(c) * I_CH * CHUNK + p;
-      const float* gf = rows_f + static_cast<size_t>(c) * FCH * CHUNK + p;
-      const uint32_t yf = static_cast<uint32_t>(y0 + k) << 4;
-      const float inv_a2 = __ldg(gf + 6 * CHUNK);
-      const uint32_t e0 = static_cast<uint32_t>(__ldg(gi + 0 * CHUNK)) * xf +
-                          static_cast<uint32_t>(__ldg(gi + 4 * CHUNK)) +
-                          static_cast<uint32_t>(__ldg(gi + 2 * CHUNK)) * yf;
-      const uint32_t e1 = static_cast<uint32_t>(__ldg(gi + 1 * CHUNK)) * xf +
-                          static_cast<uint32_t>(__ldg(gi + 5 * CHUNK)) +
-                          static_cast<uint32_t>(__ldg(gi + 3 * CHUNK)) * yf;
-      const uint32_t e2 =
-          static_cast<uint32_t>(__ldg(gi + 6 * CHUNK)) - e0 - e1;
-      const float b0 = bary(e0, static_cast<int>(__ldg(gf)), inv_a2);
-      const float b1 = bary(e1, static_cast<int>(__ldg(gf + CHUNK)), inv_a2);
-      const float b2 =
-          bary(e2, static_cast<int>(__ldg(gf + 2 * CHUNK)), inv_a2);
-#pragma unroll
-      for (int a = 0; a < N2; ++a)
-        lin[a] = lerp_2mad(__ldg(gf + (F_CH + a) * CHUNK),
-                           __ldg(gf + (F_CH + N2 + a) * CHUNK),
-                           __ldg(gf + (F_CH + 2 * N2 + a) * CHUNK), b2, b0);
-      constexpr int OFF = F_CH + 3 * N2;
-#pragma unroll
-      for (int a = 0; a < N3; ++a)
-        lin[N2 + a] = lerp_3w(__ldg(gf + (OFF + a) * CHUNK),
-                              __ldg(gf + (OFF + N3 + a) * CHUNK),
-                              __ldg(gf + (OFF + 2 * N3 + a) * CHUNK),
-                              b1, b2, b0);
-    }
     const size_t i =
         static_cast<size_t>(ty * TILE_H + ry * RECT_H + k) * w + x;
     z_out[i] = zb;  // the winner's own bits; 1.0 where none won
     slot_out[i] = sb;
-#pragma unroll
-    for (int a = 0; a < NP; ++a) lin_out[a * plane + i] = lin[a];
+    if constexpr (NP > 0)
+      store_planes<N2, N3>(rows_i, rows_f, sb, xf, y0 + k, lin_out + i,
+                           static_cast<size_t>(hp) * w);
   }
 }
 
 template <int N2, int N3>
 cudaError_t launch(const void* scal, const void* rows_i, const void* rows_f,
-                   void* z, void* slot, void* lin, int s_cap, int hp, int w,
-                   cudaStream_t stream) {
+                   void* z, void* slot, void* lin, int s_cap, int fch, int hp,
+                   int w, cudaStream_t stream) {
   const dim3 grid((hp / TILE_H) * (w / TILE_W), RECTS);
-  queue_raster_kernel<N2, N3><<<grid, B1_THREADS, 0, stream>>>(
+  queue_raster_kernel<N2, N3><<<grid, THREADS, 0, stream>>>(
       static_cast<const int*>(scal), static_cast<const int*>(rows_i),
       static_cast<const float*>(rows_f), static_cast<float*>(z),
-      static_cast<int*>(slot), static_cast<float*>(lin), s_cap, hp, w);
+      static_cast<int*>(slot), static_cast<float*>(lin), s_cap, fch, hp, w);
   return cudaGetLastError();
 }
 
-// B7: B1's block-per-tile walk and (z, tri) race, without the planes.
-// rows_f's chunks are fch channels apart; only channels 0-6 are staged.
-__global__ void __launch_bounds__(THREADS)
-queue_zslot_kernel(const int* __restrict__ scal,
-                   const int* __restrict__ rows_i,
-                   const float* __restrict__ rows_f,
-                   float* __restrict__ z_out, int* __restrict__ slot_out,
-                   int s_cap, int fch, int w) {
-  __shared__ int si[I_CH * CHUNK];
-  __shared__ float sf[F_CH * CHUNK];
-
-  const int c0 = blockIdx.x;
-  if (scal[5 * c0 + 2] != 1) return;  // walked by its tile's first block
-  const int ty = scal[5 * c0 + 0];
-  const int tx = scal[5 * c0 + 1];
-  const int row0 = threadIdx.x / TILE_W;
-  const int x = tx * TILE_W + threadIdx.x % TILE_W;
-  const uint32_t xf = static_cast<uint32_t>(x) << 4;
-
-  // The clear, with B1's INT32_MAX tie scratch (raster_queue.py:827).
-  float z[PX];
-  int tri[PX];
-  int slot[PX];
-#pragma unroll
-  for (int k = 0; k < PX; ++k) {
-    z[k] = 1.0f;
-    tri[k] = INT_MAX;
-    slot[k] = -1;
-  }
-
-  for (int c = c0; c < s_cap; ++c) {
-    const int* sc = scal + 5 * c;
-    if (c != c0 && (sc[2] != 0 || sc[0] != ty || sc[1] != tx)) break;
-    const int cnt = min(max(sc[3], 0), CHUNK);
-    const int gty = sc[4];
-    __syncthreads();  // nobody reads the previous chunk's constants any more
-    const int* gi = rows_i + static_cast<size_t>(c) * I_CH * CHUNK;
-    const float* gf = rows_f + static_cast<size_t>(c) * fch * CHUNK;
-    for (int k = threadIdx.x; k < I_CH * CHUNK; k += THREADS) si[k] = gi[k];
-    for (int k = threadIdx.x; k < F_CH * CHUNK; k += THREADS) sf[k] = gf[k];
-    __syncthreads();
-
-    for (int p = 0; p < cnt; ++p) {
-      const uint32_t A0 = si[0 * CHUNK + p], A1 = si[1 * CHUNK + p];
-      const uint32_t B0 = si[2 * CHUNK + p], B1 = si[3 * CHUNK + p];
-      const uint32_t C0 = si[4 * CHUNK + p], C1 = si[5 * CHUNK + p];
-      const uint32_t S = si[6 * CHUNK + p];
-      const int mnx = si[7 * CHUNK + p], mny = si[8 * CHUNK + p];
-      const int mxx = si[9 * CHUNK + p], mxy = si[10 * CHUNK + p];
-      const int tp = si[11 * CHUNK + p];
-      const int bias0 = static_cast<int>(sf[0 * CHUNK + p]);
-      const int bias2 = static_cast<int>(sf[2 * CHUNK + p]);
-      const float z0 = sf[3 * CHUNK + p], z10 = sf[4 * CHUNK + p];
-      const float z20 = sf[5 * CHUNK + p], inv_a2 = sf[6 * CHUNK + p];
-      const bool in_x = x >= mnx && x < mxx;
-      const uint32_t ex0 = A0 * xf + C0, ex1 = A1 * xf + C1;
-#pragma unroll
-      for (int k = 0; k < PX; ++k) {
-        const int y = gty * TILE_H + row0 + k * ROW_STEP;
-        const uint32_t yf = static_cast<uint32_t>(y) << 4;
-        const uint32_t e0 = ex0 + B0 * yf;
-        const uint32_t e1 = ex1 + B1 * yf;
-        const uint32_t e2 = S - e0 - e1;
-        const bool inside = static_cast<int32_t>(e0 | e1 | e2) >= 0;
-        const bool in_box = in_x && y >= mny && y < mxy;
-        const float zi = lerp_2mad(z0, z10, z20, bary(e2, bias2, inv_a2),
-                                   bary(e0, bias0, inv_a2));
-        const float zm = (inside && in_box) ? zi : __int_as_float(0x7f800000);
-        if (zm < z[k] || (zm == z[k] && tp < tri[k])) {
-          z[k] = zm;
-          tri[k] = tp;
-          slot[k] = c * CHUNK + p;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int k = 0; k < PX; ++k) {
-    const size_t i =
-        static_cast<size_t>(ty * TILE_H + row0 + k * ROW_STEP) * w + x;
-    z_out[i] = z[k];
-    slot_out[i] = slot[k];
-  }
+// The checks both entries share: the queue's and the frame's shapes.
+bool bad_shapes(int s_cap, int chunk, int tile_h, int tile_w, int hp, int w) {
+  return chunk != CHUNK || tile_h != TILE_H || tile_w != TILE_W ||
+         w % TILE_W != 0 || hp % TILE_H != 0 || hp <= 0 || w <= 0 ||
+         s_cap < 0 || s_cap >= (1 << 23);
 }
 
 }  // namespace
@@ -461,41 +395,39 @@ extern "C" int rq_queue_raster(const void* scal, const void* rows_i,
                                void* lin, int s_cap, int chunk, int tile_h,
                                int tile_w, int n2, int n3, int hp, int w,
                                void* stream) {
-  if (chunk != CHUNK || tile_h != TILE_H || tile_w != TILE_W ||
-      w % TILE_W != 0 || hp % TILE_H != 0 || hp <= 0 || w <= 0 ||
-      s_cap >= (1 << 23))
+  if (bad_shapes(s_cap, chunk, tile_h, tile_w, hp, w))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int fch = F_CH + 3 * (n2 + n3);
   cudaError_t err;
   if (n2 == 4 && n3 == 0)  // per-vertex shading: 1/w and RGB
-    err = launch<4, 0>(scal, rows_i, rows_f, z, slot, lin, s_cap, hp, w, st);
+    err = launch<4, 0>(scal, rows_i, rows_f, z, slot, lin, s_cap, fch, hp, w,
+                       st);
   else if (n2 == 4 && n3 == 3)  // per-pixel: + normals
-    err = launch<4, 3>(scal, rows_i, rows_f, z, slot, lin, s_cap, hp, w, st);
+    err = launch<4, 3>(scal, rows_i, rows_f, z, slot, lin, s_cap, fch, hp, w,
+                       st);
   else if (n2 == 4 && n3 == 6)  // per-pixel: + world positions and normals
-    err = launch<4, 6>(scal, rows_i, rows_f, z, slot, lin, s_cap, hp, w, st);
+    err = launch<4, 6>(scal, rows_i, rows_f, z, slot, lin, s_cap, fch, hp, w,
+                       st);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(err);
 }
 
-// Launch B7 on `stream`. Pointers are device pointers: scal i32 [s_cap, 5],
-// rows_i i32 [s_cap, 12, chunk], rows_f f32 [s_cap, fch, chunk] (fch >= 7);
-// z f32 and slot i32 (prefilled with -1 by the caller), each [hp, w] with
-// hp a multiple of 16 covering every chunk's tile row. Returns the CUDA
-// error code of the launch (0 = ok).
+// Launch B7 on `stream` (one grid). Pointers are device pointers: scal i32
+// [s_cap, 5] in tile order, rows_i i32 [s_cap, 12, chunk], rows_f f32
+// [s_cap, fch, chunk] (fch >= 7; channels 0-6 are read); z f32 and slot
+// i32, each [hp, w], all written: z 1.0 and slot -1 where no pair won.
+// Returns the CUDA error code of the launch (0 = ok).
 extern "C" int rq_queue_zslot(const void* scal, const void* rows_i,
                               const void* rows_f, void* z, void* slot,
                               int s_cap, int chunk, int tile_h, int tile_w,
-                              int fch, int w, void* stream) {
-  if (chunk != CHUNK || tile_h != TILE_H || tile_w != TILE_W ||
-      w % TILE_W != 0 || fch < F_CH)
+                              int fch, int hp, int w, void* stream) {
+  if (bad_shapes(s_cap, chunk, tile_h, tile_w, hp, w) || fch < F_CH)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (s_cap <= 0) return 0;
-  queue_zslot_kernel<<<s_cap, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(scal), static_cast<const int*>(rows_i),
-      static_cast<const float*>(rows_f), static_cast<float*>(z),
-      static_cast<int*>(slot), s_cap, fch, w);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch<0, 0>(
+      scal, rows_i, rows_f, z, slot, nullptr, s_cap, fch, hp, w,
+      static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" const char* rustexp_cuda_error_string(int code) {

@@ -16,10 +16,11 @@ its frames equal what the JAX package renders with any order.
 
 Kernel B1 (``csrc/raster_queue.cu``, replacing ``_queue_kernel``) runs
 for CUDA tensors; ``raster_attrs_queue_plain`` is its plain PyTorch
-version and serves CPU tensors. Kernel B7 (the same file, replacing
-``_queue_kernel_zslot``) is B1's depth race alone, for the deferred
-frame; ``raster_zslot_queue_plain`` is its plain version. There is no
-fallback between a kernel and its plain version.
+version and serves CPU tensors. Kernel B7 (the same file and kernel
+template with no planes, replacing ``_queue_kernel_zslot``) is B1's
+depth race alone, for the deferred frame; ``raster_zslot_queue_plain``
+is its plain version. There is no fallback between a kernel and its
+plain version.
 """
 
 from __future__ import annotations
@@ -523,18 +524,20 @@ def _b7_kernel():
     lib = load_kernel_lib("raster_queue")
     fn = lib.lib.rq_queue_zslot
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
         + [ctypes.c_void_p]
     return lib, fn
 
 
 def raster_zslot_queue_cuda(scal, rows_i, rows_f, h: int, w: int):
-    """Launch kernel B7 (csrc/raster_queue.cu) -> (z, slot) over h + TILE_H
-    rows. z is unwritten (garbage) where slot < 0 in tiles no chunk
-    visits; slot is prefilled with -1 there. Only rows_f's channels 0-6
-    are read.
+    """Launch kernel B7 (csrc/raster_queue.cu, B1's kernel with no planes)
+    -> (z, slot) over h + TILE_H rows, every word written by the one grid:
+    where no pair won, z 1.0 and slot -1, as the plain version gives. The
+    kernel finds a tile's chunks by a search, so scal must hold them in
+    tile order (ty * ntx + tx ascending), as build_queue lays them out.
+    Only rows_f's channels 0-6 are read.
 
-    ``raster_zslot_queue_cuda.launches`` counts the launches.
+    ``raster_zslot_queue_cuda.launches`` counts the grid launches.
     """
     dev = rows_f.device
     s_cap, n_ich, chunk = rows_i.shape
@@ -557,9 +560,9 @@ def raster_zslot_queue_cuda(scal, rows_i, rows_f, h: int, w: int):
     lib, fn = _b7_kernel()
     hp = h + TILE_H
     z = torch.empty((hp, w), dtype=torch.float32, device=dev)
-    slot = torch.full((hp, w), -1, dtype=torch.int32, device=dev)
-    rc = fn(ptr(scal), ptr(rows_i), ptr(rows_f), ptr(z), ptr(slot),
-            s_cap, chunk, TILE_H, TILE_W, rows_f.shape[1], w, stream_ptr(dev))
+    slot = torch.empty((hp, w), dtype=torch.int32, device=dev)
+    rc = fn(ptr(scal), ptr(rows_i), ptr(rows_f), ptr(z), ptr(slot), s_cap,
+            chunk, TILE_H, TILE_W, rows_f.shape[1], hp, w, stream_ptr(dev))
     lib.check(rc, "kernel B7 (rq_queue_zslot)")
     raster_zslot_queue_cuda.launches += 1
     return z, slot
@@ -573,7 +576,7 @@ def raster_zslot_queue(queue: Queue, setup, extra_f, h: int, w: int):
     (rustexp_tpu/ops/raster_queue.py:879, tie=True).
 
     Returns (z, slot, rows_flat, stale): `slot` is the winning queue slot
-    per pixel (-1 = background), z is meaningful only where slot >= 0,
+    per pixel (-1 = background), z the winner's depth (1.0 where none won),
     `rows_flat` [S*chunk + 1, CH] the slot-indexed channel table for the
     deferred shade to re-evaluate the winner's planes (gather_rows), and
     `stale` as raster_attrs_queue's. CUDA tensors launch kernel B7, CPU

@@ -21,7 +21,8 @@ from rustexp_tpu_torch.ops import nbody_bh as bh
 from rustexp_tpu_torch.ops import nbody_pallas as npl
 from rustexp_tpu_torch.ops import raster_bins as rb
 from rustexp_tpu_torch.ops import raster_queue as rq
-from rustexp_tpu_torch.ops.raster_setup import setup_triangles
+from rustexp_tpu_torch.ops.raster_setup import (setup_triangles,
+                                                setup_triangles_planar)
 from rustexp_tpu_torch.ops import sort_bitonic as sb
 from rustexp_tpu_torch.parallel import raster_shard
 from rustexp_tpu_torch.raster import camera, pipeline as pp
@@ -173,28 +174,70 @@ def test_compacted_bins_frame_on_card_matches_cpu():
     assert int((frames[0] != frames[1]).sum()) <= 0.003 * W * H
 
 
+def _lone_triangle_queue(dev):
+    """(scal, rows_i, rows_f, h, w) of a 48x384 frame (3 x 3 tiles) whose
+    one triangle lies in the middle tile: build_queue gives that tile one
+    chunk, the pad row two pad chunks, and no chunk visits the others."""
+    xs = torch.tensor([[140.0], [240.0], [150.0]])
+    ys = torch.tensor([[18.0], [20.0], [30.0]])
+    zs = torch.full((3, 1), 0.25)
+    h, w = 48, 384
+    setup = setup_triangles_planar(xs, ys, zs, w, h)
+    assert bool(setup.valid.all())
+    queue = rq.build_queue(setup, h, w, s_cap=3, m_y=1, m_x=1, order="tri")
+    assert queue.scal[:, :2].tolist() == [[1, 1], [3, 0], [3, 0]]
+    rows_i, rows_f = rq.gather_rows(queue, rq.pack_table(setup, []))
+    return tuple(t.to(dev) for t in (queue.scal, rows_i, rows_f)) + (h, w)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mesh_idx,per_pixel", [(0, True), (6, True),
-                                                (0, False)])
-def test_b7_kernel_matches_plain_on_card(mesh_idx, per_pixel):
-    """Bit-equal slot on every word and z under slot >= 0, at 512x512 on
-    the scene's queue."""
+@pytest.mark.parametrize("mesh_idx,per_pixel,size",
+                         [(0, True, W), (6, True, W), (0, False, W),
+                          (0, True, 1024), (None, True, W)])
+def test_b7_kernel_matches_plain_on_card(mesh_idx, per_pixel, size):
+    """Bit-equal z and slot on every word (the clear, z 1.0 and slot -1,
+    where no pair won), on the scene's queue at 512x512 and KillerooP at
+    1024x1024, and on a queue whose tiles but one no chunk visits
+    (mesh_idx None)."""
     dev = _card()
-    scene = pp.make_scene(mesh.get_mesh(mesh_idx), cubemap.get_cm_set(0), dev)
-    eye = camera.camera_eye(mesh.mesh_camera(mesh_idx), 0.0)
-    queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
-    colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0, W, H, 5)
-    setup, extra, _, _ = pp.queue_attr_channels(scene, colors, eye, W, H,
-                                                per_pixel=per_pixel)
-    rows_i, rows_f = rq.gather_rows(queue, rq.pack_table(setup, extra))
-    args = (queue.scal, rows_i, rows_f, H, W)
+    if mesh_idx is None:
+        args = _lone_triangle_queue(dev)
+    else:
+        scene = pp.make_scene(mesh.get_mesh(mesh_idx), cubemap.get_cm_set(0),
+                              dev)
+        eye = camera.camera_eye(mesh.mesh_camera(mesh_idx), 0.0)
+        queue = pp.build_scene_queue(scene, eye, size, size,
+                                     per_pixel=per_pixel)
+        colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0,
+                                                         size, size, 5)
+        setup, extra, _, _ = pp.queue_attr_channels(
+            scene, colors, eye, size, size, per_pixel=per_pixel)
+        rows_i, rows_f = rq.gather_rows(queue, rq.pack_table(setup, extra))
+        args = (queue.scal, rows_i, rows_f, size, size)
     launches = rq.raster_zslot_queue_cuda.launches
     zk, sk = rq.raster_zslot_queue_cuda(*args)
     assert rq.raster_zslot_queue_cuda.launches == launches + 1
     zp, sp = rq.raster_zslot_queue_plain(*args)
     won = sp >= 0
-    assert torch.equal(sk, sp) and won.any()
-    assert torch.equal(zk[won].view(torch.int32), zp[won].view(torch.int32))
+    assert torch.equal(sk, sp) and won.any() and not won.all()
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_b7_kernel_matches_plain_on_stress_queue():
+    """B7 on the stress queue (chip_smoke.stress_queue, its (4, 0) form):
+    2,048 pairs in one tile split across warps and merged, the ties at
+    z == 1.0 and at -0.0/+0.0, one id in two slots, a tile of empty
+    chunks and a pad-row tile no chunk visits. z and slot bit for bit on
+    every word."""
+    dev = _card()
+    scal, rows_i, rows_f, h, w = stress_queue(4, 0, dev)
+    launches = rq.raster_zslot_queue_cuda.launches
+    zk, sk = rq.raster_zslot_queue_cuda(scal, rows_i, rows_f, h, w)
+    assert rq.raster_zslot_queue_cuda.launches == launches + 1
+    zp, sp = rq.raster_zslot_queue_plain(scal, rows_i, rows_f, h, w)
+    assert torch.equal(sk, sp) and (sp >= 0).sum() > 1000
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
 
 
 def _gbuffer_bins(mesh_idx, dev, h=H, y_shift=0):

@@ -407,6 +407,94 @@ def test_b7_plain_race_tie_break():
         assert torch.equal(slot, slot1) and torch.equal(z, z1)
 
 
+def _unvisited_tiles(scal, h: int, w: int) -> list:
+    """(ty, tx) of every tile of the h + TILE_H-row frame that no chunk of
+    scal names."""
+    seen = {(int(ty), int(tx)) for ty, tx in scal[:, :2].tolist()}
+    return [(ty, tx) for ty in range(h // trq.TILE_H + 1)
+            for tx in range(w // trq.TILE_W) if (ty, tx) not in seen]
+
+
+@pytest.mark.parametrize("case", ["V", "P", "stress"])
+def test_b7_plain_equals_b1_plain_race(scenes, case):
+    """B7's contract on every word: its plain (z, slot) equal the plain
+    B1's bit for bit over the whole h + TILE_H-row frame, the clear (z
+    1.0, slot -1) wherever nothing won, in a tile that no chunk visits and
+    in the pad row: on the procedural scene's queue (V and P) and on the
+    stress queue (chip_smoke.stress_queue), whose pad row holds a tile no
+    chunk visits."""
+    if case == "stress":
+        scal, rows_i, rows_f, h, w = stress_queue(4, 0, CPU)
+        n2, n3 = 4, 0
+    else:
+        _, st = scenes
+        eye = camera.cam_orbit(0.7)
+        per_pixel = case == "P"
+        q = tpp.build_scene_queue(st, eye, W, H, per_pixel=per_pixel)
+        colors = None if per_pixel else tpp.vertex_colors(st, eye, 0.0, W, H,
+                                                          5)
+        sett, extra, n2, n3 = tpp.queue_attr_channels(st, colors, eye, W, H,
+                                                      per_pixel=per_pixel)
+        rows_i, rows_f = trq.gather_rows(q, trq.pack_table(sett, extra))
+        scal, h, w = q.scal, H, W
+    z1, slot1, _ = trq.raster_attrs_queue_plain(scal, rows_i, rows_f,
+                                                n2, n3, h, w)
+    z7, slot7 = trq.raster_zslot_queue_plain(scal, rows_i, rows_f, h, w)
+    assert z7.shape == slot7.shape == (h + trq.TILE_H, w)
+    assert torch.equal(slot7, slot1)
+    assert torch.equal(z7.view(torch.int32), z1.view(torch.int32))
+    lost = slot7 < 0
+    assert (~lost).sum() > 100 and lost.sum() > 100
+    assert torch.all(z7[lost] == 1.0)
+    assert torch.all(lost[h:]) and torch.all(z7[h:] == 1.0)  # the pad row
+    unvisited = _unvisited_tiles(scal, h, w)
+    assert unvisited
+    for ty, tx in unvisited:
+        tile = np.s_[ty * trq.TILE_H:(ty + 1) * trq.TILE_H,
+                     tx * trq.TILE_W:(tx + 1) * trq.TILE_W]
+        assert torch.all(slot7[tile] == -1) and torch.all(z7[tile] == 1.0)
+
+
+@pytest.mark.parametrize("eye_i", range(len(EYES)))
+def test_b7_race_ignores_pair_order(scenes, eye_i):
+    """B7's race, like B1's, is a lexicographic minimum over (z, tri):
+    with the pairs of every tile shuffled across its chunks, the port's
+    plain B7 and JAX's raster_zslot_queue (interpret mode) give the same
+    winning triangle at every pixel, and the same z bit for bit under
+    slot >= 0, as on the queue in its built order."""
+    sj, st = scenes
+    eye = EYES[eye_i]
+    qj = jpp.build_scene_queue(sj, eye, W, H, per_pixel=True)
+    leaves = {f: np.asarray(getattr(qj, f)) for f in qj._fields}
+    scal = leaves["scal"]
+    assert ((scal[:, 2] == 0) & (scal[:, 3] > 0)).any(), \
+        "no tile holds two chunks"
+    perm = _permute_tiles(scal, leaves["ids"], eye_i)
+    assert not np.array_equal(perm, leaves["ids"])
+    sett, extra, _, _ = tpp.queue_attr_channels(st, None, eye, W, H,
+                                                per_pixel=True)
+    setj, _ = _setups(scenes, eye)
+    extra_j = tuple(jnp.asarray(e.numpy()) for e in extra)
+    got = []
+    for ids in (leaves["ids"], perm):
+        zj, slj, _, _ = jrq.raster_zslot_queue(
+            qj._replace(ids=jnp.asarray(ids)), setj, extra_j, H, W)
+        qt = interop.queue_from_numpy({**leaves, "ids": ids}, CPU)
+        zt, slt = trq.raster_zslot_queue_plain(
+            qt.scal, *trq.gather_rows(qt, trq.pack_table(sett, extra)), H, W)
+        for z, slot in ((np.asarray(zj), np.asarray(slj)),
+                        (zt[:H].numpy(), slt[:H].numpy())):
+            won = np.where(slot >= 0, ids.reshape(-1)[np.maximum(slot, 0)],
+                           -1)
+            got.append((won, z))
+    won, z = got[0]
+    mask = won >= 0
+    assert mask.sum() > 0
+    for won_, z_ in got[1:]:
+        assert np.array_equal(won_, won)
+        assert np.array_equal(z_[mask].view(np.int32), z[mask].view(np.int32))
+
+
 def _queue_frames(scenes, eye, per_pixel, **kw):
     """(JAX frame, port frame) of raster_and_shade_queue with `kw`, each
     package on its own queue."""
