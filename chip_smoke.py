@@ -23,7 +23,10 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      for bit (0 mismatching words); B7 (B1's depth race alone, the same
      kernel template with no planes) on KillerooP, KillerooV and
      TorusKnotP, timed by all the card's activity of a call, and on the
-     stress queue, z and slot on every word;
+     stress queue, z and slot on every word; B1 in all three forms on the
+     moving camera's plane queues (KillerooP, TorusKnotP) and direct
+     queue (CubeP) at a path eye, timed on the plane and on the tri queue
+     of one frame in turns, and B7 on KillerooP's plane queue;
      B4 (SWAR GoL) at packed [8, 256] in both its forms (resident and
      tiled), [64, 2048] tiled and [8, 1024] resident, its input unchanged
      and its launches as planned, and B8 (the f32 GoL stencil) at 256^2 x
@@ -45,7 +48,15 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      backend="pallas") and four bands one after another -> B3), the
      deferred queue frame (raster_and_shade_queue(defer=True), P and V ->
      B7), and render_frame(backend="xla") and the Experiment at a 500x500
-     window, which must launch no kernel; the GoL Experiment at 256^2
+     window, which must launch no kernel; the moving camera,
+     bench_scene_moving on KillerooP (plane), TorusKnotP (plane) and
+     CubeP (direct) and bench_scene_moving_amortized on KillerooP, each
+     launching B1 once a frame rendered and nothing else, its card frames
+     held against the CPU's at 4 path eyes and the plane queue's frame
+     against the tri queue's (0 px), one frame a scene profiled with its
+     synchronizing calls counted; all 32 shader x mode frames of Killeroo
+     and the 16 shader functions against the CPU; the GoL Experiment at
+     256^2
      (auto -> B4, pallas -> B8); the N-body Experiment at N = 131,072
      (theta 0.85 -> block BH, its Morton sort B6; theta 0 -> brute force,
      B5) and at N = 10,000 (BH, argsort); bench_gol (256^2, 2048^2) and
@@ -64,7 +75,7 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      (torch.profiler) with the device's idle share of the suite's
      unprofiled frame time, the same per G-buffer and deferred path
      against its CUDA-event frame time, and per GoL and N-body bench
-     record per generation or step.
+     record per generation or step, and each phase's seconds.
 
 Its last lines are nvidia-smi's name and power limit, a JSON object of the
 kernels (grid launches on the main paths, error, times and each one's
@@ -80,6 +91,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -358,20 +370,28 @@ def max_abs_err(zk, lk, zp, lp, mask) -> float:
                float((lk - lp)[:, mask].abs().max()))
 
 
-def queue_inputs(dev, pp, rq, meshes, cubemap, camera, mesh_idx, per_pixel,
-                 ray_world=True):
-    """(scal, rows_i, rows_f, n2, n3, H, W): B1's arguments on the scene's
-    queue at 512x512, tick 0, as the queue path makes them (B7 takes the
-    same but n2 and n3)."""
-    scene = pp.make_scene(meshes.get_mesh(mesh_idx), cubemap.get_cm_set(0),
-                          dev)
-    eye = camera.camera_eye(meshes.mesh_camera(mesh_idx), 0.0)
-    queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
-    colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0, W, H, 5)
+def queue_args(pp, rq, scene, queue, eye, per_pixel: bool,
+               ray_world: bool = True):
+    """B1's arguments (scal, rows_i, rows_f, n2, n3, H, W) on `queue` at
+    `eye`, tick 0, as the queue path makes them (B7 takes the same but n2
+    and n3)."""
+    colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0, W, H,
+                                                     5)
     setup, extra, n2, n3 = pp.queue_attr_channels(
         scene, colors, eye, W, H, per_pixel=per_pixel, ray_world=ray_world)
     rows_i, rows_f = rq.gather_rows(queue, rq.pack_table(setup, extra))
     return queue.scal, rows_i, rows_f, n2, n3, H, W
+
+
+def queue_inputs(dev, pp, rq, meshes, cubemap, camera, mesh_idx, per_pixel,
+                 ray_world=True):
+    """queue_args on the scene's build_scene_queue queue at 512x512,
+    tick 0."""
+    scene = pp.make_scene(meshes.get_mesh(mesh_idx), cubemap.get_cm_set(0),
+                          dev)
+    eye = camera.camera_eye(meshes.mesh_camera(mesh_idx), 0.0)
+    queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
+    return queue_args(pp, rq, scene, queue, eye, per_pixel, ray_world)
 
 
 def b1_work(rq, scal, rows_i, rows_f, n2, n3, covered):
@@ -392,37 +412,45 @@ def b1_work(rq, scal, rows_i, rows_f, n2, n3, covered):
     return bms, by, pairs, tests
 
 
+def b1_check(dev, rq, label: str, args, timed: bool = True) -> dict:
+    """B1 against its plain version on one queue's arguments (z and planes
+    under the coverage mask, slot on every word); with `timed`, its time
+    by all the card's activity of a call, its wrapper call's and plain
+    version's by CUDA events, and its bound. Returns the record."""
+    n2, n3 = args[3:5]
+    calls = rq.raster_attrs_queue_cuda.launches
+    zk, sk, lk = rq.raster_attrs_queue_cuda(*args)
+    calls = rq.raster_attrs_queue_cuda.launches - calls
+    zp, sp, lp = rq.raster_attrs_queue_plain(*args)
+    torch.cuda.synchronize(dev)
+    mask = sp >= 0
+    bad = bit_mismatches(zk, sk, lk, zp, sp, lp, mask)
+    err = max_abs_err(zk, lk, zp, lp, mask)
+    covered = int(mask.sum())
+    bms, by, pairs, tests = b1_work(rq, *args[:5], covered)
+    rec = dict(err=err, bad=bad, covered=covered)
+    if timed:
+        run = lambda: rq.raster_attrs_queue_cuda(*args)
+        rec.update(ms=device_ms(run, 50, None, calls),
+                   call_ms=cuda_ms(run, 50),
+                   plain_ms=cuda_ms(
+                       lambda: rq.raster_attrs_queue_plain(*args), 5),
+                   bound_ms=bms, bound_by=by, launches_per_call=calls,
+                   work=f"{pairs} pairs, {tests} box tests, {calls} grid "
+                        f"launches a call")
+    print(f"B1 {label}: {covered} covered px, {pairs} pairs, {tests} "
+          f"box tests, n2={n2} n3={n3}, {calls} grid launches a call: "
+          f"{bad} mismatching words, max_abs_err {err}", flush=True)
+    return rec
+
+
 def b1_vs_plain(dev, pp, rq, meshes, cubemap, camera):
     """B1 against its plain version at the main path's shapes, timed by
     all the card's activity of a call. Returns {label: record}."""
-    out = {}
-    for label, mesh_idx, per_pixel, ray_world in B1_SCENES:
-        args = queue_inputs(dev, pp, rq, meshes, cubemap, camera, mesh_idx,
-                         per_pixel, ray_world)
-        n2, n3 = args[3:5]
-        calls = rq.raster_attrs_queue_cuda.launches
-        zk, sk, lk = rq.raster_attrs_queue_cuda(*args)
-        calls = rq.raster_attrs_queue_cuda.launches - calls
-        zp, sp, lp = rq.raster_attrs_queue_plain(*args)
-        torch.cuda.synchronize(dev)
-        mask = sp >= 0
-        bad = bit_mismatches(zk, sk, lk, zp, sp, lp, mask)
-        err = max_abs_err(zk, lk, zp, lp, mask)
-        covered = int(mask.sum())
-        bms, by, pairs, tests = b1_work(rq, *args[:5], covered)
-        run = lambda: rq.raster_attrs_queue_cuda(*args)
-        out[label] = dict(err=err, bad=bad, covered=covered,
-                          ms=device_ms(run, 50, None, calls),
-                          call_ms=cuda_ms(run, 50),
-                          plain_ms=cuda_ms(
-                              lambda: rq.raster_attrs_queue_plain(*args), 5),
-                          bound_ms=bms, bound_by=by, launches_per_call=calls,
-                          work=f"{pairs} pairs, {tests} box tests, "
-                               f"{calls} grid launches a call")
-        print(f"B1 {label}: {covered} covered px, {pairs} pairs, {tests} "
-              f"box tests, n2={n2} n3={n3}, {calls} grid launches a call: "
-              f"{bad} mismatching words, max_abs_err {err}", flush=True)
-    return out
+    return {label: b1_check(dev, rq, label, queue_inputs(
+                dev, pp, rq, meshes, cubemap, camera, mesh_idx, per_pixel,
+                ray_world))
+            for label, mesh_idx, per_pixel, ray_world in B1_SCENES}
 
 
 # The stress queue of kernel B1's depth race, hand-built. One crowded
@@ -801,47 +829,52 @@ def b3_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera):
     return out
 
 
+def b7_check(dev, rq, label: str, args) -> dict:
+    """B7 against its plain version on one queue's (scal, rows_i, rows_f,
+    h, w): z and slot on every word (the clear, z 1.0 and slot -1, where
+    no pair won), timed by all the card's activity of a call. Returns the
+    record."""
+    scal, rows_i, rows_f = args[:3]
+    calls = rq.raster_zslot_queue_cuda.launches
+    zk, sk = rq.raster_zslot_queue_cuda(*args)
+    calls = rq.raster_zslot_queue_cuda.launches - calls
+    zp, sp = rq.raster_zslot_queue_plain(*args)
+    torch.cuda.synchronize(dev)
+    won = sp >= 0
+    bad = zslot_mismatches(zk, sk, zp, sp)
+    err = float((zk - zp).abs().max())
+    live = (torch.arange(rq.CHUNK, device=dev)[None, :]
+            < scal[:, 3:4])                                      # [S, CHUNK]
+    pairs = int(live.sum())
+    rec = rows_i.permute(0, 2, 1)                            # [S, CHUNK, 12]
+    tests = int((box_px(rec, (scal[:, 1] * rq.TILE_W)[:, None],
+                        (scal[:, 4] * rq.TILE_H)[:, None], rq.TILE_H,
+                        rq.TILE_W) * live).sum())
+    # the race reads 12 int and 7 float channels of a live pair
+    bytes_moved = (scal.numel() * 4 + pairs * (rows_i.shape[1] + 7) * 4
+                   + zk.numel() * 4 + sk.numel() * 4)
+    bms, by = bound(bytes_moved, tests, 0, 0, 0)
+    run = lambda: rq.raster_zslot_queue_cuda(*args)
+    print(f"B7 {label}: {int(won.sum())} covered px, {pairs} pairs, "
+          f"{calls} grid launches a call: {bad} mismatching words, "
+          f"max_abs_err {err}", flush=True)
+    return dict(
+        err=err, bad=bad, covered=int(won.sum()),
+        ms=device_ms(run, 50, None, calls), call_ms=cuda_ms(run, 50),
+        plain_ms=cuda_ms(lambda: rq.raster_zslot_queue_plain(*args), 5),
+        bound_ms=bms, bound_by=by, launches_per_call=calls,
+        work=f"{pairs} pairs, {tests} box tests, {calls} grid launches a "
+             f"call")
+
+
 def b7_vs_plain(dev, pp, rq, meshes, cubemap, camera):
-    """B7 against its plain version on the scene's queue at 512x512: z and
-    slot on every word (the clear, z 1.0 and slot -1, where no pair won),
-    timed by all the card's activity of a call. Returns {label: record}."""
+    """B7 against its plain version on the scene's queue at 512x512 (B1's
+    arguments but the planes). Returns {label: record}."""
     out = {}
     for label, mesh_idx, per_pixel in B7_SCENES:
         scal, rows_i, rows_f, _, _, h, w = queue_inputs(
             dev, pp, rq, meshes, cubemap, camera, mesh_idx, per_pixel)
-        args = (scal, rows_i, rows_f, h, w)
-        calls = rq.raster_zslot_queue_cuda.launches
-        zk, sk = rq.raster_zslot_queue_cuda(*args)
-        calls = rq.raster_zslot_queue_cuda.launches - calls
-        zp, sp = rq.raster_zslot_queue_plain(*args)
-        torch.cuda.synchronize(dev)
-        won = sp >= 0
-        bad = zslot_mismatches(zk, sk, zp, sp)
-        err = float((zk - zp).abs().max())
-
-        live = (torch.arange(rq.CHUNK, device=dev)[None, :]
-                < scal[:, 3:4])                                  # [S, CHUNK]
-        pairs = int(live.sum())
-        rec = rows_i.permute(0, 2, 1)                        # [S, CHUNK, 12]
-        tests = int((box_px(rec, (scal[:, 1] * rq.TILE_W)[:, None],
-                            (scal[:, 4] * rq.TILE_H)[:, None], rq.TILE_H,
-                            rq.TILE_W) * live).sum())
-        # the race reads 12 int and 7 float channels of a live pair
-        bytes_moved = (scal.numel() * 4 + pairs * (rows_i.shape[1] + 7) * 4
-                       + zk.numel() * 4 + sk.numel() * 4)
-        bms, by = bound(bytes_moved, tests, 0, 0, 0)
-        run = lambda: rq.raster_zslot_queue_cuda(*args)
-        out[label] = dict(
-            err=err, bad=bad, covered=int(won.sum()),
-            ms=device_ms(run, 50, None, calls),
-            call_ms=cuda_ms(run, 50),
-            plain_ms=cuda_ms(lambda: rq.raster_zslot_queue_plain(*args), 5),
-            bound_ms=bms, bound_by=by, launches_per_call=calls,
-            work=f"{pairs} pairs, {tests} box tests, {calls} grid launches "
-                 f"a call")
-        print(f"B7 {label}: {int(won.sum())} covered px, {pairs} pairs, "
-              f"{calls} grid launches a call: {bad} mismatching words, "
-              f"max_abs_err {err}", flush=True)
+        out[label] = b7_check(dev, rq, label, (scal, rows_i, rows_f, h, w))
     return out
 
 
@@ -1391,6 +1424,256 @@ def bench_profiles(dev, records, gb, bh, npl, stable_orbits) -> list[dict]:
     return out
 
 
+# The moving camera (app/benchmark.py bench_scene_moving): every frame
+# rebuilds the queue with build_queue's "auto" order at caps from a
+# pre-pass over the mesh's camera path, so B1 and B7 meet the plane and
+# direct layouts there. (label, mesh, the order "auto" resolves)
+MOVING_SCENES = (("KillerooP", 0, "plane"), ("TorusKnotP", 6, "plane"),
+                 ("CubeP", 9, "direct"))
+MOVING_K = 64  # frames of the camera path a pass (ticks i / 60)
+MOVING_RUNS = 3  # timed passes, after a warm-up pass
+MOVING_EYE = 21  # the path eye of the kernel checks and the profiles
+MOVING_CPU_EYES = (0, 21, 42, 63)  # path eyes held against the CPU
+AMORTIZED_EVERY = 4  # frames per queue in the amortized form
+# B1's three forms: (label, per_pixel, ray_world) -> (4, 0), (4, 3), (4, 6)
+B1_FORMS = (("V", False, True), ("P", True, True),
+            ("P ray_world=False", True, False))
+SHADER_FRAGMENTS = 1 << 16  # seeded fragments per shader, card vs CPU
+
+
+def moving_scene(dev, pp, bench, meshes, cubemap, mesh_idx: int):
+    """(scene, path eyes, caps) of a moving scene on `dev`: MOVING_K host
+    eyes of the mesh's camera path and moving_caps' per-pixel caps, as
+    bench_scene_moving takes them."""
+    scene = pp.make_scene(meshes.get_mesh(mesh_idx), cubemap.get_cm_set(0),
+                          dev)
+    eyes = bench.path_eyes(mesh_idx, MOVING_K)
+    return scene, eyes, bench.moving_caps(scene, eyes, True)
+
+
+def moving_queue_args(pp, rq, scene, eye, caps: dict, order: str,
+                      per_pixel: bool, ray_world: bool = True):
+    """(queue, B1's arguments) of one moving frame: the queue build_queue
+    makes at `caps` in `order`, and queue_args on it."""
+    queue = rq.build_queue(pp._queue_setup(scene, eye, W, H), H, W,
+                           **{**caps, "order": order})
+    return queue, queue_args(pp, rq, scene, queue, eye, per_pixel, ray_world)
+
+
+def kernels_on_orders(dev, card, pp, rq, bench, meshes, cubemap):
+    """B1 in its three forms on the plane queues of KillerooP and
+    TorusKnotP and the direct queue of CubeP at path eye MOVING_EYE, 0
+    mismatching words each; B1 timed on the plane and the tri queue of
+    one frame in turns; B7 on KillerooP's plane queue, z and slot on
+    every word; and KillerooP's deferred frame on that queue against its
+    planes frame, 0 px. Returns (failure message or None, {label: B1
+    record}, {label: B7 record}) with the P forms' timed records."""
+    cmp1, cmp7 = {}, {}
+    for label, mesh_idx, expect in MOVING_SCENES:
+        scene, eyes, caps = moving_scene(dev, pp, bench, meshes, cubemap,
+                                         mesh_idx)
+        eye = eyes[MOVING_EYE]
+        for form, per_pixel, ray_world in B1_FORMS:
+            queue, args = moving_queue_args(pp, rq, scene, eye, caps, "auto",
+                                            per_pixel, ray_world)
+            tag = (f"{label[:-1]}{form} {queue.order} queue (moving eye "
+                   f"{MOVING_EYE}, caps {caps})")
+            if queue.order != expect:
+                return f"{tag}: 'auto' resolved {queue.order}", {}, {}
+            r = b1_check(dev, rq, tag, args, timed=form == "P")
+            if r["bad"] or r["covered"] == 0:
+                return (f"B1 {tag}: {r['bad']} mismatching words, "
+                        f"{r['covered']} covered px"), {}, {}
+            if form == "P":
+                cmp1[f"{label} {expect} (moving)"] = r
+        if expect != "plane":
+            continue
+        runs = {order: moving_queue_args(pp, rq, scene, eye, caps, order,
+                                         True)[1]
+                for order in ("plane", "tri")}
+        turns = [(order, device_ms(
+                     lambda a=runs[order]: rq.raster_attrs_queue_cuda(*a),
+                     50, None, 1))
+                 for order in ("plane", "tri", "tri", "plane")]
+        print(f"time B1 {label} 512x512 at moving eye {MOVING_EYE}, the "
+              f"plane and the tri queue of one frame in turns (all the "
+              f"call's activity, profiler): "
+              + ", ".join(f"{o} {ms:.4f}" for o, ms in turns)
+              + f" ms [{card}]", flush=True)
+
+    scene, eyes, caps = moving_scene(dev, pp, bench, meshes, cubemap, 0)
+    eye = eyes[MOVING_EYE]
+    queue, args = moving_queue_args(pp, rq, scene, eye, caps, "auto", True)
+    tag = f"KillerooP {queue.order} queue (moving eye {MOVING_EYE})"
+    r = b7_check(dev, rq, tag, args[:3] + args[5:])
+    if r["bad"] or r["covered"] == 0:
+        return (f"B7 {tag}: {r['bad']} mismatching words, {r['covered']} "
+                f"covered px"), {}, {}
+    cmp7[f"KillerooP {queue.order} (moving)"] = r
+    bg = pp.background(0, W, H, dev)
+    fbs = [pp.raster_and_shade_queue(scene, queue, None, eye, 0.0, w=W, h=H,
+                                     per_pixel=True, shader_idx=5, bg_fb=bg,
+                                     defer=defer)[0]
+           for defer in (True, False)]
+    diff = int((fbs[0] != fbs[1]).sum())
+    print(f"deferred KillerooP frame on the {queue.order} queue (B7): "
+          f"{diff} px differ from the planes frame (B1) [{card}]",
+          flush=True)
+    if diff:
+        return f"deferred {tag}: {diff} px differ from the planes frame", \
+            {}, {}
+    return None, cmp1, cmp7
+
+
+def moving_paths(dev, card, pp, rq, bench, meshes, cubemap, counters,
+                 launches) -> str | None:
+    """The moving camera's main path, each bench counted on its own:
+    bench_scene_moving on MOVING_SCENES and bench_scene_moving_amortized
+    on KillerooP, k = MOVING_K, MOVING_RUNS timed passes after a warm-up
+    pass; each must resolve its order and launch B1 once a frame rendered
+    and no other kernel. Then card frames at MOVING_CPU_EYES against the
+    port's CPU frames, the plane queue's frame against the tri queue's of
+    the same eye (both 0 px), and one profiled moving frame per scene.
+    Returns a failure message or None."""
+    frames = (1 + MOVING_RUNS) * MOVING_K
+    print(f"moving camera at 512x512: k = {MOVING_K} frames a pass, "
+          f"{MOVING_RUNS} timed passes after a warm-up pass, {frames} "
+          f"frames rendered a bench [{card}]", flush=True)
+    runs = [(label, expect, lambda m=mesh_idx: bench.bench_scene_moving(
+                m, True, MOVING_RUNS, k=MOVING_K, device=dev))
+            for label, mesh_idx, expect in MOVING_SCENES]
+    runs.append(("KillerooP amortized", "plane",
+                 lambda: bench.bench_scene_moving_amortized(
+                     0, True, MOVING_RUNS, k=MOVING_K,
+                     rebuild_every=AMORTIZED_EVERY, device=dev)))
+    records = {}
+    for label, expect, run in runs:
+        for c in counters.values():
+            c.launches = 0
+        rec = run()
+        got = {k: c.launches for k, c in counters.items()}
+        for k in counters:
+            launches[k] += got[k]
+        print(f"bench moving {label} {json.dumps(rec)} [{card}]", flush=True)
+        print(f"moving {label}: order {rec['queue_order']}, caps s_cap "
+              f"{rec['s_cap']} m_y {rec['m_y']} m_x {rec['m_x']} t_cap "
+              f"{rec['t_cap']} shade_w {rec['shade_w']}; best "
+              f"{rec['value']:.1f} us/frame, median {rec['us_median']:.1f} "
+              f"us/frame (CUDA events); launches {got} ({frames} frames "
+              f"rendered) [{card}]", flush=True)
+        if rec["queue_order"] != expect:
+            return f"moving {label} resolved {rec['queue_order']}"
+        if got["B1"] != frames or sum(got.values()) != got["B1"]:
+            return f"moving {label} launched {got} for {frames} frames"
+        records[label] = rec
+
+    cpu = torch.device("cpu")
+    empty = pp.background(0, W, H, "cpu")
+    for label, mesh_idx, expect in MOVING_SCENES:
+        scene, eyes, caps = moving_scene(dev, pp, bench, meshes, cubemap,
+                                         mesh_idx)
+        scene_c = pp.make_scene(meshes.get_mesh(mesh_idx),
+                                cubemap.get_cm_set(0), cpu)
+        for i in MOVING_CPU_EYES:
+            fb, ov = bench.moving_frame(scene, eyes[i], caps, True)
+            ref, ov_c = bench.moving_frame(scene_c, eyes[i], caps, True)
+            gpu = fb.cpu().view(torch.int32)
+            drawn = int((gpu != empty).sum())
+            diff = int((gpu != ref.view(torch.int32)).sum())
+            print(f"moving {label} eye {i}: {drawn} px drawn, overflow "
+                  f"{bool(ov)}/{bool(ov_c)}, {diff} px differ from the "
+                  f"port's CPU frame [{card}]", flush=True)
+            if diff or bool(ov) or bool(ov_c) or drawn < W * H // 100:
+                return f"moving {label} eye {i}: {diff} px vs the CPU"
+        eye = eyes[MOVING_EYE]
+        if expect == "plane":
+            tri = rq.build_queue(pp._queue_setup(scene, eye, W, H), H, W,
+                                 **{**caps, "order": "tri"})
+            fb_tri = pp.render_frame(
+                scene, eye, bench.TICK, w=W, h=H, per_pixel=True,
+                shader_idx=bench.SHADER, bg_idx=0, show_cm=False,
+                backend="queue", raster_queue=tri)
+            diff = int((bench.moving_frame(scene, eye, caps, True)[0]
+                        != fb_tri).sum())
+            print(f"moving {label} eye {MOVING_EYE}: the plane queue's frame "
+                  f"differs from the tri queue's by {diff} px [{card}]",
+                  flush=True)
+            if diff:
+                return f"moving {label}: plane and tri frames differ"
+        fn = lambda: bench.moving_frame(scene, eye, caps, True)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            fn()
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("called a synchronizing" in str(w.message)
+                    for w in caught)
+        events = device_events(fn, PROFILE_FRAMES)
+        busy = busy_ms(events) / PROFILE_FRAMES
+        b1 = sum(e.time_range.end - e.time_range.start for e in events
+                 if "queue_raster_kernel" in e.name) / 1e3 / PROFILE_FRAMES
+        wall = records[label]["us_median"] / 1e3
+        print(f"profile moving {label} 512x512 eye {MOVING_EYE} "
+              f"({PROFILE_FRAMES} frames): device busy {busy:.4f} ms/frame "
+              f"(profiler, union of the card's activities), "
+              f"{len(events) / PROFILE_FRAMES:.1f} device activities/frame, "
+              f"B1 {b1:.4f} ms/frame; idle share "
+              f"{(1.0 - busy / wall) * 100:.1f}% of the bench median "
+              f"{wall:.4f} ms/frame; {syncs} synchronizing calls in a "
+              f"frame (torch.cuda sync debug mode) [{card}]", flush=True)
+    return None
+
+
+def shader_configs(dev, card, pp, sh, meshes, cubemap, camera) -> str | None:
+    """The 16 shaders on the card against the CPU: each function on
+    SHADER_FRAGMENTS seeded fragments (words that differ, printed), and
+    all 32 shader x mode frames of the Killeroo stand-in at 512x512
+    through the queue route (differing px, printed; the run fails above
+    GOLDEN_FRAC). Returns a failure message or None."""
+    cpu = torch.device("cpu")
+    g = torch.Generator().manual_seed(0)
+    n = SHADER_FRAGMENTS
+    frag = (torch.rand((n, 3), generator=g) * 1.2 - 0.6,
+            torch.randn((n, 3), generator=g),
+            torch.rand((n, 3), generator=g),
+            torch.tensor([0.3, 0.25, 1.7]))
+    cm = torch.from_numpy(cubemap.get_cm_set(0).data)
+    words = {}
+    for i in range(sh.NUM_SHADERS):
+        got = sh.shader_fn(i)(*(t.to(dev) for t in frag), 0.0, cm.to(dev))
+        want = sh.shader_fn(i)(*frag, 0.0, cm)
+        words[sh.shader_name(i)] = int(
+            (got.cpu().view(torch.int32) != want.view(torch.int32)).sum())
+    print(f"shader functions on {n} seeded fragments, words differing "
+          f"between the card and the CPU: {words} [{card}]", flush=True)
+    scenes = {d: pp.make_scene(meshes.get_mesh(0), cubemap.get_cm_set(0), d)
+              for d in (dev, cpu)}
+    eye = camera.camera_eye(meshes.mesh_camera(0), 0.0)
+    worst = 0
+    for per_pixel in (False, True):
+        queues = {d: pp.build_scene_queue(scenes[d], eye, W, H,
+                                          per_pixel=per_pixel)
+                  for d in scenes}
+        diffs = {}
+        for i in range(sh.NUM_SHADERS):
+            fbs = {d: pp.render_frame(
+                       scenes[d], eye, 0.0, w=W, h=H, per_pixel=per_pixel,
+                       shader_idx=i, backend="queue",
+                       raster_queue=queues[d]).cpu().view(torch.int32)
+                   for d in scenes}
+            drawn = int((fbs[cpu] != pp.background(0, W, H, cpu)).sum())
+            if drawn < W * H // 100:
+                return f"shader {i} {per_pixel}: frame is background"
+            diffs[sh.shader_name(i)] = int((fbs[dev] != fbs[cpu]).sum())
+        worst = max(worst, *diffs.values())
+        print(f"shader frames Killeroo{'P' if per_pixel else 'V'} 512x512 "
+              f"(queue route, tick 0), px differing between the card and "
+              f"the CPU: {diffs} [{card}]", flush=True)
+    if worst > GOLDEN_FRAC * W * H:
+        return f"a shader frame differs from the CPU's by {worst} px"
+    return None
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel of ptxas's -v report: its name (without the
     namespace and the argument types), registers and spills."""
@@ -1421,6 +1704,7 @@ def main() -> int:
     from rustexp_tpu_torch.ops.raster_setup import setup_triangles
     from rustexp_tpu_torch.parallel import raster_shard
     from rustexp_tpu_torch.raster import camera, pipeline as pp
+    from rustexp_tpu_torch.raster import shaders as sh
     from rustexp_tpu_torch.runtime import device, load_kernel_lib
     from rustexp_tpu_torch.sims.gol import GoLExperiment
     from rustexp_tpu_torch.sims.nbody import NBodyExperiment, stable_orbits
@@ -1459,6 +1743,14 @@ def main() -> int:
                 print(f"ptxas {lib.name} {line}", flush=True)
 
     # Phase 3: each kernel against its plain version, on the card.
+    t_phase = time.perf_counter()
+
+    def phase_done(name: str) -> None:
+        nonlocal t_phase
+        now = time.perf_counter()
+        print(f"phase {name}: {now - t_phase:.1f} s [{card}]", flush=True)
+        t_phase = now
+
     cmp1 = b1_vs_plain(dev, pp, rq, meshes, cubemap, camera)
     stress_bad = b1_stress(dev, rq)
     if stress_bad:
@@ -1472,6 +1764,14 @@ def main() -> int:
     stress_bad = b7_stress(dev, rq)
     if stress_bad:
         return fail(f"B7 on the stress queue: {stress_bad} mismatching words")
+    phase_done("B1, B2, B3, B7 against their plain versions")
+    msg, more1, more7 = kernels_on_orders(dev, card, pp, rq, bench, meshes,
+                                          cubemap)
+    if msg:
+        return fail(msg)
+    cmp1.update(more1)
+    cmp7.update(more7)
+    phase_done("B1 and B7 on the plane and direct queues")
     for kernel, cmp in (("B1", cmp1), ("B2", cmp2), ("B3", cmp3),
                         ("B7", cmp7)):
         for label, r in cmp.items():
@@ -1488,6 +1788,8 @@ def main() -> int:
             if r["bad"]:
                 return fail(f"{kernel} {label}: disagrees with its plain "
                             f"version ({r['bad']})")
+
+    phase_done("B4, B8, B6, B5 against their plain versions")
 
     # Phase 4: the main paths, each counted on its own.
     counters = {"B1": rq.raster_attrs_queue_cuda,
@@ -1562,6 +1864,16 @@ def main() -> int:
                                   counters, launches)
     if msg:
         return fail(msg)
+    phase_done("the Experiment paths, run_suite and the G-buffer paths")
+    msg = moving_paths(dev, card, pp, rq, bench, meshes, cubemap, counters,
+                       launches)
+    if msg:
+        return fail(msg)
+    phase_done("the moving camera")
+    msg = shader_configs(dev, card, pp, sh, meshes, cubemap, camera)
+    if msg:
+        return fail(msg)
+    phase_done("the 32 shader configurations")
     for msg in (gol_paths(dev, card, GoLExperiment, counters, launches,
                           {"B4": gb._b4_plan(256 // 32, 256, 8).launches,
                            "B8": gs._b8_plan(256, 256, 8).launches}),
@@ -1570,6 +1882,7 @@ def main() -> int:
                 nbody_card_vs_cpu(dev, NBodyExperiment)):
         if msg:
             return fail(msg)
+    phase_done("the GoL and N-body paths")
     records = []
     # each bench makes a warm-up call and BENCH_RUNS timed ones; B4 and B5
     # launch what their plans say, B6 12 times a step
@@ -1606,6 +1919,8 @@ def main() -> int:
         for k in counters:
             launches[k] += got[k]
         records.append((label, rec))
+
+    phase_done("the GoL and N-body benches")
 
     # Phase 5: times, each beside the card's name and power limit.
     for kernel, cmp in (("B1", cmp1), ("B2", cmp2), ("B3", cmp3),
@@ -1666,6 +1981,7 @@ def main() -> int:
               f"{r['activities']:.3f} device activities/{r['unit']}; idle "
               f"share {r['idle'] * 100:.1f}% of the bench median "
               f"{r['wall_ms']:.6f} ms/{r['unit']} [{card}]")
+    phase_done("the profiles")
     head = {k: suite[k] for k in ("metric", "value", "unit", "vs_baseline")}
     print(f"run_suite (procedural stand-ins for the meshes and the envmap) "
           f"{json.dumps(head)} [{card}]")
@@ -1694,7 +2010,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("queue_raster (B1)", "rustexp_tpu_torch/csrc/raster_queue.cu",
               "rustexp_tpu/ops/raster_queue.py:690", "B1", cmp1, "KillerooP",
-              "TorusKnotP"),
+              "TorusKnotP", *(f"{label} {order} (moving)"
+                              for label, _, order in MOVING_SCENES)),
         entry("bins_raster (B2)", "rustexp_tpu_torch/csrc/raster_bins.cu",
               "rustexp_tpu/ops/raster_pallas.py:338", "B2", cmp2, "CubeP"),
         entry("bins_gbuffer (B3)", "rustexp_tpu_torch/csrc/raster_bins.cu",
@@ -1711,7 +2028,7 @@ def main() -> int:
               "morton 131072"),
         entry("queue_zslot (B7)", "rustexp_tpu_torch/csrc/raster_queue.cu",
               "rustexp_tpu/ops/raster_queue.py:799", "B7", cmp7,
-              "KillerooP"),
+              "KillerooP", "KillerooP plane (moving)"),
         entry("gol_stencil (B8)", "rustexp_tpu_torch/csrc/gol_stencil.cu",
               "rustexp_tpu/ops/gol_stencil.py:99", "B8", cmp8,
               GOL_EXPERIMENT_B8, "512x512 x20"),

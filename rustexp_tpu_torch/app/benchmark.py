@@ -1,14 +1,15 @@
 """The benchmarks on the card: the 12-scene rasterizer suite, GoL and N-body.
 
 Port of rustexp_tpu/app/benchmark.py (SCENES, the scene constants,
-QUEUE_MIN_TRIS, _run_stats, bench_scene, run_suite, bench_gol and
-bench_nbody). The scene matches the reference's rast_benchmark
+QUEUE_MIN_TRIS, _run_stats, bench_scene, run_suite, the moving-camera
+benches bench_scene_moving and bench_scene_moving_amortized, bench_gol
+and bench_nbody). The scene matches the reference's rast_benchmark
 (rasterizer.rs:1781-1884): 512x512, Fill, shader 5 (CMRefl), envmap 0,
 tick 0. Work is timed with CUDA events around a batch (K back-to-back
-frames, or one call of k generations or steps); a device without CUDA is
-refused, never measured on the CPU instead. The JAX package's TPU-only
-columns (its stored TPU times and the "vs-own" ratio) are not carried
-over, and the moving-camera rows are ROADMAP A8.
+frames, a camera path's k frames, or one call of k generations or
+steps); a device without CUDA is refused, never measured on the CPU
+instead. The JAX package's TPU-only columns (its stored TPU times and
+the "vs-own" ratio) are not carried over.
 """
 
 from __future__ import annotations
@@ -18,6 +19,11 @@ import torch
 
 from ..assets import cubemap, mesh
 from ..ops import gol_bits, gol_stencil, nbody_bh, nbody_forces, nbody_pallas
+from ..ops.raster_queue import (SHADE_W, TILE_H, TILE_W, build_queue,
+                                choose_shade_w, read_queue_stats,
+                                resolve_order, suggest_queue_config)
+from ..ops.raster_setup import (dilate_setup_planar, setup_triangles_planar,
+                                signed_area2)
 from ..raster import camera, pipeline as pp
 from ..runtime import device as pick_device
 
@@ -98,7 +104,7 @@ def scene_frame(mesh_idx: int, per_pixel: bool, device: torch.device):
     if m.num_tris >= QUEUE_MIN_TRIS:
         queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
         kw = dict(backend="queue", raster_queue=queue)
-        structure = {"backend": "queue", "queue_order": "tri",
+        structure = {"backend": "queue", "queue_order": queue.order,
                      "shade_w": queue.shade_w}
     else:
         cap, spans, rows_cap = pp.suggest_binning(scene, eye, W, H)
@@ -144,12 +150,24 @@ def bench_scene(mesh_idx: int, per_pixel: bool, runs: int,
     if bool(stale_any):
         raise RuntimeError("the cached raster structure went stale or "
                            "overflowed at a fixed eye")
-    label = next((s[0] for s in SCENES
-                  if s[1] == mesh_idx and s[2] == per_pixel),
-                 f"mesh{mesh_idx}{'P' if per_pixel else 'V'}")
     return {
-        "scene": label, **st, "frames_per_run": FRAMES_PER_RUN,
+        "scene": _label(mesh_idx, per_pixel), **st,
+        "frames_per_run": FRAMES_PER_RUN,
         "device": torch.cuda.get_device_name(device), **structure,
+        **_assets(m, cm),
+    }
+
+
+def _label(mesh_idx: int, per_pixel: bool) -> str:
+    return next((s[0] for s in SCENES
+                 if s[1] == mesh_idx and s[2] == per_pixel),
+                f"mesh{mesh_idx}{'P' if per_pixel else 'V'}")
+
+
+def _assets(m, cm) -> dict:
+    """The triangle count, and whether the mesh and the envmap are the
+    procedural stand-ins (assets absent) or the reference's."""
+    return {
         "triangles": m.num_tris,
         "mesh": "procedural stand-in" if m.name.endswith("(procedural)")
         else "reference asset",
@@ -179,6 +197,222 @@ def run_suite(runs: int, device: torch.device) -> dict:
         "scene_us": {r["scene"]: r["best"] * 1e6 for r in rows},
         "device": rows[0]["device"],
         "rows": rows,
+    }
+
+
+# ---------------------------------------------------------------------------
+# The moving camera (rustexp_tpu/app/benchmark.py:200-396): every frame of
+# the mesh's own camera path rebuilds the queue, or, amortized, every
+# rebuild_every frames from a dilated setup.
+# ---------------------------------------------------------------------------
+
+
+def path_eyes(mesh_idx: int, k: int, fps: float = 60.0) -> np.ndarray:
+    """f32 [k, 3] on the host: the mesh's camera path at ticks i / fps,
+    each eye rounded from camera_eye's float64 as the JAX bench rounds
+    it. A host eye puts no read of the card into a frame."""
+    cam = mesh.mesh_camera(mesh_idx)
+    ticks = np.arange(k, dtype=np.float64) / fps
+    return np.stack([camera.camera_eye(cam, t) for t in ticks]).astype(
+        np.float32)
+
+
+def moving_caps(scene: pp.Scene, eyes, per_pixel: bool,
+                shade_w: int | None = None, w: int = W, h: int = H) -> dict:
+    """build_queue's static caps for a camera path: the largest
+    queue_stats over 8 of its eyes with suggest_queue_config's margins,
+    and the shade width choose_shade_w picks for a rebuild every frame
+    (or `shade_w`). The pre-pass reads the card once per eye sampled.
+    Returns {s_cap, m_y, m_x, t_cap, shade_w}."""
+    k = len(eyes)
+    stats = [pp.scene_queue_stats(scene, eyes[i], w, h)
+             for i in range(0, k, max(1, k // 8))]
+    agg = tuple(max(st[j] for st in stats) for j in range(5))
+    if shade_w is None:
+        shade_w = choose_shade_w(agg[3], agg[4], rebuild_per_frame=True,
+                                 per_pixel=per_pixel)
+    occ = agg[3] if shade_w == SHADE_W else agg[4]
+    s_cap, m_y, m_x, t_cap = suggest_queue_config(agg[:3] + (occ,))
+    return dict(s_cap=s_cap, m_y=m_y, m_x=m_x, t_cap=t_cap, shade_w=shade_w)
+
+
+def moving_frame(scene: pp.Scene, eye, caps: dict, per_pixel: bool,
+                 w: int = W, h: int = H):
+    """One frame of the moving camera -> (fb, overflow): transform ->
+    setup_triangles_planar -> build_queue (order "auto", the path's
+    caps) -> render_frame(backend="queue"). `overflow` is a device flag:
+    the caps were exceeded."""
+    queue = build_queue(pp._queue_setup(scene, eye, w, h), h, w, **caps)
+    return pp.render_frame(
+        scene, eye, TICK, w=w, h=h, mode=pp.MODE_FILL, per_pixel=per_pixel,
+        shader_idx=SHADER, bg_idx=0, show_cm=False, backend="queue",
+        raster_queue=queue, return_overflow=True)
+
+
+def _order(scene: pp.Scene, caps: dict, w: int = W, h: int = H) -> str:
+    """The order build_queue's "auto" resolves for this scene at `caps`."""
+    return resolve_order("auto", scene.tris.shape[0], caps["s_cap"],
+                         caps["m_y"], caps["m_x"],
+                         (h // TILE_H) * (w // TILE_W))
+
+
+def bench_scene_moving(mesh_idx: int = 0, per_pixel: bool = True,
+                       runs: int = 8, fps: float = 60.0, k: int = 256,
+                       shade_w: int | None = None,
+                       device: torch.device | str | None = None) -> dict:
+    """Per-frame cost of a moving camera: the queue rebuilt every frame
+    (rustexp_tpu/app/benchmark.py:200).
+
+    Each of the k frames of the mesh's camera path (eyes at i / fps) runs
+    moving_frame at caps from a pre-pass over 8 of its eyes (moving_caps).
+    A warm-up pass and `runs` timed passes of the k frames, each between
+    two CUDA events; the overflow flag accumulates on the card and is
+    read once, at the end, and a set flag raises. The record keeps the
+    JAX bench's keys (value in us per frame) and adds the card, the
+    order build_queue resolved, the caps and the stand-in flags.
+    """
+    device = _card(device)
+    m = mesh.get_mesh(mesh_idx)
+    cm = cubemap.get_cm_set(ENV)
+    scene = pp.make_scene(m, cm, device)
+    eyes = path_eyes(mesh_idx, k, fps)
+    caps = moving_caps(scene, eyes, per_pixel, shade_w)
+    overflow = torch.zeros((), dtype=torch.bool, device=device)
+
+    def frames() -> None:
+        nonlocal overflow
+        for e in eyes:
+            overflow = overflow | moving_frame(scene, e, caps, per_pixel)[1]
+
+    frames()  # warm-up: first-use kernel build and allocator growth
+    st = _run_stats(lambda: _event_seconds(frames), runs, k)
+    if bool(overflow):
+        raise RuntimeError("the static queue caps overflowed along the "
+                           "camera path")
+    return {
+        "metric": "raster_moving_camera_us_per_frame",
+        "value": st["best"] * 1e6, "unit": "us", "frames": k,
+        "scene": _label(mesh_idx, per_pixel),
+        "us_median": st["median"] * 1e6, "spread_pct": st["spread_pct"],
+        "n_runs": st["n_runs"],
+        "device": torch.cuda.get_device_name(device),
+        "queue_order": _order(scene, caps), **caps, **_assets(m, cm),
+    }
+
+
+def amortized_margins(scene: pp.Scene, eyes, rebuild_every: int,
+                      safety: float = 1.5, w: int = W,
+                      h: int = H) -> tuple[int, int]:
+    """(dilate px, area margin) for a queue rebuilt every `rebuild_every`
+    frames of the path `eyes`: the largest vertex displacement and
+    |2*area| change between 8 sampled eyes, per frame, over a chunk's
+    rebuild_every - 1 frames, times `safety`
+    (rustexp_tpu/app/benchmark.py:320-343). Reads the card per eye."""
+    k = len(eyes)
+    stride = max(1, k // 8)
+    disp = area_d = 0.0
+    prev = None
+    for i in range(0, k, stride):
+        xs, ys, zs = pp.transform_corners_planar(scene, eyes[i], w, h)[:3]
+        setup = setup_triangles_planar(xs, ys, zs, w, h)
+        q = (xs.cpu().numpy(), ys.cpu().numpy(),
+             signed_area2(setup).cpu().numpy())
+        if prev is not None:
+            disp = max(disp, float(np.abs(q[0] - prev[0]).max()),
+                       float(np.abs(q[1] - prev[1]).max()))
+            area_d = max(area_d, float(np.abs(q[2] - prev[2]).max()))
+        prev = q
+    dilate = int(np.ceil(disp / stride * (rebuild_every - 1) * safety)) + 1
+    area_margin = int(np.ceil(area_d / stride * (rebuild_every - 1)
+                              * safety)) + 16
+    return dilate, area_margin
+
+
+def amortized_caps(scene: pp.Scene, eyes, dilate: int, area_margin: int,
+                   w: int = W, h: int = H) -> dict:
+    """build_queue's static caps from the dilated setups' queue_stats over
+    8 sampled eyes (rustexp_tpu/app/benchmark.py:345-358): the rows list
+    at the fine SHADE_W, as the JAX bench builds it."""
+    k = len(eyes)
+    stats = []
+    for i in range(0, k, max(1, k // 8)):
+        s = dilate_setup_planar(pp._queue_setup(scene, eyes[i], w, h),
+                                dilate, w, h, area_margin)
+        stats.append(read_queue_stats(s, h, w)[:4])
+    agg = tuple(max(st[j] for st in stats) for j in range(4))
+    s_cap, m_y, m_x, t_cap = suggest_queue_config(agg)
+    return dict(s_cap=s_cap, m_y=m_y, m_x=m_x, t_cap=t_cap, shade_w=SHADE_W)
+
+
+def amortized_frames(scene: pp.Scene, eyes, caps: dict, dilate: int,
+                     area_margin: int, per_pixel: bool, rebuild_every: int,
+                     w: int = W, h: int = H):
+    """The amortized moving frames, a generator of (fb, stale): one queue
+    from the dilated setup at the first eye of each chunk of
+    `rebuild_every` frames, and each frame of the chunk rendered through
+    it (rustexp_tpu/app/benchmark.py:362-381). `stale` is a device flag:
+    the structure did not cover the frame."""
+    for c in range(0, len(eyes), rebuild_every):
+        s0 = dilate_setup_planar(pp._queue_setup(scene, eyes[c], w, h),
+                                 dilate, w, h, area_margin)
+        queue = build_queue(s0, h, w, **caps)
+        for e in eyes[c:c + rebuild_every]:
+            yield pp.render_frame(
+                scene, e, TICK, w=w, h=h, mode=pp.MODE_FILL,
+                per_pixel=per_pixel, shader_idx=SHADER, bg_idx=0,
+                show_cm=False, backend="queue", raster_queue=queue,
+                return_overflow=True)
+
+
+def bench_scene_moving_amortized(mesh_idx: int = 0, per_pixel: bool = True,
+                                 runs: int = 8, fps: float = 60.0,
+                                 k: int = 128, rebuild_every: int = 4,
+                                 safety: float = 1.5,
+                                 device: torch.device | str | None = None
+                                 ) -> dict:
+    """The moving camera with the queue rebuilt every `rebuild_every`
+    frames from a dilated setup (rustexp_tpu/app/benchmark.py:280).
+
+    The margins come from the path itself (amortized_margins), the caps
+    from the dilated stats (amortized_caps); k is cut to a multiple of
+    rebuild_every. Timed as bench_scene_moving; the stale flag
+    accumulates on the card, is read once at the end, and a set flag
+    raises (the superset was not certified, so the frames could differ
+    from a rebuild every frame).
+    """
+    device = _card(device)
+    m = mesh.get_mesh(mesh_idx)
+    cm = cubemap.get_cm_set(ENV)
+    scene = pp.make_scene(m, cm, device)
+    k -= k % rebuild_every
+    eyes = path_eyes(mesh_idx, k, fps)
+    dilate, area_margin = amortized_margins(scene, eyes, rebuild_every,
+                                            safety)
+    caps = amortized_caps(scene, eyes, dilate, area_margin)
+    stale = torch.zeros((), dtype=torch.bool, device=device)
+
+    def frames() -> None:
+        nonlocal stale
+        for _, st_ in amortized_frames(scene, eyes, caps, dilate,
+                                       area_margin, per_pixel,
+                                       rebuild_every):
+            stale = stale | st_
+
+    frames()  # warm-up
+    st = _run_stats(lambda: _event_seconds(frames), runs, k)
+    if bool(stale):
+        raise RuntimeError(
+            f"the amortized structure went stale within a chunk (dilate "
+            f"{dilate} px, area margin {area_margin}): margins too small")
+    return {
+        "metric": "raster_moving_amortized_us_per_frame",
+        "value": st["best"] * 1e6, "unit": "us", "frames": k,
+        "rebuild_every": rebuild_every, "dilate_px": dilate,
+        "area_margin": area_margin, "scene": _label(mesh_idx, per_pixel),
+        "us_median": st["median"] * 1e6, "spread_pct": st["spread_pct"],
+        "n_runs": st["n_runs"],
+        "device": torch.cuda.get_device_name(device),
+        "queue_order": _order(scene, caps), **caps, **_assets(m, cm),
     }
 
 

@@ -6,7 +6,8 @@ no jax) and gets the port's tuple of tensors on `device`, so one scene,
 queue or set of bins can drive both packages in the parity tests.
 `device` defaults to the card (runtime.device); pass "cpu" for the CPU.
 uint32 leaves (the cubemap cross) keep their bits as int32;
-Queue.shade_w comes back a Python int.
+Queue.shade_w comes back a Python int, and Queue.order is "unknown"
+unless the dict names it (a JAX queue does not record its order).
 
 A GoL grid and an N-body particle set (px, py, vx, vy, m, as JAX's
 stable_orbits or random_disk make them) come across as numpy arrays, to
@@ -44,8 +45,9 @@ def scene_from_numpy(d: dict, device: Device = None) -> Scene:
 def queue_from_numpy(d: dict, device: Device = None) -> Queue:
     dev = pick_device(device)
     fields = {f: _tensor(d[f], dev) for f in Queue._fields
-              if f != "shade_w"}
-    return Queue(**fields, shade_w=int(d["shade_w"]))
+              if f not in ("shade_w", "order")}
+    return Queue(**fields, shade_w=int(d["shade_w"]),
+                 order=str(d.get("order", "unknown")))
 
 
 def bins_from_numpy(d: dict, device: Device = None) -> BinnedTris:

@@ -12,13 +12,28 @@ exact, on the CPU and on the card:
     ``torch.compile`` on a sealed chain: they fuse or reorder the adds.
   * No ``torch.rsqrt``: normalize is ``v / sqrt(dot)`` or
     ``v * (1 / sqrt(dot))`` exactly as written (docs/PARITY.md: a
-    last-ulp rsqrt moved cubemap texels on 3-26% of per-pixel pixels).
+    last-ulp rsqrt moved cubemap texels on 3-26% of per-pixel pixels),
+    with ``sqrt_rn`` for the square root.
   * CUDA C++ is built with ``-fmad=false`` (runtime.NVCC_FLAGS); a kernel
     that must be built otherwise uses ``__fmul_rn``/``__fadd_rn`` at
     every sealed site.
 """
 
 from __future__ import annotations
+
+import torch
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded f32 square root, as XLA:CPU's and the
+    reference's. The card's torch.sqrt is (CUDA's IEEE sqrtf). The CPU's
+    vectorized torch.sqrt is not: it is one ulp off on some elements of
+    large tensors (torch 2.13, AVX-512), so the CPU takes the root in
+    float64 and rounds once to f32, which is exact for a square root
+    (53 >= 2 * 24 + 2 bits)."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
 
 
 def lerp_2mad(q0, q10, q20, b2, b0):

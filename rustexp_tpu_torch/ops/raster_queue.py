@@ -8,11 +8,14 @@ belongs to. The queue STRUCTURE depends only on AABB/tile geometry, so
 callers cache it across frames and re-gather the per-frame rows;
 ``check_queue_valid`` says when the camera moved too far.
 
-Ported here: the ``order="tri"`` build (ascending triangle id within
-each tile, from one pair-key sort) with ``row_stride=1``; ``"auto"``
-resolves to ``"tri"``. The kernel always races on (z, triangle id), so
-its frames equal what the JAX package renders with any order.
-``"plane"``/``"direct"`` and the band interleave are ROADMAP A6/A16.
+Ported here: the three slot orders of ``build_queue`` with
+``row_stride=1``: ``"tri"`` (ascending triangle id within each tile,
+from one pair-key sort), ``"plane"`` (one sort of T keys and run tables
+shifted by each enumeration plane) and ``"direct"`` (counts and slot ids
+read off the coverage matrix), and ``"auto"``, which picks one by size
+as the JAX package does (``resolve_order``). Every order shares one
+chunk layout, in tile order. The kernels race on (z, triangle id), so a
+frame does not depend on the order. The band interleave is ROADMAP A16.
 
 Kernel B1 (``csrc/raster_queue.cu``, replacing ``_queue_kernel``) runs
 for CUDA tensors; ``raster_attrs_queue_plain`` is its plain PyTorch
@@ -82,6 +85,8 @@ class Queue(NamedTuple):
     ylim: torch.Tensor         # i32 [T, 2] y-extent (with margin) rows was built from
     xlim: torch.Tensor         # i32 [T, 2] x-extent (with margin)
     shade_w: int               # block width the rows list was built at
+    order: str = "tri"         # slot order the build resolved ("tri",
+    #                            "plane" or "direct"; "unknown" when carried)
 
 
 def tile_ranges(setup):
@@ -93,24 +98,80 @@ def tile_ranges(setup):
     return ty0, ty1, tx0, tx1
 
 
+def resolve_order(order: str, T: int, s_cap: int, m_y: int, m_x: int,
+                  n_tiles: int, chunk: int = CHUNK) -> str:
+    """The slot order build_queue runs for `order` on a mesh of T
+    triangles at caps (s_cap, m_y, m_x) over n_tiles tiles
+    (rustexp_tpu/ops/raster_queue.py:296-314).
+
+    "auto" takes "direct" for tiny meshes (T <= 64, or T <= 2048 while the
+    [T, s_cap, chunk] rank match stays under 2^25), else "plane" from 2,048
+    triangles while its run table R = O(m_y^2 m_x^2) stays small, else
+    "tri". A plane build whose keys group * T + tri would not fit int32
+    falls back to "tri". The thresholds are the JAX package's TPU v5e A/Bs
+    of the moving frame, kept for parity; the card's are not measured.
+    """
+    if order not in ("auto", "tri", "plane", "direct"):
+        raise ValueError(f"unknown queue order {order!r}")
+    if order == "auto":
+        r_est = (m_y * (m_y + 1) // 2) * (m_x * (m_x + 1) // 2)
+        if T <= 64 or (T <= 2048 and T * s_cap * chunk <= 2 ** 25):
+            order = "direct"
+        else:
+            order = "plane" if (T >= 2048 and r_est <= 512) else "tri"
+    if order == "plane" and n_tiles * (m_y * m_x) * (T + 1) >= 2 ** 31:
+        order = "tri"
+    return order
+
+
+@functools.cache
+def _plane_run_index(nty: int, ntx: int, m_y: int, m_x: int,
+                     device: torch.device) -> torch.Tensor:
+    """int64 [n_tiles, R] on `device`: per tile and run, the flat index
+    into the [n_tiles * C] group facts of the run's source group, or
+    n_tiles * C where the source tile is off the frame.
+
+    A run (dy, dx, sy, sx) of tile (ty, tx) is the group of base tile
+    (ty - dy, tx - dx) at span class (sy - 1) * m_x + (sx - 1); runs are
+    flattened in (dy, dx, sy, sx) order, the slot order of a plane queue
+    (rustexp_tpu/ops/raster_queue.py:209-221, 386-411). ROADMAP A16: an
+    interleaved band would read global tile row ty * row_stride +
+    row_offset here.
+    """
+    C = m_y * m_x
+    runs = [(dy, dx, (sy - 1) * m_x + (sx - 1))
+            for dy in range(m_y) for dx in range(m_x)
+            for sy in range(dy + 1, m_y + 1) for sx in range(dx + 1, m_x + 1)]
+    off = nty * ntx * C
+    return torch.tensor(
+        [[((ty - dy) * ntx + (tx - dx)) * C + cls
+          if ty >= dy and tx >= dx else off for dy, dx, cls in runs]
+         for ty in range(nty) for tx in range(ntx)],
+        dtype=torch.int64).to(device)
+
+
 def build_queue(setup, h: int, w: int, *, s_cap: int, m_y: int, m_x: int,
                 t_cap: int | None = None, order: str = "auto",
                 shade_w: int = SHADE_W) -> Queue:
-    """Construct the flat queue from a frame's setup, ``order="tri"``.
+    """Construct the flat queue from a frame's setup.
 
-    rustexp_tpu/ops/raster_queue.py:223 (the pair-key sort :415-450, slot
-    gather :522-528, chunk layout :452-483 and shade-block rows list
-    :535-604), with the whole frame as one band.
+    rustexp_tpu/ops/raster_queue.py:223 with the whole frame as one band:
+    `order` resolves by resolve_order; then the per-tile counts and slot
+    ids of that order (tri: the pair-key sort :415-450 and slot gather
+    :522-528; plane: one sort of T keys, the group histogram and the
+    shifted run tables :343-414 and :501-521; direct: the coverage
+    matrix's ranks :325-342 and :486-500), the chunk layout every order
+    shares (:452-483) and the shade-block rows list (:535-604). JAX's f32
+    one-hot contractions are integer sums or searches here, exact at any
+    matmul precision. Nothing is read back to the host.
     """
-    if order not in ("auto", "tri"):
-        raise NotImplementedError(
-            f"build_queue order={order!r} is not ported yet (ROADMAP A6)")
     dev = setup.valid.device
     i32 = dict(dtype=torch.int32, device=dev)
     nty, ntx = h // TILE_H, w // TILE_W
     n_tiles = nty * ntx
     T = setup.valid.shape[0]
     valid = setup.valid
+    order = resolve_order(order, T, s_cap, m_y, m_x, n_tiles)
 
     ty0, ty1, tx0, tx1 = tile_ranges(setup)
     span_y = ty1 - ty0 + 1
@@ -123,24 +184,61 @@ def build_queue(setup, h: int, w: int, *, s_cap: int, m_y: int, m_x: int,
     cov = (cov_y[:, :, None] & cov_x[:, None, :]
            & valid[:, None, None]).reshape(T, n_tiles)
 
-    # Pair enumeration per (triangle, dy, dx); tiles beyond the m_y/m_x
-    # spans are not enumerated (overflow flag below). Keys sort by
-    # (tile, tri): ascending triangle id within a tile.
-    dy = torch.arange(m_y, **i32)
-    dx = torch.arange(m_x, **i32)
-    t_ty = ty0[:, None, None] + dy[None, :, None]
-    t_tx = tx0[:, None, None] + dx[None, None, :]
-    ok = (valid[:, None, None]
-          & (dy[None, :, None] < span_y[:, None, None])
-          & (dx[None, None, :] < span_x[:, None, None]))
-    tile_id = t_ty * ntx + t_tx
-    tri_id = torch.arange(T, **i32)[:, None, None].expand_as(tile_id)
-    big = n_tiles * T
-    skey = torch.sort(torch.where(ok, tile_id * T + tri_id, big)
-                      .reshape(-1)).values
-    bounds = torch.searchsorted(
-        skey, torch.arange(n_tiles + 1, **i32) * T, out_int32=True)
-    counts = bounds[1:] - bounds[:-1]
+    if order == "direct":
+        # A tile's segment is its covering triangles (within the m_y x m_x
+        # enumeration) in ascending id order; a triangle's slot in it is
+        # its exclusive rank down the coverage matrix.
+        win_y = cov_y & (ty_ar[None, :] - ty0[:, None] < m_y)
+        win_x = cov_x & (tx_ar[None, :] - tx0[:, None] < m_x)
+        cov_m = (win_y[:, :, None] & win_x[:, None, :]
+                 & valid[:, None, None]).reshape(T, n_tiles)
+        cov_mi = cov_m.to(torch.int32)
+        rank = torch.cumsum(cov_mi, 0, dtype=torch.int32) - cov_mi
+        counts = cov_mi.sum(0, dtype=torch.int32)
+    elif order == "plane":
+        # Plane (dy, dx) maps triangle i to tile base(i) + (dy, dx), a
+        # constant shift, so one ascending sort of the T keys (base tile,
+        # span class, tri) orders every plane; a tile's segment is the
+        # concatenation of <= R runs of that one sorted array.
+        C = m_y * m_x
+        sy = span_y.clamp(1, m_y)
+        sx = span_x.clamp(1, m_x)
+        group = (ty0 * ntx + tx0) * C + (sy - 1) * m_x + (sx - 1)
+        tri = torch.arange(T, **i32)
+        # keys < n_tiles * C * T < 2^31 (resolve_order's guard)
+        skey = torch.sort(torch.where(valid, group * T + tri,
+                                      n_tiles * C * T)).values
+        stri = skey % T
+        # Group lengths and starts; entry n_g is an empty group that runs
+        # from off-frame source tiles read (length 0: no rank selects
+        # them, so their start is never used).
+        n_g = n_tiles * C
+        glen = torch.zeros(n_g + 1, **i32).scatter_add_(
+            0, torch.where(valid, group, n_g).long(), valid.to(torch.int32))
+        gstart = torch.cumsum(glen, 0, dtype=torch.int32) - glen
+        run_idx = _plane_run_index(nty, ntx, m_y, m_x, dev)
+        run_len = glen[run_idx]                                 # [nT, R]
+        run_start = gstart[run_idx]
+        counts = run_len.sum(1, dtype=torch.int32)
+    else:
+        # Pair enumeration per (triangle, dy, dx); tiles beyond the m_y/m_x
+        # spans are not enumerated (overflow flag below). Keys sort by
+        # (tile, tri): ascending triangle id within a tile.
+        dy = torch.arange(m_y, **i32)
+        dx = torch.arange(m_x, **i32)
+        t_ty = ty0[:, None, None] + dy[None, :, None]
+        t_tx = tx0[:, None, None] + dx[None, None, :]
+        ok = (valid[:, None, None]
+              & (dy[None, :, None] < span_y[:, None, None])
+              & (dx[None, None, :] < span_x[:, None, None]))
+        tile_id = t_ty * ntx + t_tx
+        tri_id = torch.arange(T, **i32)[:, None, None].expand_as(tile_id)
+        big = n_tiles * T
+        skey = torch.sort(torch.where(ok, tile_id * T + tri_id, big)
+                          .reshape(-1)).values
+        bounds = torch.searchsorted(
+            skey, torch.arange(n_tiles + 1, **i32) * T, out_int32=True)
+        counts = bounds[1:] - bounds[:-1]
 
     # Chunk-aligned segment layout; pad chunks go to the extra tile row
     # ty = nty, which the raster wrappers slice off.
@@ -161,11 +259,38 @@ def build_queue(setup, h: int, w: int, *, s_cap: int, m_y: int, m_x: int,
     tx = torch.where(chunk_live, tile_of % ntx, 0)
     scal = torch.stack([ty, tx, first.to(torch.int32), cnt, ty], dim=1)
 
-    slot_ok = torch.arange(CHUNK, **i32)[None, :] < cnt[:, None]
-    pos = ((bounds[tile_of] + k_of * CHUNK)[:, None]
-           + torch.arange(CHUNK, **i32)[None, :])
-    src = skey[pos.clamp(0, skey.shape[0] - 1).reshape(-1)]
-    ids = torch.where(slot_ok, src.reshape(s_cap, CHUNK) % T, -1)
+    lane = torch.arange(CHUNK, **i32)
+    slot_ok = lane[None, :] < cnt[:, None]
+    if order == "direct":
+        # Slot (s, j) holds the triangle whose rank in the tile is
+        # k_of[s] * CHUNK + j (JAX's rank-match contraction): each covering
+        # triangle writes its id there; ranks in a tile are distinct, and
+        # every other (triangle, chunk) writes one spare word.
+        j = rank[:, tile_of] - (k_of * CHUNK)[None, :]          # [T, S]
+        hit = cov_m[:, tile_of] & (j >= 0) & (j < CHUNK)
+        dst = torch.where(hit, cs[None, :] * CHUNK + j, s_cap * CHUNK)
+        src = torch.zeros(s_cap * CHUNK + 1, **i32).scatter_(
+            0, dst.reshape(-1).long(),
+            torch.arange(T, **i32)[:, None].expand(T, s_cap).reshape(-1))
+        ids = torch.where(slot_ok, src[:-1].reshape(s_cap, CHUNK), -1)
+    elif order == "plane":
+        # Rank k of the tile's segment lies in run r iff exclusive-cum[r] <=
+        # k < inclusive-cum[r]: the first run whose inclusive sum exceeds k
+        # (JAX's run-membership contraction). Its source position is
+        # run_start[r] + k - exclusive-cum[r].
+        kk = (k_of * CHUNK)[:, None] + lane[None, :]            # [S, chunk]
+        rlen_t = run_len[tile_of]                               # [S, R]
+        rinc_t = torch.cumsum(rlen_t, 1, dtype=torch.int32)
+        r = torch.searchsorted(rinc_t, kk, right=True)
+        b = torch.cat([run_start[tile_of] - (rinc_t - rlen_t),
+                       torch.zeros((s_cap, 1), **i32)], dim=1)
+        pos = b.gather(1, r) + kk
+        src = stri[pos.clamp(0, T - 1).reshape(-1)]
+        ids = torch.where(slot_ok, src.reshape(s_cap, CHUNK), -1)
+    else:
+        pos = (bounds[tile_of] + k_of * CHUNK)[:, None] + lane[None, :]
+        src = skey[pos.clamp(0, skey.shape[0] - 1).reshape(-1)]
+        ids = torch.where(slot_ok, src.reshape(s_cap, CHUNK) % T, -1)
 
     overflow = ((total_chunks > s_cap)
                 | (valid & ((span_y > m_y) | (span_x > m_x))).any())
@@ -211,7 +336,7 @@ def build_queue(setup, h: int, w: int, *, s_cap: int, m_y: int, m_x: int,
                  built_valid=valid, overflow=overflow, rows=rows,
                  ylim=torch.stack([ymin_tri, ymax_tri], dim=1),
                  xlim=torch.stack([xmin_tri, xmax_tri], dim=1),
-                 shade_w=int(shade_w))
+                 shade_w=int(shade_w), order=order)
 
 
 def check_queue_valid(queue: Queue, setup) -> torch.Tensor:
@@ -647,3 +772,8 @@ def queue_stats(setup, h: int, w: int):
     occ_fine = (rows_per_tile * blocks_per_row).sum(dtype=torch.int32)
     occ_tile = rows_per_tile.sum(dtype=torch.int32)
     return (total_chunks, span_y.max(), span_x.max(), occ_fine, occ_tile)
+
+
+def read_queue_stats(setup, h: int, w: int) -> tuple:
+    """queue_stats as five Python ints, read back from the device at once."""
+    return tuple(torch.stack(queue_stats(setup, h, w)).tolist())

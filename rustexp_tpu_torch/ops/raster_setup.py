@@ -1,7 +1,8 @@
 """Per-triangle rasterization setup, batched over the whole mesh.
 
 Port of rustexp_tpu/ops/raster_setup.py (TriSetup, TriSetupP with
-to_trisetup, setup_triangles_planar for the queue path, and
+to_trisetup, setup_triangles_planar for the queue path,
+dilate_setup_planar for the amortized moving path, and
 setup_triangles/setup_triangles_v for the bins and G-buffer paths):
 28.4 fixed-point vertex snap, backface cull via the 2-area cross product,
 bottom-left fill-convention biases folded into the edge constants, and
@@ -168,3 +169,38 @@ def setup_triangles_v(v0, v1, v2, w: int, h: int,
     ys = torch.stack([v0[:, 1], v1[:, 1], v2[:, 1]])
     zs = torch.stack([v0[:, 2], v1[:, 2], v2[:, 2]])
     return setup_triangles_planar(xs, ys, zs, w, h, y_shift).to_trisetup()
+
+
+def signed_area2(s: TriSetupP) -> torch.Tensor:
+    """i32 [T] signed 2*area from the stored channels: the biased
+    constants satisfy C0 + C1 + C2 = 2*area + (bias0 + bias1 + bias2), in
+    integers (rustexp_tpu/ops/raster_setup.py:193-197)."""
+    return (s.C0 + s.C1 + s.C2 - s.bias0.to(torch.int32)
+            - s.bias1.to(torch.int32) - s.bias2.to(torch.int32))
+
+
+def dilate_setup_planar(s: TriSetupP, d: int, w: int, h: int,
+                        area_margin: int = 0) -> TriSetupP:
+    """Superset setup that the amortized moving path builds its queue from
+    (rustexp_tpu/ops/raster_setup.py:167).
+
+    Its coverage contains that of any frame whose camera motion against
+    this one moves no vertex by more than `d` px and changes no
+    triangle's signed 2*area by more than `area_margin`: each near-front
+    triangle's pixel AABB grows by `d` px, and `valid` widens from
+    front-facing to 2*area > -area_margin (a pair still back-facing in a
+    frame excludes itself: its edge sum is negative, so the sign-OR test
+    never passes). Edge equations, z planes and the fill convention are
+    untouched, so a frame rendered through a queue built from this setup
+    equals one through a fresh queue; check_queue_valid certifies the
+    superset at run time.
+    """
+    near_front = signed_area2(s) > -int(area_margin)
+    d = int(d)
+    min_x = torch.where(near_front, (s.min_x - d).clamp(min=0), s.min_x)
+    min_y = torch.where(near_front, (s.min_y - d).clamp(min=0), s.min_y)
+    max_x = torch.where(near_front, (s.max_x + d).clamp(max=w), s.max_x)
+    max_y = torch.where(near_front, (s.max_y + d).clamp(max=h), s.max_y)
+    return s._replace(
+        min_x=min_x, min_y=min_y, max_x=max_x, max_y=max_y,
+        valid=near_front & (max_x > min_x) & (max_y > min_y))

@@ -8,7 +8,9 @@ three raster backends:
   transform_corners_planar (fixed-order per-op f32 matrix products on
   corner-major [3, 4, T] planes, reference rasterizer.rs:1181-1231) ->
   setup_triangles_planar -> build_queue (cached across frames by the
-  callers) -> raster_attrs_queue (kernel B1 on the card) ->
+  callers, or built every frame by the moving camera,
+  app.benchmark.moving_frame) -> raster_attrs_queue (kernel B1 on the
+  card) ->
   _shade_compacted over the queue's shade blocks; or, with defer=True,
   raster_zslot_queue (kernel B7, the depth race alone) ->
   _shade_deferred, which re-evaluates each pixel's winning pair;
@@ -41,8 +43,8 @@ from ..core.colors import pack_abgr32, pack_abgr32_gamma_arith
 from ..ops import raster_bins as rb
 from ..ops.ieee import lerp_2mad, lerp_3w
 from ..ops.raster_queue import (_I_CH, SHADE_W, _eval_pairs, build_queue,
-                                choose_shade_w, queue_stats,
-                                raster_attrs_queue, raster_zslot_queue,
+                                choose_shade_w, raster_attrs_queue,
+                                raster_zslot_queue, read_queue_stats,
                                 suggest_queue_config)
 from ..ops.raster_setup import setup_triangles, setup_triangles_planar
 from ..ops.raster_xla import raster_gbuffer_xla
@@ -657,17 +659,31 @@ def _queue_setup(scene: Scene, eye, w: int, h: int):
     return setup_triangles_planar(xs, ys, zs, w, h)
 
 
+def scene_queue_stats(scene: Scene, eye, w: int, h: int) -> tuple:
+    """queue_stats of this scene at `eye` on the frame's planar setup, as
+    five Python ints read back at once (rustexp_tpu/raster/pipeline.py:921
+    _queue_stats_jit): the chunk count, the largest tile spans and the
+    occupied fine and tile-wide shade blocks."""
+    return read_queue_stats(_queue_setup(scene, eye, w, h), h, w)
+
+
 def build_scene_queue(scene: Scene, eye, w: int, h: int,
-                      per_pixel: bool = True):
+                      margin: float = 1.3, per_pixel: bool = True,
+                      shade_w: int | None = None):
     """Measure + build the flat raster queue for this scene/viewpoint
-    (rustexp_tpu/raster/pipeline.py:948, _queue_stats_jit :921). The build
-    uses the same planar setup as the frame, so no triangle can snap into
-    a tile the structure never enumerated."""
+    (rustexp_tpu/raster/pipeline.py:948): one read of queue_stats for
+    the static caps (`margin` on the chunk count), then build_queue
+    with its "auto" order. The compacted-shade width is choose_shade_w's
+    unless `shade_w` is given. The build uses the same planar setup as
+    the frame, so no triangle can snap into a tile the structure never
+    enumerated."""
     setup = _queue_setup(scene, eye, w, h)
-    stats = tuple(int(x) for x in queue_stats(setup, h, w))
-    shade_w = choose_shade_w(stats[3], stats[4], per_pixel=per_pixel)
+    stats = read_queue_stats(setup, h, w)
+    if shade_w is None:
+        shade_w = choose_shade_w(stats[3], stats[4], per_pixel=per_pixel)
     occ = stats[3] if shade_w == SHADE_W else stats[4]
-    s_cap, m_y, m_x, t_cap = suggest_queue_config(stats[:3] + (occ,))
+    s_cap, m_y, m_x, t_cap = suggest_queue_config(stats[:3] + (occ,),
+                                                  margin=margin)
     return build_queue(setup, h, w, s_cap=s_cap, m_y=m_y, m_x=m_x,
                        t_cap=t_cap, shade_w=shade_w)
 
@@ -757,7 +773,7 @@ def render_frame(scene: Scene, eye, tick, *, w: int, h: int,
         raise NotImplementedError(
             f"render mode {MODE_NAMES[mode]} is not ported yet (ROADMAP A10)")
     tileable = h % rb.TILE_H == 0 and w % rb.TILE_W == 0
-    sh.shader_fn(shader_idx)  # an unported shader raises before any work
+    sh.shader_fn(shader_idx)  # a bad index raises before any work
     fb = background(bg_idx, w, h, scene.cp3.device)
     if backend == "queue" and raster_queue is not None:
         colors = None if per_pixel else vertex_colors(scene, eye, tick, w, h,

@@ -267,17 +267,18 @@ def test_camera_eye_matches_jax(name):
 
 
 def test_unported_shaders_and_modes_raise():
-    """What the port still refuses: shaders other than 5 (A5), and point
-    and line modes (A10) on every backend, the G-buffer oracle's
-    (backend="xla", and "auto" on a frame of partial 32x128 tiles)
-    included."""
-    with pytest.raises(NotImplementedError, match="A5"):
-        tsh.shader_fn(0)
+    """What the port still refuses: point and line modes (A10) on every
+    backend, the G-buffer oracle's (backend="xla", and "auto" on a frame
+    of partial 32x128 tiles) included. Every shader resolves (A5 is
+    ported), and shader 0 renders through the oracle."""
+    for i in range(tsh.NUM_SHADERS):
+        assert callable(tsh.shader_fn(i)), tsh.shader_name(i)
     scene = tpp.make_scene(tmesh.make_sphere(4, 8),
                            tcubemap.make_procedural_set(), CPU)
-    for kw, item in ((dict(backend="xla", shader_idx=0), "A5"),
-                     (dict(backend="auto", w=96, mode=tpp.MODE_POINT), "A10"),
+    eye = np.array([0, 0, 2], np.float32)
+    assert tpp.render_frame(scene, eye, 0.0, w=128, h=128, backend="xla",
+                            shader_idx=0).shape == (128, 128)
+    for kw, item in ((dict(backend="auto", w=96, mode=tpp.MODE_POINT), "A10"),
                      (dict(backend="pallas", mode=tpp.MODE_LINE), "A10")):
         with pytest.raises(NotImplementedError, match=item):
-            tpp.render_frame(scene, np.array([0, 0, 2], np.float32), 0.0,
-                             **{"w": 128, "h": 128, **kw})
+            tpp.render_frame(scene, eye, 0.0, **{"w": 128, "h": 128, **kw})

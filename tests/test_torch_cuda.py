@@ -1,8 +1,9 @@
 """Kernels B1 to B8 on the card: each CUDA kernel against its plain
 PyTorch version (B1 and B3 also on hand-built inputs that stress their
-races), and whole frames on the card (queue, deferred queue, bins,
-G-buffer oracle and band paths, the GoL and N-body Experiments) against
-the same frames on the CPU.
+races, B1 and B7 on the moving camera's plane and direct queues), and
+whole frames on the card (queue, moving-camera, every shader, deferred
+queue, bins, G-buffer oracle and band paths, the GoL and N-body
+Experiments) against the same frames on the CPU.
 
 These tests need a CUDA device and skip without one. This file imports no
 jax (the card's machine has none), so it runs there on its own:
@@ -13,7 +14,9 @@ jax (the card's machine has none), so it runs there on its own:
 import pytest
 import torch
 
-from chip_smoke import stress_bins, stress_queue
+from chip_smoke import (MOVING_EYE, moving_queue_args, moving_scene,
+                        stress_bins, stress_queue)
+from rustexp_tpu_torch.app import benchmark as bench
 from rustexp_tpu_torch.assets import cubemap, mesh
 from rustexp_tpu_torch.ops import gol_bits as gb
 from rustexp_tpu_torch.ops import gol_stencil as gs
@@ -26,6 +29,7 @@ from rustexp_tpu_torch.ops.raster_setup import (setup_triangles,
 from rustexp_tpu_torch.ops import sort_bitonic as sb
 from rustexp_tpu_torch.parallel import raster_shard
 from rustexp_tpu_torch.raster import camera, pipeline as pp
+from rustexp_tpu_torch.raster import shaders as sh
 from rustexp_tpu_torch.sims.gol import GoLExperiment
 from rustexp_tpu_torch.sims.nbody import NBodyExperiment, stable_orbits
 
@@ -87,6 +91,85 @@ def test_b1_kernel_matches_plain_on_stress_queue(n2, n3):
     assert torch.equal(lk[:, mask].view(torch.int32),
                        lp[:, mask].view(torch.int32))
     assert torch.all(zk[~mask] == 1.0) and torch.all(lk[:, ~mask] == 0.0)
+
+
+# (mesh, the order build_queue's "auto" resolves on its moving path)
+MOVING = [(0, "plane"), (6, "plane"), (9, "direct")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_idx,order", MOVING)
+@pytest.mark.parametrize("per_pixel,ray_world", [(False, True), (True, True),
+                                                 (True, False)])
+def test_b1_kernel_matches_plain_on_moving_queues(mesh_idx, order, per_pixel,
+                                                  ray_world):
+    """B1 on the plane queues of Killeroo and TorusKnot and the direct
+    queue of Cube, built as the moving camera builds them (its caps, a
+    path eye), in its three forms: slot on every word, z and planes under
+    the mask."""
+    dev = _card()
+    scene, eyes, caps = moving_scene(dev, pp, bench, mesh, cubemap,
+                                     mesh_idx)
+    queue, args = moving_queue_args(pp, rq, scene, eyes[MOVING_EYE], caps,
+                                    "auto", per_pixel, ray_world)
+    assert queue.order == order
+    zk, sk, lk = rq.raster_attrs_queue_cuda(*args)
+    zp, sp, lp = rq.raster_attrs_queue_plain(*args)
+    mask = sp >= 0
+    assert torch.equal(sk, sp) and mask.any()
+    assert torch.equal(zk[mask].view(torch.int32), zp[mask].view(torch.int32))
+    assert torch.equal(lk[:, mask].view(torch.int32),
+                       lp[:, mask].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_idx,order", MOVING)
+def test_b7_kernel_matches_plain_on_moving_queues(mesh_idx, order):
+    """B7 on the same queues: z and slot on every word."""
+    dev = _card()
+    scene, eyes, caps = moving_scene(dev, pp, bench, mesh, cubemap,
+                                     mesh_idx)
+    queue, args = moving_queue_args(pp, rq, scene, eyes[MOVING_EYE], caps,
+                                    "auto", True)
+    assert queue.order == order
+    zk, sk = rq.raster_zslot_queue_cuda(*args[:3], H, W)
+    zp, sp = rq.raster_zslot_queue_plain(*args[:3], H, W)
+    assert (sp >= 0).any() and torch.equal(sk, sp)
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_idx,order", MOVING)
+def test_moving_frames_on_card_match_cpu(mesh_idx, order):
+    """bench_scene_moving's frame (the queue rebuilt at each eye) on the
+    card equals the CPU's at two path eyes: 0 px."""
+    dev = _card()
+    scene, eyes, caps = moving_scene(dev, pp, bench, mesh, cubemap,
+                                     mesh_idx)
+    scene_c = pp.make_scene(mesh.get_mesh(mesh_idx), cubemap.get_cm_set(0),
+                            "cpu")
+    for eye in eyes[::40]:
+        fb, ov = bench.moving_frame(scene, eye, caps, True)
+        ref, _ = bench.moving_frame(scene_c, eye, caps, True)
+        assert not bool(ov) and torch.equal(fb.cpu(), ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_shader_frames_on_card_match_cpu(per_pixel):
+    """All 16 shaders on Killeroo through the queue: 0 px card vs CPU."""
+    dev = _card()
+    eye = camera.camera_eye(mesh.mesh_camera(0), 0.0)
+    scenes = {d: pp.make_scene(mesh.get_mesh(0), cubemap.get_cm_set(0), d)
+              for d in (dev, torch.device("cpu"))}
+    queues = {d: pp.build_scene_queue(s_, eye, W, H, per_pixel=per_pixel)
+              for d, s_ in scenes.items()}
+    for i in range(sh.NUM_SHADERS):
+        fbs = [pp.render_frame(s_, eye, 0.0, w=W, h=H, per_pixel=per_pixel,
+                               shader_idx=i, backend="queue",
+                               raster_queue=queues[d]).cpu()
+               for d, s_ in scenes.items()]
+        assert torch.equal(*fbs), sh.shader_name(i)
 
 
 @pytest.mark.cuda

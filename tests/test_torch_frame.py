@@ -48,8 +48,8 @@ def sphere():
 
 @pytest.mark.parametrize("per_pixel", [False, True])
 def test_render_frame_matches_jax(sphere, per_pixel):
-    """Each package builds its own queue (JAX: its "auto" order; the port:
-    "tri") and renders; then the port renders the JAX queue (interop)."""
+    """Each package builds its own queue (both with their "auto" order)
+    and renders; then the port renders the JAX queue (interop)."""
     sj, st = sphere
     eye = camera.cam_orbit(0.7)
     kw = dict(w=W, h=H, per_pixel=per_pixel, shader_idx=5, backend="queue")
