@@ -75,7 +75,21 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      (torch.profiler) with the device's idle share of the suite's
      unprofiled frame time, the same per G-buffer and deferred path
      against its CUDA-event frame time, and per GoL and N-body bench
-     record per generation or step, and each phase's seconds.
+     record per generation or step, and each phase's seconds;
+  6. drives the app shell as a user calls it (app_shell below): the CLI
+     (rustexp_tpu_torch.app.cli.main) on the rasterizer at 512^2 with PNGs
+     and a GIF, its point and line modes (keys M, MM) on Killeroo and
+     TorusKnot, the Cube (W keys: the bins, B2), per-pixel (P), a
+     64-frame turntable (--animate) of KillerooP, GoL at 256^2 over a
+     --save-state and a --load-state (and an R key after the load), N-body
+     at its defaults and resumed at N = 16,384, and sine; then the viewer
+     (app.viewer.run_viewer) headless with each experiment as its start.
+     Each run's launches are counted on their own (B1 once a frame
+     rendered, stale rebuilds included; B2 on the Cube; B4 once a GoL step;
+     B6 12 times a BH step at 16,384; none for points, lines and sine); the
+     PNGs must equal the card's frames, the point, line and sine frames the
+     CPU's at 0 px, the resumed GoL the uninterrupted run bit for bit; it
+     prints each run's wall ms per frame and the viewer's report lines.
 
 Its last lines are nvidia-smi's name and power limit, a JSON object of the
 kernels (grid launches on the main paths, error, times and each one's
@@ -86,10 +100,15 @@ when there is no CUDA device, a build or launch fails, or a check fails.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import logging
+import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -1674,6 +1693,278 @@ def shader_configs(dev, card, pp, sh, meshes, cubemap, camera) -> str | None:
     return None
 
 
+# The app shell: the CLI (rustexp_tpu_torch.app.cli.main), the turntable
+# (--animate) and the viewer (app.viewer.run_viewer), as a user calls them.
+APP_FRAMES = 8           # rasterizer and N-body frames a CLI run
+APP_MODE_FRAMES = 2      # point and line frames a run, card and CPU
+APP_BINS_FRAMES = 4      # the Cube (W keys) and KillerooP (P) runs
+APP_GOL_FRAMES = 16      # a GoL run, then as many again after a load
+APP_TURNTABLE = 64       # --animate frames (KillerooP)
+APP_SINE_FRAMES = 4
+APP_VIEWER_FRAMES = 8
+APP_VIEWER_SIZE = 128
+# An N-body state of a power-of-two N, saved and resumed through the CLI:
+# its Morton sort takes B6. The CLI's own N = 10,000 sorts by argsort,
+# as the JAX package's morton_sort does at any N that is not a power of
+# two, so at the defaults no kernel launches.
+APP_NBODY_LOADED = 16384
+APP_MODE_KEYS = (("Killeroo points", "M"), ("Killeroo lines", "MM"),
+                 ("TorusKnot points", "WWWWWWM"),
+                 ("TorusKnot lines", "WWWWWWMM"))
+
+
+class _StaleCount(logging.Handler):
+    """Counts the rasterizer Experiment's stale-structure rebuilds: each
+    renders its frame a second time, and so launches its kernel again."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.n = 0
+
+    def emit(self, record):
+        self.n += "stale" in record.getMessage()
+
+
+def _launches(counters) -> dict:
+    return {k: c.launches for k, c in counters.items()}
+
+
+def _zero(counters) -> None:
+    for c in counters.values():
+        c.launches = 0
+
+
+def cli_run(cli, dev, argv, counters, stale) -> tuple[str, dict, int]:
+    """cli.main(argv) on `dev` with the launch counters and the stale
+    count set to 0 just before and read just after -> (stdout, launches,
+    rebuilds). Raises if the CLI does not return 0."""
+    _zero(counters)
+    stale.n = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([*argv, "--device", dev.type])
+    if rc != 0:
+        raise RuntimeError(f"cli {' '.join(argv)} returned {rc}")
+    return buf.getvalue(), _launches(counters), stale.n
+
+
+def cli_ms(text: str) -> float:
+    """The CLI's own wall ms per frame: its loop's "N frames in Xs" line,
+    or the turntable's median."""
+    m = re.search(r"(\d+) frames in ([0-9.]+)s", text)
+    if m:
+        return float(m.group(2)) * 1e3 / int(m.group(1))
+    return float(re.search(r"median ([0-9.]+) ms/frame", text).group(1))
+
+
+def png_diff(fbm, path: str, fb) -> int:
+    """Pixels of the PNG at `path` that differ from frame `fb`'s RGB."""
+    return int((fbm.read_png(path) != fbm.to_rgb8_topleft(fb)).any(
+        axis=2).sum())
+
+
+def app_shell(dev, card, counters, launches, tmp: str) -> str | None:
+    """The app shell on the card: the CLI's rasterizer (8 frames at 512^2,
+    PNGs and a GIF), its point and line modes (M, MM) on Killeroo and
+    TorusKnot, the Cube (W keys, the bins), per-pixel (P), a 64-frame
+    turntable of KillerooP, GoL at 256^2 over a save and a load (and an R
+    key after the load), N-body at the defaults and resumed at
+    APP_NBODY_LOADED, sine, and the viewer with each experiment as its
+    start. Each run's launches are counted on their own: B1 once a frame
+    rendered, B2 on the Cube, B4 once a GoL step (256^2, resident), B6 12
+    times a BH step of a power-of-two N, and no kernel for points, lines
+    and sine. The PNGs equal the card's frames, the point, line and sine
+    frames the CPU's at 0 px, the resumed GoL the uninterrupted one bit
+    for bit. Returns a failure message or None."""
+    from rustexp_tpu_torch.app import cli, viewer
+    from rustexp_tpu_torch.core import framebuffer as fbm
+    from rustexp_tpu_torch.core.checkpoint import load_state, save_state
+    from rustexp_tpu_torch.ops import gol_bits as gb
+    from rustexp_tpu_torch.sims.gol import GoLExperiment
+    from rustexp_tpu_torch.sims.nbody import NBodyExperiment
+    from rustexp_tpu_torch.sims.rasterizer import RasterizerExperiment
+    from rustexp_tpu_torch.sims.sine import SineExperiment
+
+    cpu = torch.device("cpu")
+    stale = _StaleCount()
+    rlog = logging.getLogger("rustexp_tpu_torch.sims.rasterizer")
+    rlog.addHandler(stale)
+    rlog.setLevel(logging.INFO)
+    tpf = 1.0 / 60.0  # the CLI's default ticks per frame
+
+    def report(label, text, got, frames):
+        kept = {k: v for k, v in got.items() if v}
+        print(f"app {label}: {cli_ms(text):.3f} ms/frame wall (the CLI's "
+              f"loop, host clock, {frames} frames), launches {kept} "
+              f"[{card}]", flush=True)
+        for k in counters:
+            launches[k] += got[k]
+
+    def raster_frames(exp_dev, keys, ticks):
+        exp = RasterizerExperiment(exp_dev)
+        st = exp.init()
+        for k in keys:
+            st = exp.handle_key(st, k)
+        return [exp.render(st, W, H, t) for t in ticks]
+
+    # 1. the rasterizer at 512^2: B1 once a frame rendered; PNGs = frames
+    out = os.path.join(tmp, "r")
+    text, got, rebuilt = cli_run(cli, dev, [
+        "rasterizer", "--frames", str(APP_FRAMES), "--size", str(W),
+        "--no-overlay", "--out", out, "--gif", out + ".gif"], counters,
+        stale)
+    report(f"rasterizer KillerooV {W}x{H} (queue, PNG and GIF)", text, got,
+           APP_FRAMES)
+    if got["B1"] != APP_FRAMES + rebuilt:
+        return (f"app rasterizer: B1 launched {got['B1']} times for "
+                f"{APP_FRAMES} frames and {rebuilt} rebuilds")
+    last = APP_FRAMES - 1
+    ticks = (0.0, last * tpf)
+    for d in (dev, cpu):
+        for i, fb in zip((0, last), raster_frames(d, "", ticks)):
+            diff = png_diff(fbm, f"{out}_{i:03d}.png", fb)
+            print(f"app rasterizer frame {i}: {diff} px of the PNG differ "
+                  f"from the {d.type} frame", flush=True)
+            if diff > (0 if d == dev else GOLDEN_FRAC * W * H):
+                return f"app rasterizer frame {i}: {diff} px differ ({d})"
+    with open(out + ".gif", "rb") as f:
+        if f.read(6) != b"GIF89a":
+            return "app rasterizer: no GIF"
+
+    # 2. points and lines: no kernel; the card's PNGs = the CPU's frames
+    for label, keys in APP_MODE_KEYS:
+        out = os.path.join(tmp, "m")
+        text, got, _ = cli_run(cli, dev, [
+            "rasterizer", "--frames", str(APP_MODE_FRAMES), "--size", str(W),
+            "--keys", keys, "--no-overlay", "--out", out], counters, stale)
+        report(f"{label} {W}x{H}", text, got, APP_MODE_FRAMES)
+        if any(got[k] for k in ("B1", "B2", "B3", "B7")):
+            return f"app {label}: a raster kernel launched ({got})"
+        ticks = [i * tpf for i in range(APP_MODE_FRAMES)]
+        for i, fb in enumerate(raster_frames(cpu, keys, ticks)):
+            diff = png_diff(fbm, f"{out}_{i:03d}.png", fb)
+            white = int((fbm.read_png(f"{out}_{i:03d}.png") == 255).all(
+                axis=2).sum())
+            print(f"app {label} frame {i}: {white} white px, {diff} px "
+                  f"differ from the CPU frame", flush=True)
+            if diff or white < 100:
+                return f"app {label} frame {i}: {diff} px differ, {white} white"
+
+    # 3. the Cube (the bins, B2) and KillerooP (B1)
+    for label, keys, kernel in (("CubeV (W keys)", "WWWWWWWWW", "B2"),
+                                ("KillerooP (P)", "P", "B1")):
+        text, got, rebuilt = cli_run(cli, dev, [
+            "rasterizer", "--frames", str(APP_BINS_FRAMES), "--size", str(W),
+            "--keys", keys], counters, stale)
+        report(f"{label} {W}x{H}", text, got, APP_BINS_FRAMES)
+        if got[kernel] != APP_BINS_FRAMES + rebuilt:
+            return (f"app {label}: {kernel} launched {got[kernel]} times for "
+                    f"{APP_BINS_FRAMES} frames and {rebuilt} rebuilds")
+
+    # 4. the turntable: a queue built every frame, one warm-up frame
+    text, got, _ = cli_run(cli, dev, [
+        "rasterizer", "--keys", "P", "--animate", str(APP_TURNTABLE),
+        "--size", str(W)], counters, stale)
+    report(f"turntable KillerooP {W}x{H} (--animate, median)", text, got,
+           APP_TURNTABLE)
+    if got["B1"] != APP_TURNTABLE + 1:
+        return f"app turntable: B1 launched {got['B1']} times"
+
+    # 5. GoL at 256^2: 16 frames, save, load, 16 more = 32 in one run;
+    # after the load an R key draws what the uninterrupted run draws
+    per_step = gb._b4_plan(256 // 32, 256, 1).launches
+    st = {n: os.path.join(tmp, f"gol{n}") for n in range(1, 5)}
+    gol_runs = (
+        ("GoL 256x256", ["--save-state", st[1]], APP_GOL_FRAMES),
+        ("GoL 256x256 resumed", ["--load-state", st[1], "--save-state",
+                                 st[2]], APP_GOL_FRAMES),
+        ("GoL 256x256 uninterrupted", ["--save-state", st[3]],
+         2 * APP_GOL_FRAMES),
+        ("GoL 256x256 resumed, R", ["--load-state", st[1], "--keys", "R",
+                                    "--save-state", st[4]], APP_GOL_FRAMES))
+    for label, argv, frames in gol_runs:
+        text, got, _ = cli_run(cli, dev, ["gol", "--frames", str(frames),
+                                     "--size", "256", *argv], counters, stale)
+        report(label, text, got, frames)
+        if got["B4"] != frames * per_step:
+            return f"app {label}: B4 launched {got['B4']} times"
+    gol = GoLExperiment(dev)
+    ref, ref_r = gol.init(), gol.init()
+    for _ in range(APP_GOL_FRAMES):
+        ref, ref_r = gol.step(ref), gol.step(ref_r)
+    ref_r = gol.handle_key(ref_r, "R")
+    for _ in range(APP_GOL_FRAMES):
+        ref, ref_r = gol.step(ref), gol.step(ref_r)
+    resumed, whole = load_state(st[2], gol), load_state(st[3], gol)
+    after_r = load_state(st[4], gol)
+    bad = (int((resumed.grid != whole.grid).sum()),
+           int((whole.grid != ref.grid).sum()),
+           int((after_r.grid != ref_r.grid).sum()))
+    print(f"app GoL: resumed against uninterrupted {bad[0]} cells differ, "
+          f"the CLI's 32 frames against the Experiment's {bad[1]}, resumed "
+          f"with R against the Experiment's R {bad[2]}; live "
+          f"{int(whole.grid.sum())} [{card}]", flush=True)
+    if any(bad) or resumed.generations != 2 * APP_GOL_FRAMES:
+        return f"app GoL: resume differs {bad}"
+
+    # 6. N-body at the defaults (10,000: argsort) and resumed at a power
+    # of two (B6, 12 launches a BH step)
+    nb_path = save_state(os.path.join(tmp, "nbody"), NBodyExperiment(
+        dev).init(n=APP_NBODY_LOADED))
+    for label, argv, b6 in (
+            ("N-body defaults (10,000, BH, argsort)", [], 0),
+            (f"N-body resumed at {APP_NBODY_LOADED} (BH, B6)",
+             ["--load-state", nb_path], 12 * APP_FRAMES)):
+        text, got, _ = cli_run(cli, dev, ["nbody", "--frames", str(APP_FRAMES),
+                                     "--size", str(W), *argv], counters,
+                               stale)
+        report(label, text, got, APP_FRAMES)
+        if got["B6"] != b6:
+            return f"app {label}: B6 launched {got['B6']} times, not {b6}"
+
+    # 7. sine: no kernel; the card's PNGs = the CPU's frames
+    out = os.path.join(tmp, "s")
+    text, got, _ = cli_run(cli, dev, ["sine", "--frames", str(APP_SINE_FRAMES),
+                                 "--size", str(W), "--no-overlay", "--out",
+                                 out], counters, stale)
+    report(f"sine {W}x{H}", text, got, APP_SINE_FRAMES)
+    exp = SineExperiment(cpu)
+    sst = exp.init()
+    for i in range(APP_SINE_FRAMES):
+        sst = exp.step(sst)
+        diff = png_diff(fbm, f"{out}_{i:03d}.png", exp.render(sst, W, H))
+        if diff:
+            return f"app sine frame {i}: {diff} px differ from the CPU's"
+    print(f"app sine: {APP_SINE_FRAMES} frames, 0 px differ from the CPU's",
+          flush=True)
+
+    # 8. the viewer, headless, each experiment as its start
+    for start, kernel in ((0, "B4"), (1, None), (2, "B1")):
+        _zero(counters)
+        stale.n = 0
+        err = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(err):
+            n = viewer.run_viewer(size=APP_VIEWER_SIZE, fps=1000.0,
+                                  frames=APP_VIEWER_FRAMES, start=start,
+                                  report=True, device=dev)
+        got = _launches(counters)
+        rec = json.loads(err.getvalue().strip().splitlines()[-1])
+        print(f"app viewer report {json.dumps(rec)}; launches "
+              f"{ {k: v for k, v in got.items() if v} } [{card}]",
+              flush=True)
+        for k in counters:
+            launches[k] += got[k]
+        if n != APP_VIEWER_FRAMES or rec["frames"] != n:
+            return f"app viewer start {start}: {n} frames"
+        if kernel == "B1" and got["B1"] != n + stale.n:
+            return f"app viewer: B1 launched {got['B1']} times for {n} frames"
+        if kernel == "B4" and got["B4"] == 0:
+            return "app viewer: GoL's worker never launched B4"
+    rlog.removeHandler(stale)
+    return None
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel of ptxas's -v report: its name (without the
     namespace and the argument types), registers and spills."""
@@ -1982,6 +2273,11 @@ def main() -> int:
               f"share {r['idle'] * 100:.1f}% of the bench median "
               f"{r['wall_ms']:.6f} ms/{r['unit']} [{card}]")
     phase_done("the profiles")
+    with tempfile.TemporaryDirectory() as tmp:
+        msg = app_shell(dev, card, counters, launches, tmp)
+    if msg:
+        return fail(msg)
+    phase_done("the app shell")
     head = {k: suite[k] for k in ("metric", "value", "unit", "vs_baseline")}
     print(f"run_suite (procedural stand-ins for the meshes and the envmap) "
           f"{json.dumps(head)} [{card}]")

@@ -8,8 +8,10 @@ assets.paths, assets.gol_patterns, raster.camera).
 
 Ported so far: the rasterizer's Fill frame at the benchmark config, end
 to end, the 12-scene suite, the deferred queue frame, the G-buffer
-oracle (backend "xla", any frame size) and the band renderer; the Game
-of Life and N-body experiments and their benches. Every TPU kernel has
+oracle (backend "xla", any frame size) and the band renderer; the point
+and line modes; the Game of Life, N-body and sine experiments and their
+benches; and the app shell: the CLI (python -m rustexp_tpu_torch.app.cli),
+the terminal viewer, the turntable and checkpoints. Every TPU kernel has
 its hand-written CUDA counterpart for sm_90a: the flat-queue rasterizer
 and its depth race alone (csrc/raster_queue.cu), the binned rasterizer
 and its G-buffer form (csrc/raster_bins.cu), SWAR GoL and the f32 GoL
@@ -19,16 +21,20 @@ place of JAX's bitonic network (csrc/sort_radix.cu). ROADMAP.md lists
 the rest.
 
 Layout mirrors the JAX package:
-  core/      color packing, gamma, frame-time statistics
+  core/      color packing, gamma, frame-time statistics, PNG and GIF
+             output, the status font, checkpoints, tracing, the device
+             probe and the Prewarmer
   assets/    meshes, cubemap sets, asset paths, GoL patterns (numpy)
   ops/       triangle setup, queue build and bins, GoL stencils, N-body
              forces, Barnes-Hut and the sort; the kernel wrappers
   raster/    frame pipeline, shaders, camera paths
-  sims/      the rasterizer, GoL and N-body experiments
+  sims/      the Experiment protocol; the rasterizer, GoL, N-body and
+             sine experiments
   parallel/  band-sharded G-buffer rendering on torch.distributed
-  app/       the benchmarks: raster scenes and suite, GoL, N-body
+  app/       the CLI, the terminal viewer, the turntable, and the
+             benchmarks: raster scenes and suite, GoL, N-body
   csrc/      CUDA C++ kernel sources, built at first use (runtime.py)
   interop.py the JAX package's scenes, queues, bins, grids and particles
 """
 
-__version__ = "0.4.0"
+__version__ = "0.5.0"

@@ -136,3 +136,38 @@ def pack_abgr32_gamma_np(rgb: np.ndarray) -> np.ndarray:
     g8 = np.where(gi < 0, np.uint32(0), np.where(gi > 2047, np.uint32(255), lut(gi)))
     b8 = np.where(ri < 0, np.uint32(0), np.where(bi > 2047, np.uint32(255), lut(bi)))
     return (r8 | (g8 << 8) | (b8 << 16)).astype(np.uint32)
+
+
+def _bits(c: torch.Tensor) -> torch.Tensor:
+    """A packed-pixel tensor's bits as int32 (uint32 frames are viewed)."""
+    return c.view(torch.int32) if c.dtype == torch.uint32 else c.to(torch.int32)
+
+
+def unpack_abgr32(c: torch.Tensor):
+    """ABGR32 -> (r, g, b, a) int32 channels in [0, 255]
+    (rustexp_tpu/core/colors.py:165). The masks make int32's arithmetic
+    shift a logical one."""
+    c = _bits(c)
+    return c & 0xFF, (c >> 8) & 0xFF, (c >> 16) & 0xFF, (c >> 24) & 0xFF
+
+
+def add_abgr32(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+    """Per-channel saturating add of two ABGR32 values -> uint32
+    (rustexp_tpu/core/colors.py:171; reference add_abgr32,
+    nbody.rs:595-617)."""
+    r1, g1, b1, a1 = unpack_abgr32(c1)
+    r2, g2, b2, a2 = unpack_abgr32(c2)
+    r, g, b, a = ((x + y).clamp(max=255)
+                  for x, y in ((r1, r2), (g1, g2), (b1, b2), (a1, a2)))
+    return ((a << 24) | (b << 16) | (g << 8) | r).view(torch.uint32)
+
+
+def abgr32_to_rgb8(fb_u32: np.ndarray) -> np.ndarray:
+    """Host-side: a uint32 ABGR framebuffer [h, w] -> uint8 RGB [h, w, 3]
+    (rustexp_tpu/core/colors.py:204)."""
+    fb = np.asarray(fb_u32, dtype=np.uint32)
+    out = np.empty(fb.shape + (3,), dtype=np.uint8)
+    out[..., 0] = fb & 0xFF
+    out[..., 1] = (fb >> 8) & 0xFF
+    out[..., 2] = (fb >> 16) & 0xFF
+    return out

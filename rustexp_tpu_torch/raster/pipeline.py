@@ -27,8 +27,9 @@ three raster backends:
 All end in core.colors.pack_abgr32_gamma_arith. The 4x4 camera matrices
 are computed on the host in float32 torch (one rounding per op, as the
 reference does) and copied to the frame's device, so a frame is
-bit-identical on the CPU and on the card. Point and line modes raise
-NotImplementedError with their ROADMAP item.
+bit-identical on the CPU and on the card. Point and line modes
+(draw_points, draw_lines) draw white dots or DDA wireframes over the
+background with no raster kernel and no shader.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.colors import pack_abgr32, pack_abgr32_gamma_arith
+from ..core.colors import pack_abgr32, pack_abgr32_gamma_arith, trunc_i32
 from ..ops import raster_bins as rb
 from ..ops.ieee import lerp_2mad, lerp_3w
 from ..ops.raster_queue import (_I_CH, SHADE_W, _eval_pairs, build_queue,
@@ -649,6 +650,59 @@ def overlay_cross(fb, cross):
     return out
 
 
+_WHITE = 0x00FFFFFF
+
+
+def _set_white(fb, x, y, ok):
+    """fb with every (x, y) sample where `ok` set to white.
+
+    The JAX package writes every sample, sending the dead ones to (0, 0)
+    with that pixel's old value; with duplicate indices its (0, 0)
+    depends on the scatter's order. Here only live samples write, and all
+    of them the same value, so the result depends on no order (ROADMAP C).
+    Dead samples go to a pad word past the frame, so no mask leaves the
+    device."""
+    h, w = fb.shape
+    flat = torch.where(ok, y * w + x, h * w).reshape(-1).long()
+    out = torch.cat([fb.reshape(-1), fb.new_zeros(1)])
+    out.index_fill_(0, flat, _WHITE)
+    return out[:h * w].view(h, w)
+
+
+def draw_points(fb, vp, tris, w: int, h: int):
+    """Point mode: one white dot per referenced vertex
+    (rustexp_tpu/raster/pipeline.py:796; rasterizer.rs:2013-2028).
+    trunc_i32 is XLA's saturating convert (NaN -> 0), so a vertex lands
+    on the pixel the JAX package's astype(int32) gives on every device."""
+    idx = tris.reshape(-1).long()
+    x, y = trunc_i32(vp[idx, 0]), trunc_i32(vp[idx, 1])
+    return _set_white(fb, x, y, (x >= 0) & (x < w) & (y >= 0) & (y < h))
+
+
+def draw_lines(fb, vp, tris, w: int, h: int, max_steps: int | None = None):
+    """Wireframe by a vectorized DDA (rustexp_tpu/raster/pipeline.py:807;
+    rasterizer.rs:1301-1329): every edge takes max_steps samples at unit
+    max-axis spacing, masked beyond its length. ``a + step * m`` and
+    ``d / max(s, 1e-30)`` round once per op, as JAX's source writes them:
+    keep them eager (no fused multiply-add)."""
+    if max_steps is None:
+        max_steps = 2 * max(w, h)
+    t = tris.long()
+    edges = torch.cat([t[:, [0, 1]], t[:, [1, 2]], t[:, [2, 0]]])  # [E, 2]
+    p1, p2 = vp[edges[:, 0], 0:2], vp[edges[:, 1], 0:2]
+    # a canonical direction, so both windings draw the same pixels
+    swap = (p2[:, 0] <= p1[:, 0])[:, None]
+    a, b = torch.where(swap, p2, p1), torch.where(swap, p1, p2)
+    d = b - a
+    s = torch.maximum(d[:, 0].abs(), d[:, 1].abs())
+    step = d / torch.maximum(s, s.new_tensor(1e-30))[:, None]
+    m = torch.arange(max_steps, dtype=torch.float32, device=vp.device)
+    pts = a[:, None, :] + step[:, None, :] * m[None, :, None]  # [E, K, 2]
+    x, y = trunc_i32(pts[..., 0]), trunc_i32(pts[..., 1])
+    ok = (m[None, :] < s[:, None]) & (x >= 0) & (x < w) & (y >= 0) & (y < h)
+    return _set_white(fb, x, y, ok)
+
+
 # ---------------------------------------------------------------------------
 # Frame orchestration
 # ---------------------------------------------------------------------------
@@ -763,32 +817,38 @@ def render_frame(scene: Scene, eye, tick, *, w: int, h: int,
     ``raster_rows`` (suggest_binning; None bins by the dense coverage
     matrix with capacity T); ``"xla"``, and every other frame, the
     G-buffer oracle (raster_gbuffer_xla + shade_gbuffer, any size, no
-    kernel). With return_overflow=True returns (fb, overflow): the cached
-    queue went stale, or the static bins overflowed; rebuild and render
-    again.
+    kernel). ``mode`` MODE_POINT or MODE_LINE draws the vertices or the
+    edges over the background instead (draw_points, draw_lines: no
+    shader, no raster kernel, no structure read). With
+    return_overflow=True returns (fb, overflow): the cached queue went
+    stale, or the static bins overflowed (always False for points and
+    lines); rebuild and render again.
     """
     if show_cm is None:
         show_cm = sh.shader_uses_cm(shader_idx)
-    if mode != MODE_FILL:
-        raise NotImplementedError(
-            f"render mode {MODE_NAMES[mode]} is not ported yet (ROADMAP A10)")
-    tileable = h % rb.TILE_H == 0 and w % rb.TILE_W == 0
-    sh.shader_fn(shader_idx)  # a bad index raises before any work
     fb = background(bg_idx, w, h, scene.cp3.device)
-    if backend == "queue" and raster_queue is not None:
+    no_overflow = torch.zeros((), dtype=torch.bool, device=fb.device)
+    if mode in (MODE_POINT, MODE_LINE):
+        vp, _, _ = transform_vertices(scene, eye, w, h)
+        draw = draw_points if mode == MODE_POINT else draw_lines
+        fb, overflow = draw(fb, vp, scene.tris, w, h), no_overflow
+    elif backend == "queue" and raster_queue is not None:
+        sh.shader_fn(shader_idx)  # a bad index raises before any work
         colors = None if per_pixel else vertex_colors(scene, eye, tick, w, h,
                                                       shader_idx)
         fb, overflow = raster_and_shade_queue(
             scene, raster_queue, colors, eye, tick, w=w, h=h,
             per_pixel=per_pixel, shader_idx=shader_idx, bg_fb=fb)
     else:
+        shader = sh.shader_fn(shader_idx)
         vp, world, n_world = transform_vertices(scene, eye, w, h)
         colors = scene.colors
         if not per_pixel:
             eye_d = _host_eye(eye).to(world.device)
-            colors = sh.shader_fn(shader_idx)(world, n_world, scene.colors,
-                                              eye_d, tick, scene.cm)
+            colors = shader(world, n_world, scene.colors, eye_d, tick,
+                            scene.cm)
         setup = setup_triangles(vp, scene.tris, w, h)
+        tileable = h % rb.TILE_H == 0 and w % rb.TILE_W == 0
         if backend == "pallas" or (backend in ("auto", "queue")
                                    and tileable):
             fb, overflow = raster_and_shade_pallas(
@@ -800,7 +860,7 @@ def render_frame(scene: Scene, eye, tick, *, w: int, h: int,
                                world, n_world, colors, eye, tick,
                                per_pixel=per_pixel, shader_idx=shader_idx,
                                bg_fb=fb)
-            overflow = torch.zeros((), dtype=torch.bool, device=fb.device)
+            overflow = no_overflow
     if show_cm:
         fb = overlay_cross(fb, scene.cross)
     fb = fb.view(torch.uint32)

@@ -85,6 +85,11 @@ class GoLState:
 
 
 class GoLExperiment:
+    # The viewer runs the sim in a free-running worker thread
+    # (app/viewer.py SimWorker). Safe because every route rebinds
+    # state.grid to a new tensor (or, at k = 0, keeps the old one) and
+    # none writes into a grid a reader may hold.
+    decoupled = True
     name = "GoL"
 
     def __init__(self, device: torch.device | str | None = None):

@@ -7,8 +7,11 @@ RustRasterizerExperiment.hs:68-75) and the same QUEUE_MIN_TRIS routing:
 meshes of >= 1,000 triangles render through a cached flat queue (kernel
 B1), smaller ones through the bins at a cached suggest_binning config
 (kernel B2), and windows that are not whole 128-px columns and 8-row
-strips through the G-buffer oracle (backend "xla"). There is no Prewarmer: eager PyTorch has no compile to
-hide, and the kernels build once per checkout.
+strips through the G-buffer oracle (backend "xla"). handle_key is JAX's
+wrapping selection keys (reference RustRasterizerExperiment.hs:127-143).
+Keys apply at once: eager PyTorch compiles nothing per configuration, so
+the JAX package's pending switch has no counterpart (the viewer's
+Prewarmer builds the kernel libraries instead, app/viewer.py).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 from ..assets import cubemap, mesh
 from ..core.timing import FrameTimes
 from ..raster import camera, pipeline as pp
+from ..runtime import device as pick_device
 
 log = logging.getLogger(__name__)
 
@@ -44,8 +48,8 @@ class RasterState:
 class RasterizerExperiment:
     name = "Rasterizer"
 
-    def __init__(self, device: torch.device | str):
-        self.device = torch.device(device)
+    def __init__(self, device: torch.device | str | None = None):
+        self.device = pick_device(device)
 
     def init(self, **config) -> RasterState:
         return RasterState(**config)
@@ -137,3 +141,30 @@ class RasterizerExperiment:
             f"| Shdr: {pp.sh.shader_name(state.shader_idx)} "
             f"| Env: {cubemap.cm_set_name(state.env_idx)} | Bg: {state.bg_idx}"
         )
+
+    # key -> (field, step): the field moves by `step` and wraps at its count
+    _KEYS = {"M": ("mode", 1), "Q": ("mesh_idx", -1), "W": ("mesh_idx", 1),
+             "A": ("shader_idx", -1), "S": ("shader_idx", 1),
+             "Z": ("env_idx", -1), "X": ("env_idx", 1),
+             "1": ("bg_idx", -1), "2": ("bg_idx", 1)}
+    _COUNTS = {"mode": len(pp.MODE_NAMES), "mesh_idx": mesh.NUM_MESHES,
+               "shader_idx": pp.sh.NUM_SHADERS,
+               "env_idx": cubemap.NUM_CM_SETS,
+               "bg_idx": pp.NUM_BACKGROUNDS}
+
+    def handle_key(self, state: RasterState, key: str) -> RasterState:
+        """Wrapping scene-selection keys (rustexp_tpu/sims/rasterizer.py:238;
+        RustRasterizerExperiment.hs:127-143): M mode, P per-pixel, Q/W
+        mesh, A/S shader, Z/X envmap, 1/2 background, B the 12-scene
+        benchmark on this experiment's device. Case-insensitive."""
+        key = key.upper() if len(key) == 1 else key
+        if key in self._KEYS:
+            f, step = self._KEYS[key]
+            setattr(state, f, (getattr(state, f) + step) % self._COUNTS[f])
+        elif key == "P":
+            state.per_pixel = not state.per_pixel
+        elif key == "B":
+            from ..app.benchmark import run_suite
+
+            run_suite(runs=20, device=self.device)
+        return state

@@ -129,9 +129,9 @@ def test_shader_table_names_match_jax():
 def test_port_imports_no_jax():
     """The port runs where jax is not installed and keeps its own copies
     of what it needs: importing every module of it (in a fresh
-    interpreter), the GoL, N-body, G-buffer and band-rendering modules
-    among them, must leave jax and every rustexp_tpu module out of
-    sys.modules."""
+    interpreter), the GoL, N-body, G-buffer, band-rendering and app-shell
+    modules among them, must leave jax and every rustexp_tpu module out
+    of sys.modules."""
     code = (
         "import sys, pkgutil, importlib, rustexp_tpu_torch\n"
         "for m in pkgutil.walk_packages(rustexp_tpu_torch.__path__,\n"
@@ -145,6 +145,10 @@ def test_port_imports_no_jax():
         "from rustexp_tpu_torch.ops import nbody_pallas, sort_bitonic\n"
         "from rustexp_tpu_torch.ops import raster_xla\n"
         "from rustexp_tpu_torch.parallel import raster_shard\n"
+        "from rustexp_tpu_torch.app import animate, cli, viewer\n"
+        "from rustexp_tpu_torch.core import checkpoint, font, framebuffer\n"
+        "from rustexp_tpu_torch.core import gif, platform, prewarm, trace\n"
+        "from rustexp_tpu_torch.sims import base, sine\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'rustexp_tpu'))\n"
         "assert not bad, bad\n"
@@ -267,10 +271,12 @@ def test_camera_eye_matches_jax(name):
 
 
 def test_unported_shaders_and_modes_raise():
-    """What the port still refuses: point and line modes (A10) on every
-    backend, the G-buffer oracle's (backend="xla", and "auto" on a frame
-    of partial 32x128 tiles) included. Every shader resolves (A5 is
-    ported), and shader 0 renders through the oracle."""
+    """Nothing of the shaders and modes is refused any more: every shader
+    resolves (A5), shader 0 renders through the oracle, and the point and
+    line modes (A10) render on every backend, the G-buffer oracle's
+    (backend="xla", and "auto" on a frame of partial 32x128 tiles)
+    included, with no shader called. What still raises is a shader index
+    past the table on a Fill frame."""
     for i in range(tsh.NUM_SHADERS):
         assert callable(tsh.shader_fn(i)), tsh.shader_name(i)
     scene = tpp.make_scene(tmesh.make_sphere(4, 8),
@@ -278,7 +284,11 @@ def test_unported_shaders_and_modes_raise():
     eye = np.array([0, 0, 2], np.float32)
     assert tpp.render_frame(scene, eye, 0.0, w=128, h=128, backend="xla",
                             shader_idx=0).shape == (128, 128)
-    for kw, item in ((dict(backend="auto", w=96, mode=tpp.MODE_POINT), "A10"),
-                     (dict(backend="pallas", mode=tpp.MODE_LINE), "A10")):
-        with pytest.raises(NotImplementedError, match=item):
-            tpp.render_frame(scene, eye, 0.0, **{"w": 128, "h": 128, **kw})
+    for kw in (dict(backend="auto", w=96, mode=tpp.MODE_POINT),
+               dict(backend="pallas", mode=tpp.MODE_LINE)):
+        fb = tpp.render_frame(scene, eye, 0.0, **{"w": 128, "h": 128, **kw})
+        assert fb.shape == (128, kw["w"] if "w" in kw else 128)
+        assert int((fb.view(torch.int32) == 0x00FFFFFF).sum()) > 0
+    with pytest.raises(IndexError):
+        tpp.render_frame(scene, eye, 0.0, w=128, h=128, backend="xla",
+                         shader_idx=tsh.NUM_SHADERS, show_cm=False)
