@@ -89,7 +89,22 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      B6 12 times a BH step at 16,384; none for points, lines and sine); the
      PNGs must equal the card's frames, the point, line and sine frames the
      CPU's at 0 px, the resumed GoL the uninterrupted run bit for bit; it
-     prints each run's wall ms per frame and the viewer's report lines.
+     prints each run's wall ms per frame and the viewer's report lines;
+  7. drives the sharded paths as ranks on the one card (sharded_paths
+     below): 4 spawned gloo ranks render KillerooP and KillerooV 512^2
+     through the queue bands in both layouts (B1), 8 moving frames of
+     KillerooP's path with a queue rebuilt a frame, and the G-buffer
+     bands (B3); step GoL 2048^2 through the "bits" halos (B4, k = 64)
+     and 256^2 through the "pallas" halos (B8, k = 8), BH at 131,072 with
+     the distributed sort (B6 as its local sort and merges) and the brute
+     step at 8,192; 3 ranks take BH at 98,304 (the odd-even schedule);
+     the CLI runs --devices 4 on each experiment; one NCCL rank (world
+     size 1) runs the dry run's steps. Frames must equal this process's
+     one-rank card frames at 0 px, grids and BH states bit for bit, the
+     brute step within 2e-4, PNGs the one-rank frames; each rank's
+     launches must be as counted; it prints each rank's wall and
+     device-busy ms, labelled as ranks sharing one card (not a scaling
+     figure).
 
 Its last lines are nvidia-smi's name and power limit, a JSON object of the
 kernels (grid launches on the main paths, error, times and each one's
@@ -1965,6 +1980,552 @@ def app_shell(dev, card, counters, launches, tmp: str) -> str | None:
     return None
 
 
+SHARD_RANKS = 4          # gloo ranks sharing the one card
+SHARD_ODD_RANKS = 3      # the odd-even sort schedule
+SHARD_MOVING_FRAMES = 8  # KillerooP's camera path, queues rebuilt a frame
+SHARD_GOL = (("bits", 2048, 64), ("pallas", 256, 8))  # body, N, k
+SHARD_BH_N, SHARD_BH_ODD_N, SHARD_BH_STEPS = 131072, 98304, 2
+SHARD_BRUTE_N = 8192
+SHARD_BRUTE_TOL = 2e-4   # tests/test_parallel.py:58, JAX's own bound
+SHARD_TIMED = 4          # timed calls a rank, after a warm-up call
+SHARD_CLI_FRAMES = 4
+
+
+def _rank_times(fn, dev) -> dict:
+    """This rank's wall ms per fn() call (host clock, synchronized) over
+    SHARD_TIMED calls after a warm-up, and its device-busy ms per call
+    (the union of its own activities in one torch.profiler session,
+    between spin-kernel pads; None, "not measured", when a pad record was
+    lost). Every rank makes the same calls: no session is run again, as
+    the collectives inside fn() must meet."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(SHARD_TIMED):
+        fn()
+    torch.cuda.synchronize(dev)
+    wall = (time.perf_counter() - t0) * 1e3 / SHARD_TIMED
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize(dev)
+        for _ in range(SHARD_TIMED):
+            fn()
+        torch.cuda.synchronize(dev)
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize(dev)
+        time.sleep(0.05)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spins = [e for e in events if "spin_kernel" in e.name]
+    work = [e for e in events if "spin_kernel" not in e.name]
+    kept = work and len(spins) == 2 and spins[0].time_range.start < min(
+        e.time_range.start for e in work) and spins[1].time_range.start > max(
+        e.time_range.start for e in work)
+    return {"wall_ms": wall,
+            "busy_ms": busy_ms(work) / SHARD_TIMED if kept else None}
+
+
+def _frame_digest(fb) -> str:
+    import hashlib
+
+    return hashlib.sha256(fb.cpu().view(torch.int32).numpy().tobytes()
+                          ).hexdigest()
+
+
+def _bits_differ(a, b) -> int:
+    """Elements of a and b (same shape, 4-byte types) whose bits differ."""
+    return int((a.contiguous().view(torch.int32)
+                != b.contiguous().view(torch.int32)).sum())
+
+
+def _b1_vs_plain(scene, queue, eye, band, n_dev, layout, per_pixel) -> dict:
+    """B1 against its plain version on this band's own inputs, built as
+    raster_shard.queue_band builds them (tick 0, shader 5): the slot bit
+    for bit, z and the planes where the slot is set -> {"bad", "words"}."""
+    from rustexp_tpu_torch.ops import raster_queue as rq
+    from rustexp_tpu_torch.raster import pipeline as pp
+
+    band_h, cyclic = H // n_dev, layout == "cyclic"
+    colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0, W, H,
+                                                     5)
+    setup, extra, n2, n3 = pp.queue_attr_channels(
+        scene, colors, eye, W, H, per_pixel=per_pixel, ray_world=True,
+        band_h=None if cyclic else band_h,
+        y_shift=0 if cyclic else band * band_h)
+    rows_i, rows_f = rq.gather_rows(queue, rq.pack_table(setup, extra))
+    args = (queue.scal, rows_i, rows_f, n2, n3, band_h, W)
+    zk, sk, lk = rq.raster_attrs_queue_cuda(*args)
+    zp, sp, lp = rq.raster_attrs_queue_plain(*args)
+    mask = sp >= 0
+    bad = (_bits_differ(sk, sp) + _bits_differ(zk[mask], zp[mask])
+           + _bits_differ(lk[:, mask], lp[:, mask]))
+    return {"bad": bad, "words": sp.numel() + int(mask.sum()) * (
+        1 + lp.shape[0])}
+
+
+def _gol_vs_plain(grid, rank, n_dev, backend, k, dev) -> dict:
+    """B4 ("bits") or B8 ("pallas") against its plain version on this
+    rank's own halo-padded block, the rows gol_shard's body hands the
+    kernel (the halo 16-row rounded for "bits", k rows for "pallas")
+    -> {"bad", "words"}."""
+    from rustexp_tpu_torch.ops import gol_bits, gol_stencil
+
+    n = grid.shape[0]
+    r = n // n_dev
+    halo = -(-k // 16) * 16 if backend == "bits" else k
+    block = grid[(torch.arange(-halo, r + halo) + rank * r) % n].to(dev)
+    if backend == "bits":
+        packed = gol_bits.pack_rows(block)
+        got = gol_bits.multi_step_packed_cuda(packed, k)
+        want = gol_bits.multi_step_packed_plain(packed, k)
+    else:
+        g = block.to(torch.float32).contiguous()
+        got = gol_stencil.multi_step_pallas_cuda(g, k)
+        want = gol_stencil.multi_step_pallas_plain(g, k)
+    return {"bad": _bits_differ(got, want), "words": want.numel()}
+
+
+def _b6_vs_plain(arrs, rank, n_dev) -> dict:
+    """B6 in its merge_kv form against sort_kv_plain on this rank's own
+    inputs of the first distributed-sort BH step: the local sort (its
+    Morton codes and global positions, carrying px, py, m, vx, vy) and the
+    first merge (Batcher's split of its sorted chunk against its hypercube
+    partner's, rank ^ 1) -> {"bad", "words"}."""
+    from rustexp_tpu_torch.ops import sort_bitonic as sb
+    from rustexp_tpu_torch.ops.nbody_bh import morton_codes
+
+    px, py, vx, vy, m = arrs
+    n_loc = px.shape[0] // n_dev
+    code = morton_codes(px, py, px.min(), px.max(), py.min(), py.max())
+
+    def chunk(d):
+        s = slice(d * n_loc, (d + 1) * n_loc)
+        gidx = torch.arange(d * n_loc, (d + 1) * n_loc, dtype=torch.int32,
+                            device=px.device)
+        return code[s], gidx, [px[s], py[s], m[s], vx[s], vy[s]]
+
+    (k, g, v), (pk, pg, pv) = (sb.sort_kv_plain(*chunk(d))
+                               for d in (rank, rank ^ 1))
+    pk, pg, pv = pk.flip(0), pg.flip(0), [x.flip(0) for x in pv]
+    mine = (k < pk) | ((k == pk) & (g < pg))
+    keep = mine if ((rank & 1) == 0) == ((rank & 2) == 0) else ~mine
+    split = (torch.where(keep, k, pk), torch.where(keep, g, pg),
+             [torch.where(keep, a, b) for a, b in zip(v, pv)])
+    bad = words = 0
+    for key, gidx, vals in (chunk(rank), split):
+        got, want = sb.merge_kv(key, gidx, vals), sb.sort_kv_plain(
+            key, gidx, vals)
+        bad += (_bits_differ(got[0], want[0]) + _bits_differ(got[1], want[1])
+                + sum(_bits_differ(a, b) for a, b in zip(got[2], want[2])))
+        words += (2 + len(vals)) * n_loc
+    return {"bad": bad, "words": words}
+
+
+def _shard_rank(group, dev) -> dict:
+    """One of SHARD_RANKS gloo ranks on the card: the queue bands of
+    KillerooP and KillerooV in both layouts, the moving form, the G-buffer
+    bands through B3, GoL through B4 ("bits") and B8 ("pallas"), block BH
+    with the distributed sort (B6) and the brute step. Returns rank 0's
+    frames and every rank's digests of them, its shards of the GoL grids
+    and particles, its launches and its times, and B1, B4, B6 and B8 held
+    against their plain versions on this rank's own inputs (after the
+    counted runs, so those launches are not counted)."""
+    from rustexp_tpu_torch.app.multidev import kernel_launches
+    from rustexp_tpu_torch.assets import cubemap, mesh as meshes
+    from rustexp_tpu_torch.ops.nbody_bh import theta_to_k
+    from rustexp_tpu_torch.parallel import collectives as coll
+    from rustexp_tpu_torch.parallel import gol_shard, nbody_shard
+    from rustexp_tpu_torch.parallel import raster_shard
+    from rustexp_tpu_torch.raster import camera, pipeline as pp
+    from rustexp_tpu_torch.sims.nbody import stable_orbits
+
+    n_dev, rank = coll.world(group)
+    out = {"frames": {}, "digests": {}, "launches": {}, "times": {},
+           "shards": {}, "plain": {}}
+
+    def counted(label, fn):
+        before = kernel_launches()
+        res = fn()
+        torch.cuda.synchronize(dev)
+        out["launches"][label] = {k: v - before[k] for k, v in
+                                  kernel_launches().items() if v - before[k]}
+        return res
+
+    def keep(label, fb):
+        out["digests"][label] = _frame_digest(fb)
+        if rank == 0:
+            out["frames"][label] = fb.cpu().view(torch.int32).numpy()
+
+    cam = meshes.mesh_camera(0)
+    eye = camera.camera_eye(cam, 0.0)
+    scene = pp.make_scene(meshes.get_mesh(0), cubemap.get_cm_set(0), dev)
+    for layout in raster_shard.LAYOUTS:
+        caps = raster_shard.band_queue_caps(scene, [eye], w=W, h=H,
+                                            n_dev=n_dev, layout=layout,
+                                            group=group)
+        queue = raster_shard.build_band_queue(scene, eye, caps, w=W, h=H,
+                                              n_dev=n_dev, band=rank,
+                                              layout=layout)
+        for per_pixel in (True, False):
+            label = f"Killeroo{'P' if per_pixel else 'V'} {layout}"
+            render = raster_shard.make_sharded_queue_render(
+                group, scene, eye, w=W, h=H, per_pixel=per_pixel,
+                shader_idx=5, layout=layout)
+            fb, stale = counted(label, lambda: render(scene, queue, eye, 0.0))
+            if bool(stale):
+                raise RuntimeError(f"{label}: stale band queue")
+            keep(label, fb)
+            if per_pixel and layout == "bands":
+                out["times"][f"queue frame {label}"] = _rank_times(
+                    lambda: render(scene, queue, eye, 0.0), dev)
+            out["plain"][f"B1 {label}"] = _b1_vs_plain(
+                scene, queue, eye, rank, n_dev, layout, per_pixel)
+
+    ticks = [i / 60.0 for i in range(SHARD_MOVING_FRAMES)]
+    moving = raster_shard.make_sharded_queue_render_moving(
+        group, scene, [camera.camera_eye(cam, t) for t in ticks], w=W, h=H,
+        per_pixel=True, shader_idx=5)
+
+    def path():
+        frames = []
+        for t in ticks:
+            fb, stale = moving(scene, camera.camera_eye(cam, t), t)
+            if bool(stale):
+                raise RuntimeError(f"moving KillerooP tick {t}: stale caps")
+            frames.append(fb)
+        return frames
+
+    for i, fb in enumerate(counted("KillerooP moving", path)):
+        keep(f"KillerooP moving {i}", fb)
+    e21 = camera.camera_eye(cam, ticks[-1])
+    out["times"]["moving frame KillerooP"] = _rank_times(
+        lambda: moving(scene, e21, ticks[-1]), dev)
+    fb = counted("KillerooV G-buffer bands", lambda: raster_shard.
+                 render_frame_sharded(scene, eye, 0.0, group, w=W, h=H,
+                                      backend="pallas"))
+    keep("KillerooV G-buffer bands", fb)
+
+    for backend, n, k in SHARD_GOL:
+        gen = torch.Generator().manual_seed(n)
+        grid = (torch.rand((n, n), generator=gen) < 0.35).to(torch.int32)
+        local = gol_shard.shard_grid(grid.to(dev), group)
+        step = gol_shard.make_multi_step(group, k=k, backend=backend)
+        label = f"GoL {n}x{n} {backend} k={k}"
+        out["shards"][label] = counted(label, lambda: step(local)).cpu(
+            ).numpy()
+        out["times"][label] = _rank_times(lambda: step(local), dev)
+        out["plain"][f"{'B4' if backend == 'bits' else 'B8'} {label}"] = \
+            _gol_vs_plain(grid, rank, n_dev, backend, k, dev)
+
+    arrs = stable_orbits(torch.Generator().manual_seed(0), SHARD_BH_N,
+                         device=dev)
+    state = nbody_shard.shard_particles(arrs, group)
+    bh = nbody_shard.make_step_bh(group, block=256, k_near=theta_to_k(
+        0.85, SHARD_BH_N // 256))
+    label = f"BH {SHARD_BH_N} distributed sort"
+
+    def steps():
+        st = state
+        for _ in range(SHARD_BH_STEPS):
+            st = bh(*st, 0.01)
+        return st
+
+    out["shards"][label] = [a.cpu().numpy() for a in counted(label, steps)]
+    out["times"][f"BH step {SHARD_BH_N}"] = _rank_times(
+        lambda: bh(*state, 0.01), dev)
+    out["plain"][f"B6 {label}"] = _b6_vs_plain(arrs, rank, n_dev)
+
+    arrs = stable_orbits(torch.Generator().manual_seed(1), SHARD_BRUTE_N,
+                         device=dev)
+    brute = nbody_shard.make_step(group)
+    sl = nbody_shard.shard_particles(arrs, group)
+    label = f"brute {SHARD_BRUTE_N}"
+    out["shards"][label] = [a.cpu().numpy() for a in counted(
+        label, lambda: brute(*sl, 0.01))]
+    out["times"][f"brute step {SHARD_BRUTE_N}"] = _rank_times(
+        lambda: brute(*sl, 0.01), dev)
+    return out
+
+
+def _shard_odd_rank(group, dev) -> dict:
+    """One of SHARD_ODD_RANKS gloo ranks: the BH steps at SHARD_BH_ODD_N,
+    the odd-even transposition sort with B6 on its 32,768-body chunks."""
+    from rustexp_tpu_torch.app.multidev import kernel_launches
+    from rustexp_tpu_torch.ops.nbody_bh import theta_to_k
+    from rustexp_tpu_torch.parallel import nbody_shard
+    from rustexp_tpu_torch.sims.nbody import stable_orbits
+
+    arrs = stable_orbits(torch.Generator().manual_seed(2), SHARD_BH_ODD_N,
+                         device=dev)
+    st = nbody_shard.shard_particles(arrs, group)
+    bh = nbody_shard.make_step_bh(group, block=256, k_near=theta_to_k(
+        0.85, SHARD_BH_ODD_N // 256))
+    for _ in range(SHARD_BH_STEPS):
+        st = bh(*st, 0.01)
+    torch.cuda.synchronize(dev)
+    return {"shards": [a.cpu().numpy() for a in st],
+            "launches": kernel_launches()}
+
+
+def _nccl_rank(group, dev) -> dict:
+    """The NCCL branch of the backend choice: a group of world size 1 on
+    cuda:0, one all_reduce through NCCL and the dry run's steps."""
+    import torch.distributed as dist
+
+    from rustexp_tpu_torch.app.multidev import _dryrun_rank
+
+    t = torch.arange(4, dtype=torch.float32, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    res = _dryrun_rank(group, dev)
+    res["backend"] = dist.get_backend(group)
+    res["all_reduce"] = t.tolist()
+    return res
+
+
+def sharded_paths(dev, card, launches, tmp: str) -> str | None:
+    """The sharded paths (ROADMAP A16) as ranks on the one card: the
+    SHARD_RANKS gloo ranks of _shard_rank, the SHARD_ODD_RANKS of
+    _shard_odd_rank, the CLI's --devices 4 on each experiment and one NCCL
+    rank. Every result is held against this process's one-rank card
+    result: frames at 0 px (cyclic ones after deinterleave_rows), GoL
+    grids and BH particles bit for bit, the brute step within
+    SHARD_BRUTE_TOL. Prints each rank's launches and times. Returns a
+    failure message or None."""
+    import numpy as np
+
+    from rustexp_tpu_torch.app import cli
+    from rustexp_tpu_torch.assets import cubemap, mesh as meshes
+    from rustexp_tpu_torch.core import framebuffer as fbm
+    from rustexp_tpu_torch.ops import gol_bits, gol_stencil, nbody_bh
+    from rustexp_tpu_torch.ops.nbody_forces import step_brute_force
+    from rustexp_tpu_torch.parallel import collectives as coll
+    from rustexp_tpu_torch.parallel import raster_shard
+    from rustexp_tpu_torch.raster import camera, pipeline as pp
+    from rustexp_tpu_torch.sims.gol import GoLExperiment, gol_render
+    from rustexp_tpu_torch.sims.nbody import nbody_render, stable_orbits
+    from rustexp_tpu_torch.sims.sine import sine_frame
+
+    name, limit = (x.strip() for x in card.split(","))
+    shared = (f"{SHARD_RANKS} ranks sharing one {name} (power limit "
+              f"{limit}) over gloo")
+    t0 = time.perf_counter()
+    res = coll.spawn_ranks(_shard_rank, SHARD_RANKS, dev, timeout=600)
+    print(f"sharded: {SHARD_RANKS} gloo ranks ran in "
+          f"{time.perf_counter() - t0:.1f} s (spawn included) [{card}]",
+          flush=True)
+    for r, rr in enumerate(res):
+        print(f"sharded rank {r} launches {json.dumps(rr['launches'])} "
+              f"[{shared}]", flush=True)
+        for k in launches:
+            launches[k] += sum(v.get(k, 0) for v in rr["launches"].values())
+        for label, t in rr["times"].items():
+            busy = ("not measured (a pad record was lost)"
+                    if t["busy_ms"] is None else f"{t['busy_ms']:.4f} ms")
+            print(f"time sharded rank {r} {label}: wall {t['wall_ms']:.4f} "
+                  f"ms (host clock), device busy {busy} (profiler, this "
+                  f"rank's own activities) [{shared}; not a scaling "
+                  f"figure]", flush=True)
+
+    # launches a rank: B1 once a frame rendered, B3 once, B4 and B8 as
+    # planned, B6 (1 local sort + 3 merges) x 24 a BH step
+    band_rows = 2048 // SHARD_RANKS + 2 * 64
+    want = {f"Killeroo{v} {lay}": {"B1": 1} for v in "PV"
+            for lay in ("bands", "cyclic")}
+    want.update({
+            "KillerooP moving": {"B1": SHARD_MOVING_FRAMES},
+            "KillerooV G-buffer bands": {"B3": 1},
+            "GoL 2048x2048 bits k=64": {"B4": gol_bits._b4_plan(
+                band_rows // 32, 2048, 64).launches},
+            "GoL 256x256 pallas k=8": {"B8": gol_stencil._b8_plan(
+                256 // SHARD_RANKS + 16, 256, 8).launches},
+            f"BH {SHARD_BH_N} distributed sort": {
+                "B6": (1 + 3) * SHARD_BH_STEPS * 24},
+            f"brute {SHARD_BRUTE_N}": {}})
+    for rr in res:
+        for label, w in want.items():
+            if rr["launches"][label] != w:
+                return (f"sharded {label}: launches {rr['launches'][label]}"
+                        f", not {w}")
+
+    # each rank's kernels against their plain versions on its own inputs
+    for r, rr in enumerate(res):
+        print(f"sharded rank {r} kernels against their plain versions on "
+              f"its own inputs: " + "; ".join(
+                  f"{label}: {c['bad']} of {c['words']} words differ"
+                  for label, c in rr["plain"].items()) + f" [{shared}]",
+              flush=True)
+        for label, c in rr["plain"].items():
+            if c["bad"] or not c["words"]:
+                return (f"sharded rank {r} {label}: {c['bad']} of "
+                        f"{c['words']} words differ from the plain version")
+
+    # frames: every rank gathered the same frame; rank 0's = one rank's
+    scene = pp.make_scene(meshes.get_mesh(0), cubemap.get_cm_set(0), dev)
+    cam = meshes.mesh_camera(0)
+
+    def one_rank(t, per_pixel=True):
+        eye = camera.camera_eye(cam, t)
+        q = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
+        return pp.render_frame(scene, eye, t, w=W, h=H, per_pixel=per_pixel,
+                               shader_idx=5, backend="queue",
+                               raster_queue=q, show_cm=False)
+
+    refs = {f"Killeroo{'P' if p else 'V'} {lay}": one_rank(0.0, p)
+            for p in (True, False) for lay in raster_shard.LAYOUTS}
+    for i in range(SHARD_MOVING_FRAMES):
+        refs[f"KillerooP moving {i}"] = one_rank(i / 60.0)
+    refs["KillerooV G-buffer bands"] = raster_shard.render_frame_sharded(
+        scene, camera.camera_eye(cam, 0.0), 0.0, None, w=W, h=H,
+        backend="pallas")
+    worst = 0
+    for label, ref in refs.items():
+        got = torch.from_numpy(res[0]["frames"][label])
+        if "cyclic" in label:
+            got = raster_shard.deinterleave_rows(got, SHARD_RANKS)
+        diff = int((got != ref.cpu().view(torch.int32)).sum())
+        same = {rr["digests"][label] for rr in res}
+        worst = max(worst, diff)
+        if diff or len(same) != 1:
+            return (f"sharded {label}: {diff} px differ from the one-rank "
+                    f"card frame, {len(same)} distinct gathered frames")
+    print(f"sharded frames: {len(refs)} frames (KillerooP/V 512x512 in both "
+          f"layouts, {SHARD_MOVING_FRAMES} moving, the G-buffer bands), "
+          f"{worst} px differ from the one-rank card frames [{shared}]",
+          flush=True)
+
+    for backend, n, k in SHARD_GOL:
+        label = f"GoL {n}x{n} {backend} k={k}"
+        gen = torch.Generator().manual_seed(n)
+        grid = (torch.rand((n, n), generator=gen) < 0.35).to(torch.int32)
+        one = (gol_bits.multi_step_swar(grid.to(dev), k) if backend == "bits"
+               else gol_stencil.multi_step_pallas(grid.to(dev), k)).cpu()
+        got = np.concatenate([rr["shards"][label] for rr in res])
+        bad = int((got != one.numpy()).sum())
+        print(f"sharded {label}: {bad} cells differ from one-rank "
+              f"{'B4' if backend == 'bits' else 'B8'}, live "
+              f"{int(one.sum())} [{shared}]", flush=True)
+        if bad:
+            return f"sharded {label}: {bad} cells differ"
+
+    def bh_check(label, got_shards, n, seed, ranks):
+        st = stable_orbits(torch.Generator().manual_seed(seed), n, device=dev)
+        k = nbody_bh.theta_to_k(0.85, n // 256)
+        for _ in range(SHARD_BH_STEPS):
+            st = nbody_bh.step_bh(*st, 256, k, 0.01)
+        bad = sum(int((np.concatenate(g) != a.cpu().numpy()).sum())
+                  for g, a in zip(got_shards, st))
+        print(f"sharded {label}: {bad} of {5 * n} words differ from one-rank "
+              f"step_bh after {SHARD_BH_STEPS} steps [{ranks} ranks sharing "
+              f"one {name} (power limit {limit}) over gloo]", flush=True)
+        return None if bad == 0 else f"sharded {label}: {bad} words differ"
+
+    label = f"BH {SHARD_BH_N} distributed sort"
+    msg = bh_check(label, [[rr["shards"][label][j] for rr in res]
+                           for j in range(5)], SHARD_BH_N, 0, SHARD_RANKS)
+    if msg:
+        return msg
+    arrs = stable_orbits(torch.Generator().manual_seed(1), SHARD_BRUTE_N,
+                         device=dev)
+    want_b = step_brute_force(*arrs, dt=0.01)
+    label = f"brute {SHARD_BRUTE_N}"
+    err = max(float((torch.from_numpy(np.concatenate(
+        [rr["shards"][label][j] for rr in res])) - w.cpu()).abs().max())
+        for j, w in enumerate(want_b))
+    print(f"sharded {label}: largest |difference| {err:.3e} from the "
+          f"one-rank brute step (bound {SHARD_BRUTE_TOL}) [{shared}]",
+          flush=True)
+    if not err <= SHARD_BRUTE_TOL:
+        return f"sharded {label}: {err} from the one-rank step"
+
+    # the odd-even schedule: 3 ranks, B6 on 32,768-body chunks
+    odd = coll.spawn_ranks(_shard_odd_rank, SHARD_ODD_RANKS, dev,
+                           timeout=300)
+    for r, rr in enumerate(odd):
+        got = {k: v for k, v in rr["launches"].items() if v}
+        print(f"sharded odd-even rank {r} launches {json.dumps(got)} "
+              f"[{SHARD_ODD_RANKS} ranks sharing one {name} (power limit "
+              f"{limit}) over gloo]", flush=True)
+        for k in launches:
+            launches[k] += rr["launches"][k]
+        if got != {"B6": (1 + SHARD_ODD_RANKS) * SHARD_BH_STEPS * 24}:
+            return f"sharded odd-even rank {r}: launches {got}"
+    msg = bh_check(f"BH {SHARD_BH_ODD_N} odd-even sort",
+                   [[rr["shards"][j] for rr in odd] for j in range(5)],
+                   SHARD_BH_ODD_N, 2, SHARD_ODD_RANKS)
+    if msg:
+        return msg
+
+    # the CLI's --devices 4: PNGs = the one-rank card frames
+    expect = {}
+    g = GoLExperiment(dev).init(n=256).grid.to(torch.int32)
+    expect["gol"] = []
+    for _ in range(SHARD_CLI_FRAMES):
+        g = gol_stencil.multi_step(g, 8, "roll")
+        expect["gol"].append(gol_render(g, W, H))
+    st = stable_orbits(torch.Generator().manual_seed(0), 256 * 8 * SHARD_RANKS,
+                       device=dev)
+    expect["nbody"] = []
+    for _ in range(SHARD_CLI_FRAMES):
+        st = nbody_bh.step_bh(*st, 256, nbody_bh.theta_to_k(0.85, 32), 0.01)
+        expect["nbody"].append(nbody_render(*st[:4], W, H))
+    expect["rasterizer"] = [one_rank(i / 60.0, False)
+                            for i in range(SHARD_CLI_FRAMES)]
+    expect["sine"] = [sine_frame(W, H, i / 60.0, dev)
+                      for i in range(SHARD_CLI_FRAMES)]
+    per_frame = {"gol": {"B8": 1}, "nbody": {"B6": 4 * 24},
+                 "rasterizer": {"B1": 1}, "sine": {}}
+    for experiment, frames in expect.items():
+        out = os.path.join(tmp, f"dev4_{experiment}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main([experiment, "--devices", str(SHARD_RANKS),
+                           "--frames", str(SHARD_CLI_FRAMES), "--size",
+                           str(W), "--no-overlay", "--out", out])
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        if rc != 0:
+            return f"cli {experiment} --devices {SHARD_RANKS} returned {rc}"
+        diff = sum(png_diff(fbm, f"{out}_{i:03d}.png", fb)
+                   for i, fb in enumerate(frames))
+        got = [json.loads(m.replace("'", '"')) for m in re.findall(
+            r"rank \d+ kernel launches: (\{.*\})", text)]
+        want_l = {k: v * SHARD_CLI_FRAMES
+                  for k, v in per_frame[experiment].items()}
+        if experiment == "rasterizer" and got:
+            # a frame whose queue went stale renders again on every rank,
+            # once its caps are widened
+            want_l["B1"] = max(want_l["B1"], got[0].get("B1", 0))
+        print(f"sharded cli {experiment} --devices {SHARD_RANKS} "
+              f"{W}x{W}: {diff} px of {SHARD_CLI_FRAMES} PNGs differ from "
+              f"the one-rank card frames; launches a rank {got}; "
+              f"{text.strip().splitlines()[-1]}; {wall:.1f} s with the "
+              f"spawn [{shared}]", flush=True)
+        if diff or len(got) != SHARD_RANKS or any(
+                x != want_l for x in got):
+            return (f"sharded cli {experiment}: {diff} px differ, launches "
+                    f"{got}, not {want_l} a rank")
+        for x in got:
+            for k, v in x.items():
+                launches[k] += v
+
+    # one NCCL group of world size 1: the backend choice's NCCL branch
+    nccl = coll.spawn_ranks(_nccl_rank, 1, dev, timeout=300)[0]
+    got = {k: v for k, v in nccl["launches"].items() if v}
+    print(f"sharded NCCL world size 1 on {dev}: backend {nccl['backend']}, "
+          f"all_reduce {nccl['all_reduce']}, dry-run steps "
+          f"{len(nccl['steps'])}, launches {json.dumps(got)} [{card}]",
+          flush=True)
+    if nccl["backend"] != "nccl" or len(nccl["steps"]) != 9:
+        return f"sharded NCCL rank: {nccl['backend']}, {nccl['steps']}"
+    for k in launches:
+        launches[k] += nccl["launches"][k]
+    return None
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel of ptxas's -v report: its name (without the
     namespace and the argument types), registers and spills."""
@@ -2278,6 +2839,11 @@ def main() -> int:
     if msg:
         return fail(msg)
     phase_done("the app shell")
+    with tempfile.TemporaryDirectory() as tmp:
+        msg = sharded_paths(dev, card, launches, tmp)
+    if msg:
+        return fail(msg)
+    phase_done("sharded paths")
     head = {k: suite[k] for k in ("metric", "value", "unit", "vs_baseline")}
     print(f"run_suite (procedural stand-ins for the meshes and the envmap) "
           f"{json.dumps(head)} [{card}]")

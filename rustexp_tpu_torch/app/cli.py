@@ -7,7 +7,9 @@ reference's key characters applied before the run), frames go to PNG,
 and the per-frame status prints to stdout. Everything runs on the card
 (``--device cuda``, the default) unless ``--device cpu`` asks for the
 CPU; a card that is absent or does not run ends the program with a
-message. The sharded ``--devices N`` paths are not ported (ROADMAP A16).
+message. ``--devices N`` runs the experiment on N spawned ranks through
+the sharded paths (app/multidev.py): on the card by default, as gloo CPU
+ranks with ``--device cpu``.
 
 Usage examples:
     python -m rustexp_tpu_torch.app.cli rasterizer --frames 8 --size 512 \\
@@ -15,6 +17,7 @@ Usage examples:
     python -m rustexp_tpu_torch.app.cli gol --frames 4 --keys G
     python -m rustexp_tpu_torch.app.cli nbody --frames 60
     python -m rustexp_tpu_torch.app.cli sine --device cpu --size 64
+    python -m rustexp_tpu_torch.app.cli gol --devices 4 --frames 4
     python -m rustexp_tpu_torch.app.cli bench
 """
 
@@ -81,8 +84,10 @@ def _parser() -> argparse.ArgumentParser:
                    help="additionally assemble the rendered frames into "
                         "one looping animated GIF (core/gif.py)")
     p.add_argument("--devices", type=int, default=1,
-                   help="the sharded N-device paths: not ported (ROADMAP "
-                        "A16); only 1 runs")
+                   help="run the experiment on N spawned ranks through the "
+                        "sharded paths (GoL halos, block BH with the "
+                        "distributed sort, flat-queue raster bands); ranks "
+                        "that share one card talk over gloo")
     p.add_argument("--grid", type=int, default=0, metavar="N",
                    help="gol: N x N grid instead of the reference's 256")
     p.add_argument("--steps-per-frame", type=int, default=0, metavar="K",
@@ -92,10 +97,23 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.devices > 1:
-        raise SystemExit("--devices > 1: the sharded paths are not ported "
-                         "yet (ROADMAP A16); run without --devices")
     dev = require_live_device(args.device)
+
+    if args.devices > 1:
+        from .multidev import run_multidevice
+
+        if args.animate:
+            raise SystemExit("--animate renders on a single device; drop "
+                             "--devices")
+        times = run_multidevice(args.experiment, args.devices, args.frames,
+                                args.size, args.out, overlay=args.overlay,
+                                steps_per_frame=args.steps_per_frame or 8,
+                                grid=args.grid, keys=args.keys,
+                                gif_path=args.gif, device=dev)
+        med = sorted(times)[len(times) // 2]
+        print(f"{len(times)} frames, median {med * 1e3:.2f} ms on "
+              f"{args.devices} ranks ({dev.type})")
+        return 0
 
     if args.experiment == "bench":
         from .benchmark import run_suite

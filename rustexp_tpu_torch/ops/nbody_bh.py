@@ -102,6 +102,46 @@ def near_block_indices(x1, x2, y1, y2, k_near: int, row0=None,
     return torch.argsort(ratio, dim=1, stable=True)[:, :k_near]
 
 
+def block_aggregates(xb, yb, mb):
+    """(msum, cx, cy) of [B, block] blocks: each block's mass and centre
+    of mass (the mass floored at 1e-30 before its reciprocal)."""
+    msum = mb.sum(dim=1)
+    inv = torch.reciprocal(msum.clamp(min=1e-30))
+    return msum, (xb * mb).sum(dim=1) * inv, (yb * mb).sum(dim=1) * inv
+
+
+def forces_on_blocks(xt, yt, xb, yb, mb, msum, cx, cy, idx):
+    """Forces per unit target mass on target blocks xt, yt [nt, block]
+    from the sources xb, yb, mb [B, block] -> (fx, fy) [nt * block]:
+    exact pairs with the source blocks idx [nt, K] names, the monopoles
+    (msum, cx, cy) of every other block. One target block's sums have the
+    same shapes whatever nt is, so a slice of the target blocks gets the
+    same forces as the whole (the sharded step, parallel/nbody_shard.py)."""
+    nt, block = xt.shape
+    # near field: exact pairs, one gathered source block at a time; the
+    # self pairs of the diagonal block add exactly zero (d = 0)
+    fx = torch.zeros_like(xt)
+    fy = torch.zeros_like(yt)
+    for k in range(idx.shape[1]):
+        src = idx[:, k]
+        dx = xb[src][:, None, :] - xt[:, :, None]            # [nt, tgt, src]
+        dy = yb[src][:, None, :] - yt[:, :, None]
+        r = mb[src][:, None, :] / (dx * dx + dy * dy + EPS)
+        fx = fx + (r * dx).sum(dim=2)
+        fy = fy + (r * dy).sum(dim=2)
+
+    # far field: the monopoles of every block outside the near set
+    near = torch.zeros((nt, xb.shape[0]), dtype=torch.bool, device=xt.device)
+    near[torch.arange(nt, device=xt.device)[:, None], idx] = True
+    pxt, pyt = xt.reshape(-1), yt.reshape(-1)
+    dxf = cx[None, :] - pxt[:, None]                                # [n, B]
+    dyf = cy[None, :] - pyt[:, None]
+    rf = msum[None, :] / (dxf * dxf + dyf * dyf + EPS)
+    rf = torch.where(near.repeat_interleave(block, dim=0), 0.0, rf)
+    return (fx.reshape(-1) + (rf * dxf).sum(dim=1),
+            fy.reshape(-1) + (rf * dyf).sum(dim=1))
+
+
 def forces_bh_sorted(px, py, m, block: int, k_near: int):
     """Forces on Morton-sorted particles: the k_near-block exact near field
     plus the block-monopole far field -> (fx, fy), with the target mass."""
@@ -111,34 +151,10 @@ def forces_bh_sorted(px, py, m, block: int, k_near: int):
         raise ValueError(f"N={n}, block={block}, k_near={k_near}: need "
                          f"block | N and 1 < k_near <= N/block")
     xb, yb, mb = (a.reshape(nb, block) for a in (px, py, m))
-    msum = mb.sum(dim=1)
-    inv = torch.reciprocal(msum.clamp(min=1e-30))
-    cx = (xb * mb).sum(dim=1) * inv
-    cy = (yb * mb).sum(dim=1) * inv
+    msum, cx, cy = block_aggregates(xb, yb, mb)
     idx = near_block_indices(xb.amin(1), xb.amax(1), yb.amin(1), yb.amax(1),
                              k_near)                                # [B, K]
-
-    # near field: exact pairs, one gathered source block at a time; the
-    # self pairs of the diagonal block add exactly zero (d = 0)
-    fx = torch.zeros_like(xb)
-    fy = torch.zeros_like(yb)
-    for k in range(k_near):
-        src = idx[:, k]
-        dx = xb[src][:, None, :] - xb[:, :, None]            # [B, tgt, src]
-        dy = yb[src][:, None, :] - yb[:, :, None]
-        r = mb[src][:, None, :] / (dx * dx + dy * dy + EPS)
-        fx = fx + (r * dx).sum(dim=2)
-        fy = fy + (r * dy).sum(dim=2)
-
-    # far field: the monopoles of every block outside the near set
-    near = torch.zeros((nb, nb), dtype=torch.bool, device=px.device)
-    near[torch.arange(nb, device=px.device)[:, None], idx] = True
-    dxf = cx[None, :] - px[:, None]                                 # [N, B]
-    dyf = cy[None, :] - py[:, None]
-    rf = msum[None, :] / (dxf * dxf + dyf * dyf + EPS)
-    rf = torch.where(near.repeat_interleave(block, dim=0), 0.0, rf)
-    fx = fx.reshape(n) + (rf * dxf).sum(dim=1)
-    fy = fy.reshape(n) + (rf * dyf).sum(dim=1)
+    fx, fy = forces_on_blocks(xb, yb, xb, yb, mb, msum, cx, cy, idx)
     return fx * m, fy * m
 
 

@@ -8,14 +8,17 @@ belongs to. The queue STRUCTURE depends only on AABB/tile geometry, so
 callers cache it across frames and re-gather the per-frame rows;
 ``check_queue_valid`` says when the camera moved too far.
 
-Ported here: the three slot orders of ``build_queue`` with
-``row_stride=1``: ``"tri"`` (ascending triangle id within each tile,
-from one pair-key sort), ``"plane"`` (one sort of T keys and run tables
-shifted by each enumeration plane) and ``"direct"`` (counts and slot ids
-read off the coverage matrix), and ``"auto"``, which picks one by size
-as the JAX package does (``resolve_order``). Every order shares one
-chunk layout, in tile order. The kernels race on (z, triangle id), so a
-frame does not depend on the order. The band interleave is ROADMAP A16.
+Ported here: the three slot orders of ``build_queue``: ``"tri"``
+(ascending triangle id within each tile, from one pair-key sort),
+``"plane"`` (one sort of T keys and run tables shifted by each
+enumeration plane) and ``"direct"`` (counts and slot ids read off the
+coverage matrix), and ``"auto"``, which picks one by size as the JAX
+package does (``resolve_order``). Every order shares one chunk layout,
+in tile order. The kernels race on (z, triangle id), so a frame does not
+depend on the order. ``row_stride``/``row_offset`` build one band of the
+cyclic tile-row interleave (parallel/raster_shard.py): the queue covers
+the global tile rows g with g % row_stride == row_offset, and the
+chunks' global tile row tells the kernel where its pixels lie.
 
 Kernel B1 (``csrc/raster_queue.cu``, replacing ``_queue_kernel``) runs
 for CUDA tensors; ``raster_attrs_queue_plain`` is its plain PyTorch
@@ -125,59 +128,78 @@ def resolve_order(order: str, T: int, s_cap: int, m_y: int, m_x: int,
 
 
 @functools.cache
-def _plane_run_index(nty: int, ntx: int, m_y: int, m_x: int,
-                     device: torch.device) -> torch.Tensor:
-    """int64 [n_tiles, R] on `device`: per tile and run, the flat index
-    into the [n_tiles * C] group facts of the run's source group, or
-    n_tiles * C where the source tile is off the frame.
+def _plane_run_index(nty_g: int, ntx: int, m_y: int, m_x: int,
+                     device: torch.device, row_stride: int = 1,
+                     row_offset: int = 0) -> torch.Tensor:
+    """int64 [n_tiles, R] on `device`: per local tile and run, the flat
+    index into the [nty_g * ntx * C] global group facts of the run's
+    source group, or nty_g * ntx * C where the source tile is off the
+    frame.
 
-    A run (dy, dx, sy, sx) of tile (ty, tx) is the group of base tile
-    (ty - dy, tx - dx) at span class (sy - 1) * m_x + (sx - 1); runs are
-    flattened in (dy, dx, sy, sx) order, the slot order of a plane queue
-    (rustexp_tpu/ops/raster_queue.py:209-221, 386-411). ROADMAP A16: an
-    interleaved band would read global tile row ty * row_stride +
-    row_offset here.
+    A run (dy, dx, sy, sx) of tile (gy, tx), gy the global tile row
+    ty * row_stride + row_offset of local row ty, is the group of base
+    tile (gy - dy, tx - dx) at span class (sy - 1) * m_x + (sx - 1); runs
+    are flattened in (dy, dx, sy, sx) order, the slot order of a plane
+    queue (rustexp_tpu/ops/raster_queue.py:209-221, 386-411).
     """
     C = m_y * m_x
     runs = [(dy, dx, (sy - 1) * m_x + (sx - 1))
             for dy in range(m_y) for dx in range(m_x)
             for sy in range(dy + 1, m_y + 1) for sx in range(dx + 1, m_x + 1)]
-    off = nty * ntx * C
+    off = nty_g * ntx * C
+    rows = range(row_offset, nty_g, row_stride)
     return torch.tensor(
-        [[((ty - dy) * ntx + (tx - dx)) * C + cls
-          if ty >= dy and tx >= dx else off for dy, dx, cls in runs]
-         for ty in range(nty) for tx in range(ntx)],
+        [[((gy - dy) * ntx + (tx - dx)) * C + cls
+          if gy >= dy and tx >= dx else off for dy, dx, cls in runs]
+         for gy in rows for tx in range(ntx)],
         dtype=torch.int64).to(device)
 
 
 def build_queue(setup, h: int, w: int, *, s_cap: int, m_y: int, m_x: int,
                 t_cap: int | None = None, order: str = "auto",
+                row_stride: int = 1, row_offset: int = 0,
                 shade_w: int = SHADE_W) -> Queue:
     """Construct the flat queue from a frame's setup.
 
-    rustexp_tpu/ops/raster_queue.py:223 with the whole frame as one band:
-    `order` resolves by resolve_order; then the per-tile counts and slot
-    ids of that order (tri: the pair-key sort :415-450 and slot gather
-    :522-528; plane: one sort of T keys, the group histogram and the
-    shifted run tables :343-414 and :501-521; direct: the coverage
-    matrix's ranks :325-342 and :486-500), the chunk layout every order
-    shares (:452-483) and the shade-block rows list (:535-604). JAX's f32
-    one-hot contractions are integer sums or searches here, exact at any
-    matmul precision. Nothing is read back to the host.
+    rustexp_tpu/ops/raster_queue.py:223: `order` resolves by
+    resolve_order; then the per-tile counts and slot ids of that order
+    (tri: the pair-key sort :415-450 and slot gather :522-528; plane: one
+    sort of T keys, the group histogram and the shifted run tables
+    :343-414 and :501-521; direct: the coverage matrix's ranks :325-342
+    and :486-500), the chunk layout every order shares (:452-483) and the
+    shade-block rows list (:535-604). JAX's f32 one-hot contractions are
+    integer sums or searches here, exact at any matmul precision. Nothing
+    is read back to the host.
+
+    `row_stride`/`row_offset` (:283-290) build one band of the cyclic
+    tile-row interleave: the queue covers the global tile rows g with
+    g % row_stride == row_offset as local tile row g // row_stride.
+    `setup` is then the untranslated whole-frame setup and `h` the whole
+    frame's height; the chunks carry their global tile row (scal column
+    4), and `ranges`/`ylim` stay global, so check_queue_valid does not
+    depend on the interleave.
     """
     dev = setup.valid.device
     i32 = dict(dtype=torch.int32, device=dev)
-    nty, ntx = h // TILE_H, w // TILE_W
+    nty_g, ntx = h // TILE_H, w // TILE_W        # the whole frame's tiles
+    if nty_g % row_stride:
+        raise ValueError(
+            f"{nty_g} tile rows not divisible by row_stride={row_stride}")
+    if not 0 <= row_offset < row_stride:
+        raise ValueError(f"row_offset={row_offset} outside [0, "
+                         f"{row_stride})")
+    nty = nty_g // row_stride                    # the local tile rows
     n_tiles = nty * ntx
     T = setup.valid.shape[0]
     valid = setup.valid
-    order = resolve_order(order, T, s_cap, m_y, m_x, n_tiles)
+    order = resolve_order(order, T, s_cap, m_y, m_x, nty_g * ntx)
 
     ty0, ty1, tx0, tx1 = tile_ranges(setup)
     span_y = ty1 - ty0 + 1
     span_x = tx1 - tx0 + 1
 
-    ty_ar = torch.arange(nty, **i32)
+    # local tile rows compare at their global indices
+    ty_ar = torch.arange(nty, **i32) * row_stride + row_offset
     tx_ar = torch.arange(ntx, **i32)
     cov_y = (ty_ar[None, :] >= ty0[:, None]) & (ty_ar[None, :] <= ty1[:, None])
     cov_x = (tx_ar[None, :] >= tx0[:, None]) & (tx_ar[None, :] <= tx1[:, None])
@@ -199,24 +221,27 @@ def build_queue(setup, h: int, w: int, *, s_cap: int, m_y: int, m_x: int,
         # Plane (dy, dx) maps triangle i to tile base(i) + (dy, dx), a
         # constant shift, so one ascending sort of the T keys (base tile,
         # span class, tri) orders every plane; a tile's segment is the
-        # concatenation of <= R runs of that one sorted array.
+        # concatenation of <= R runs of that one sorted array. The keys
+        # and groups cover the whole frame; only the run table picks the
+        # band's tiles.
         C = m_y * m_x
         sy = span_y.clamp(1, m_y)
         sx = span_x.clamp(1, m_x)
         group = (ty0 * ntx + tx0) * C + (sy - 1) * m_x + (sx - 1)
         tri = torch.arange(T, **i32)
-        # keys < n_tiles * C * T < 2^31 (resolve_order's guard)
+        n_g = nty_g * ntx * C
+        # keys < n_g * T < 2^31 (resolve_order's guard)
         skey = torch.sort(torch.where(valid, group * T + tri,
-                                      n_tiles * C * T)).values
+                                      n_g * T)).values
         stri = skey % T
         # Group lengths and starts; entry n_g is an empty group that runs
         # from off-frame source tiles read (length 0: no rank selects
         # them, so their start is never used).
-        n_g = n_tiles * C
         glen = torch.zeros(n_g + 1, **i32).scatter_add_(
             0, torch.where(valid, group, n_g).long(), valid.to(torch.int32))
         gstart = torch.cumsum(glen, 0, dtype=torch.int32) - glen
-        run_idx = _plane_run_index(nty, ntx, m_y, m_x, dev)
+        run_idx = _plane_run_index(nty_g, ntx, m_y, m_x, dev, row_stride,
+                                   row_offset)
         run_len = glen[run_idx]                                 # [nT, R]
         run_start = gstart[run_idx]
         counts = run_len.sum(1, dtype=torch.int32)
@@ -230,8 +255,9 @@ def build_queue(setup, h: int, w: int, *, s_cap: int, m_y: int, m_x: int,
         t_tx = tx0[:, None, None] + dx[None, None, :]
         ok = (valid[:, None, None]
               & (dy[None, :, None] < span_y[:, None, None])
-              & (dx[None, None, :] < span_x[:, None, None]))
-        tile_id = t_ty * ntx + t_tx
+              & (dx[None, None, :] < span_x[:, None, None])
+              & (t_ty % row_stride == row_offset))   # the band's rows only
+        tile_id = _fdiv(t_ty, row_stride) * ntx + t_tx         # local
         tri_id = torch.arange(T, **i32)[:, None, None].expand_as(tile_id)
         big = n_tiles * T
         skey = torch.sort(torch.where(ok, tile_id * T + tri_id, big)
@@ -241,7 +267,8 @@ def build_queue(setup, h: int, w: int, *, s_cap: int, m_y: int, m_x: int,
         counts = bounds[1:] - bounds[:-1]
 
     # Chunk-aligned segment layout; pad chunks go to the extra tile row
-    # ty = nty, which the raster wrappers slice off.
+    # ty = nty, which the raster wrappers slice off. Column 4 is the
+    # global tile row, at which the kernels evaluate the edges.
     cpt = _fdiv(counts + (CHUNK - 1), CHUNK)
     starts = torch.cumsum(cpt, 0, dtype=torch.int32) - cpt
     total_chunks = cpt.sum()
@@ -257,7 +284,8 @@ def build_queue(setup, h: int, w: int, *, s_cap: int, m_y: int, m_x: int,
     cnt = torch.where(chunk_live, cnt, 0)
     ty = torch.where(chunk_live, _fdiv(tile_of, ntx), nty)
     tx = torch.where(chunk_live, tile_of % ntx, 0)
-    scal = torch.stack([ty, tx, first.to(torch.int32), cnt, ty], dim=1)
+    scal = torch.stack([ty, tx, first.to(torch.int32), cnt,
+                        ty * row_stride + row_offset], dim=1)
 
     lane = torch.arange(CHUNK, **i32)
     slot_ok = lane[None, :] < cnt[:, None]
@@ -297,7 +325,8 @@ def build_queue(setup, h: int, w: int, *, s_cap: int, m_y: int, m_x: int,
 
     # Occupied shade-block list: a block (one shade_w-wide span of one
     # row) can hold coverage only inside the ROW_MARGIN-expanded extents
-    # of the pair AABBs landing in its tile.
+    # of the pair AABBs landing in its tile. Block ids are local; the
+    # test runs at the block's global pixel row.
     nsx = w // shade_w
     spt = TILE_W // shade_w
     n_rb = nty * TILE_H * nsx
@@ -309,7 +338,9 @@ def build_queue(setup, h: int, w: int, *, s_cap: int, m_y: int, m_x: int,
     ymax_t = torch.where(cov, ymax_tri[:, None], 0).amax(dim=0)
     rbid = torch.arange(n_rb, **i32)
     rb_tile = _fdiv(_fdiv(rbid, nsx), TILE_H) * ntx + _fdiv(rbid % nsx, spt)
-    rb_y = _fdiv(rbid, nsx)
+    rb_ly = _fdiv(rbid, nsx)
+    rb_y = ((_fdiv(rb_ly, TILE_H) * row_stride + row_offset) * TILE_H
+            + rb_ly % TILE_H)
     occ_rb = ((counts[rb_tile] > 0)
               & (rb_y >= ymin_t[rb_tile]) & (rb_y < ymax_t[rb_tile]))
     if shade_w == TILE_W:
@@ -732,18 +763,22 @@ def suggest_queue_config(setup_stats, margin: float = 1.3,
     return s_cap, int(sy) + 1, int(sx) + 1, t_cap
 
 
-def queue_stats(setup, h: int, w: int):
+def queue_stats(setup, h: int, w: int, row_stride: int = 1,
+                row_offset: int = 0):
     """(CHUNK count, max span_y, max span_x, occupied SHADE_W blocks,
     occupied TILE_W blocks) as 0-d tensors
-    (rustexp_tpu/ops/raster_queue.py:1059, whole frame)."""
+    (rustexp_tpu/ops/raster_queue.py:1059). `row_stride`/`row_offset`
+    count only one band of the cyclic interleave (build_queue's); the
+    span maxima stay global, as build_queue enumerates global spans."""
     dev = setup.valid.device
     i32 = dict(dtype=torch.int32, device=dev)
-    nty, ntx = h // TILE_H, w // TILE_W
+    ntx = w // TILE_W
+    nty = h // TILE_H // row_stride
     ty0, ty1, tx0, tx1 = tile_ranges(setup)
     span_y = torch.where(setup.valid, ty1 - ty0 + 1, 1)
     span_x = torch.where(setup.valid, tx1 - tx0 + 1, 1)
 
-    ty = torch.arange(nty, **i32)
+    ty = torch.arange(nty, **i32) * row_stride + row_offset   # global rows
     tx = torch.arange(ntx, **i32)
     cov_y = (ty[None, :] >= ty0[:, None]) & (ty[None, :] <= ty1[:, None])
     cov_x = (tx[None, :] >= tx0[:, None]) & (tx[None, :] <= tx1[:, None])
@@ -760,7 +795,7 @@ def queue_stats(setup, h: int, w: int):
     xmax_t = torch.where(covf, (setup.max_x + ROW_MARGIN).clamp(max=w)[:, None],
                          0).amax(dim=0)
     tiles = torch.arange(nty * ntx, **i32)
-    t_lo = _fdiv(tiles, ntx) * TILE_H
+    t_lo = (_fdiv(tiles, ntx) * row_stride + row_offset) * TILE_H  # global
     rows_per_tile = (torch.minimum(ymax_t, t_lo + TILE_H)
                      - torch.maximum(ymin_t, t_lo)).clamp(0, TILE_H)
     spt = TILE_W // SHADE_W
@@ -774,6 +809,8 @@ def queue_stats(setup, h: int, w: int):
     return (total_chunks, span_y.max(), span_x.max(), occ_fine, occ_tile)
 
 
-def read_queue_stats(setup, h: int, w: int) -> tuple:
+def read_queue_stats(setup, h: int, w: int, row_stride: int = 1,
+                     row_offset: int = 0) -> tuple:
     """queue_stats as five Python ints, read back from the device at once."""
-    return tuple(torch.stack(queue_stats(setup, h, w)).tolist())
+    return tuple(torch.stack(queue_stats(setup, h, w, row_stride,
+                                         row_offset)).tolist())

@@ -13,8 +13,10 @@ Kernel B6 (csrc/sort_radix.cu, replacing ``_make_kernel`` and
 carries one permutation and gathers the payloads once; it runs for CUDA
 tensors. sort_kv_plain, a stable torch.sort of (key, idx) and gathers, is
 its plain version and serves CPU tensors. The same sort and gathers are
-the kernel's library yardstick on the card. merge_kv waits for the
-sharded sort (ROADMAP A16).
+the kernel's library yardstick on the card. merge_kv, the merge step of
+the distributed sort (parallel/sort_shard.py), is the same sort with the
+explicit idx: JAX's merge network sorts a bitonic input in log n stages,
+and B6 sorts any input, so the result is the same function.
 """
 
 from __future__ import annotations
@@ -116,14 +118,39 @@ def sort_kv(key, values, idx=None):
     """Stable sort of int32 `key` carrying `values` (list of f32/int32
     [n]) -> (sorted_key, sorted_values). `idx` (int32 [n], distinct)
     replaces the positions as the tiebreak. CUDA tensors launch kernel
-    B6, CPU tensors take its plain version."""
+    B6, CPU tensors take its plain version (merge_kv)."""
+    skey, _, svals = merge_kv(key, idx, values)
+    return skey, svals
+
+
+def _substage_table(n: int) -> tuple[list[int], list[int]]:
+    """(j, k) per compare-exchange substage of the n-element bitonic
+    network (a copy of rustexp_tpu/ops/sort_bitonic.py:81); the
+    distributed sort's hypercube schedule over n ranks."""
+    js, ks = [], []
+    k = 2
+    while k <= n:
+        j = k // 2
+        while j >= 1:
+            js.append(j)
+            ks.append(k)
+            j //= 2
+        k *= 2
+    return js, ks
+
+
+def merge_kv(key, idx, values):
+    """Sort by (key, idx), carrying `values` -> (key, idx, values): the
+    merge of a (key, idx)-bitonic sequence
+    (rustexp_tpu/ops/sort_bitonic.py:261), and any other input too. An
+    explicit idx must be distinct; None means the positions. CUDA tensors
+    launch kernel B6 (24 grid launches with an explicit idx), CPU tensors
+    take sort_kv_plain."""
     _check(key, key if idx is None else idx, values)
     if key.device.type == "cuda":
-        skey, _, svals = sort_kv_cuda(
-            key.contiguous(), None if idx is None else idx.contiguous(),
-            [v.contiguous() for v in values])
-    elif key.device.type == "cpu":
-        skey, _, svals = sort_kv_plain(key, idx, values)
-    else:
-        raise ValueError(f"no sort for device {key.device}")
-    return skey, svals
+        return sort_kv_cuda(key.contiguous(),
+                            None if idx is None else idx.contiguous(),
+                            [v.contiguous() for v in values])
+    if key.device.type == "cpu":
+        return sort_kv_plain(key, idx, values)
+    raise ValueError(f"no sort for device {key.device}")

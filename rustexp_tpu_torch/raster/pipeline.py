@@ -247,20 +247,38 @@ def inv_world_to_vp(eye, w: int, h: int):
     return _mm4_exact(_mm4_exact(inv_look, inv_persp), inv_vpm)
 
 
-def transform_vertices(scene: Scene, eye, w: int, h: int):
-    """Mesh space -> (viewport vp with 1/w, world positions, world normals)
-    per vertex (rustexp_tpu/raster/pipeline.py:270), including the
-    reference's viewport-before-divide quirk."""
-    m = _world_to_vp_exact(_host_eye(eye), w, h).to(scene.positions.device)
-    pos_h = torch.cat([scene.positions,
-                       scene.positions.new_ones((scene.positions.shape[0], 1))],
+def _transform_points(scene: Scene, positions, normals, eye, w: int,
+                      h: int):
+    """(vp with 1/w, world positions, world normals) of [P, 3] mesh-space
+    points and normals: transform_vertices' arithmetic on any rows."""
+    m = _world_to_vp_exact(_host_eye(eye), w, h).to(positions.device)
+    pos_h = torch.cat([positions, positions.new_ones((positions.shape[0], 1))],
                       dim=1)
     world_h = _mv4_exact(scene.ndim, pos_h.T).T
     clip = _mv4_exact(m, world_h.T).T
     inv_w = 1.0 / clip[:, 3]
     vp = torch.cat([clip[:, :3] * inv_w[:, None], inv_w[:, None]], dim=1)
-    n_world = _mv3_exact(scene.it33, scene.normals.T).T
+    n_world = _mv3_exact(scene.it33, normals.T).T
     return vp, world_h[:, :3], n_world
+
+
+def transform_vertices(scene: Scene, eye, w: int, h: int):
+    """Mesh space -> (viewport vp with 1/w, world positions, world normals)
+    per vertex (rustexp_tpu/raster/pipeline.py:270), including the
+    reference's viewport-before-divide quirk."""
+    return _transform_points(scene, scene.positions, scene.normals, eye, w, h)
+
+
+def transform_corners(scene: Scene, eye, w: int, h: int):
+    """De-indexed corner transform -> (vp_c f32 [3T, 4], n_c f32 [3T, 3]),
+    corner j of triangle t at row 3t + j (rustexp_tpu/raster/pipeline.py:326).
+    The JAX Scene carries the de-indexed corners; here they are gathered
+    from the vertices, and each row's arithmetic is transform_vertices',
+    so the result equals vp[tris.reshape(-1)] bit for bit."""
+    flat = scene.tris.reshape(-1).long()
+    vp_c, _, n_c = _transform_points(scene, scene.positions[flat],
+                                     scene.normals[flat], eye, w, h)
+    return vp_c, n_c
 
 
 def transform_corners_planar(scene: Scene, eye, w: int, h: int):
@@ -294,7 +312,8 @@ def vertex_colors(scene: Scene, eye, tick, w: int, h: int, shader_idx: int):
 
 
 def queue_attr_channels(scene: Scene, colors, eye, w: int, h: int, *,
-                        per_pixel: bool, ray_world: bool = True):
+                        per_pixel: bool, ray_world: bool = True,
+                        band_h: int | None = None, y_shift: int = 0):
     """Triangle setup and the kernel's attribute channels for one frame
     -> (setup, extra, n2, n3) (rustexp_tpu/raster/pipeline.py:535-570).
 
@@ -303,10 +322,13 @@ def queue_attr_channels(scene: Scene, colors, eye, w: int, h: int, *,
     are 1/w and RGB/w; per-pixel adds three-weight planes: with ray_world
     n3 = 3 normal planes (world positions are unprojected from the pixel),
     without it n3 = 6, world position then normal, interpolated like the
-    reference.
+    reference. `band_h`/`y_shift` set up the band_h rows from global row
+    y_shift of the w x h frame, translated after the snap (the band
+    renderer, parallel/raster_shard.py); the planes do not move.
     """
     xs, ys, zs, iw, n_c, world_c = transform_corners_planar(scene, eye, w, h)
-    setup = setup_triangles_planar(xs, ys, zs, w, h)
+    setup = setup_triangles_planar(xs, ys, zs, w,
+                                   h if band_h is None else band_h, y_shift)
     one = torch.ones_like(iw[0])
 
     if per_pixel:
@@ -517,15 +539,18 @@ def _blocks(rows, w: int, h: int, block_w: int):
 
 def _shade_blocks(rows, rows_g, padr, maskc, zc, linc, scene: Scene, eye,
                   tick, shader_idx: int, bg_fb, w: int, h: int, block_w: int,
-                  per_pixel: bool, ray_world: bool):
+                  per_pixel: bool, ray_world: bool, y0: int = 0,
+                  full_h: int | None = None, y_rows=None):
     """Shade compacted blocks and scatter them over the background:
     _shade_compacted's and _shade_deferred's common tail
     (rustexp_tpu/raster/pipeline.py:661-687, 737-766).
 
     maskc, zc and the planes linc are [Rc, block_w] over the blocks
-    `rows` lists (rows_g and padr from _blocks). V mode interpolates colors only; per-pixel shades, with
-    world positions unprojected from each pixel's (x, y, z) and 1/w
-    (ray_world) or interpolated (linc[4:7], normals linc[7:10]).
+    `rows` lists (rows_g and padr from _blocks). V mode interpolates
+    colors only; per-pixel shades, with world positions unprojected from
+    each pixel's (x, y, z) and 1/w (ray_world) or interpolated (linc[4:7],
+    normals linc[7:10]). The rays of a band are unprojected at global
+    rows: local row y is y0 + y of a full_h-row frame, or y_rows[y].
     """
     ntx = w // block_w
     n_blk = h * ntx
@@ -534,12 +559,17 @@ def _shade_blocks(rows, rows_g, padr, maskc, zc, linc, scene: Scene, eye,
     if per_pixel:
         if ray_world:
             nc = torch.stack([p_ * wrc for p_ in linc[4:7]], dim=-1)
-            yc = torch.div(rows_g, ntx, rounding_mode="floor").to(
-                torch.float32)[:, None]
+            ly = torch.div(rows_g, ntx, rounding_mode="floor")
+            if y_rows is None:
+                yc = (ly + y0).to(torch.float32)[:, None]
+            else:
+                yc = torch.as_tensor(y_rows).to(
+                    zc.device, torch.float32)[ly][:, None]
             xc = ((rows_g % ntx) * block_w).to(torch.float32)[:, None] \
                 + torch.arange(block_w, dtype=torch.float32,
                                device=zc.device)[None, :]
-            M = inv_world_to_vp(eye, w, h).tolist()
+            M = inv_world_to_vp(eye, w, h if full_h is None
+                                else full_h).tolist()
             pc = torch.stack(
                 [wrc * (M[i][0] * xc + M[i][1] * yc + M[i][2] * zc + M[i][3])
                  for i in range(3)], dim=-1)
@@ -560,9 +590,10 @@ def _shade_blocks(rows, rows_g, padr, maskc, zc, linc, scene: Scene, eye,
 
 def _shade_compacted(rows, scene: Scene, z, mask, lin, eye, tick,
                      shader_idx: int, bg_fb, w: int, h: int,
-                     block_w: int = SHADE_W, ray_world: bool = True):
+                     block_w: int = SHADE_W, ray_world: bool = True,
+                     y0: int = 0, full_h: int | None = None, y_rows=None):
     """Deferred per-pixel shading over OCCUPIED shade blocks only
-    (rustexp_tpu/raster/pipeline.py:690, whole frame).
+    (rustexp_tpu/raster/pipeline.py:690).
 
     `rows` (int32 [Rc], entries >= h*(w//block_w) are padding) lists the
     block_w-wide row spans that can hold coverage; the planes are gathered
@@ -572,12 +603,20 @@ def _shade_compacted(rows, scene: Scene, z, mask, lin, eye, tick,
     without it (the bins path, and the queue path's ray_world=False)
     lin[4:7] and lin[7:10] are the interpolated world positions and
     normals.
+
+    A band of a taller frame (parallel/raster_shard.py) has `h` rows of
+    its own while the rays are unprojected in the whole frame: `y0` is
+    the band's first global row and `full_h` the frame's height, or
+    `y_rows` ([h] ints) maps each local row to its global row (the cyclic
+    tile-row interleave). The planes themselves do not depend on where
+    the band lies.
     """
     rows_g, padr, comp = _blocks(rows, w, h, block_w)
     return _shade_blocks(rows, rows_g, padr, comp(mask),
                          comp(z) if ray_world else None,
                          [comp(p_) for p_ in lin], scene, eye, tick,
-                         shader_idx, bg_fb, w, h, block_w, True, ray_world)
+                         shader_idx, bg_fb, w, h, block_w, True, ray_world,
+                         y0=y0, full_h=full_h, y_rows=y_rows)
 
 
 def _shade_deferred(queue, scene: Scene, z, slot, rows_flat, n2: int,
@@ -619,15 +658,18 @@ def _shade_deferred(queue, scene: Scene, z, slot, rows_flat, n2: int,
 
 
 def background(bg_idx: int, w: int, h: int, device: torch.device,
-               y0: int = 0, full_h: int | None = None):
+               y0: int = 0, full_h: int | None = None, y_rows=None):
     """Vertical gradient packed without gamma, int32 [h, w]
     (rustexp_tpu/raster/pipeline.py:774; rasterizer.rs:1268-1299).
     Evaluated on the host (a CUDA division by a scalar multiplies by its
     reciprocal) and copied to `device`. `y0`/`full_h` evaluate a band of
-    a taller frame's gradient at its global rows (the band renderer)."""
+    a taller frame's gradient at its global rows (the band renderers);
+    `y_rows` ([h] ints, in place of y0) gives each local row its global
+    row, as the cyclic tile-row interleave needs."""
     start, end = BACKGROUNDS[bg_idx]
-    pos = torch.arange(y0, y0 + h, dtype=torch.float32) / float(
-        (h if full_h is None else full_h) - 1)
+    ys = (torch.arange(y0, y0 + h, dtype=torch.float32) if y_rows is None
+          else torch.as_tensor(y_rows).to("cpu", torch.float32))
+    pos = ys / float((h if full_h is None else full_h) - 1)
     col = (torch.tensor(start)[None, :] * (1.0 - pos)[:, None]
            + torch.tensor(end)[None, :] * pos[:, None])
     row = pack_abgr32(col[:, 0], col[:, 1], col[:, 2])

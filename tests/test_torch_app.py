@@ -296,18 +296,24 @@ def test_turntable_untileable_takes_the_auto_backend(tmp_path):
                               jfb.read_png(str(tmp_path / f"j_{i:04d}.png")))
 
 
-def test_cli_refuses_what_it_cannot_run(monkeypatch):
-    """--devices 2 names ROADMAP A16; --animate needs the rasterizer; the
-    benchmark refuses the CPU; and without --device cpu, on a machine
-    with no card, the CLI exits non-zero rather than run on the CPU."""
-    with pytest.raises(SystemExit, match="A16"):
-        cli.main(["gol", "--device", "cpu", "--devices", "2"])
+def test_cli_refuses_what_it_cannot_run(monkeypatch, capsys):
+    """--devices 2 runs (two gloo CPU ranks) and --animate with --devices
+    is refused; --animate needs the rasterizer; the benchmark refuses the
+    CPU; and without --device cpu, on a machine with no card, the CLI
+    exits non-zero rather than run on the CPU."""
+    assert cli.main(["sine", "--device", "cpu", "--devices", "2",
+                     "--frames", "1", "--size", "64"]) == 0
+    assert "on 2 ranks (cpu)" in capsys.readouterr().out
+    with pytest.raises(SystemExit, match="drop --devices"):
+        cli.main(["rasterizer", "--device", "cpu", "--devices", "2",
+                  "--animate", "2"])
     with pytest.raises(SystemExit, match="rasterizer"):
         cli.main(["gol", "--device", "cpu", "--animate", "2"])
     with pytest.raises(ValueError, match="times the card"):
         cli.main(["bench", "--device", "cpu", "--runs", "1"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    for argv in (["sine", "--frames", "1"], ["bench"]):
+    for argv in (["sine", "--frames", "1"], ["bench"],
+                 ["sine", "--devices", "2"]):
         with pytest.raises(SystemExit) as e:
             cli.main(argv)
         assert e.value.code not in (None, 0) and "--device cpu" in str(

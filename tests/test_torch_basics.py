@@ -129,9 +129,9 @@ def test_shader_table_names_match_jax():
 def test_port_imports_no_jax():
     """The port runs where jax is not installed and keeps its own copies
     of what it needs: importing every module of it (in a fresh
-    interpreter), the GoL, N-body, G-buffer, band-rendering and app-shell
-    modules among them, must leave jax and every rustexp_tpu module out
-    of sys.modules."""
+    interpreter), the GoL, N-body, G-buffer, band-rendering, app-shell
+    and sharded (parallel/, app/multidev) modules among them, must leave
+    jax and every rustexp_tpu module out of sys.modules."""
     code = (
         "import sys, pkgutil, importlib, rustexp_tpu_torch\n"
         "for m in pkgutil.walk_packages(rustexp_tpu_torch.__path__,\n"
@@ -144,7 +144,10 @@ def test_port_imports_no_jax():
         "from rustexp_tpu_torch.ops import gol_bits, gol_stencil, nbody_bh\n"
         "from rustexp_tpu_torch.ops import nbody_pallas, sort_bitonic\n"
         "from rustexp_tpu_torch.ops import raster_xla\n"
-        "from rustexp_tpu_torch.parallel import raster_shard\n"
+        "from rustexp_tpu_torch.parallel import raster_shard, collectives\n"
+        "from rustexp_tpu_torch.parallel import gol_shard, sort_shard\n"
+        "from rustexp_tpu_torch.parallel import nbody_shard\n"
+        "from rustexp_tpu_torch.app import multidev\n"
         "from rustexp_tpu_torch.app import animate, cli, viewer\n"
         "from rustexp_tpu_torch.core import checkpoint, font, framebuffer\n"
         "from rustexp_tpu_torch.core import gif, platform, prewarm, trace\n"

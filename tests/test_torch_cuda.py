@@ -624,3 +624,65 @@ def test_morton_sort_routes_agree_on_card(monkeypatch):
     b = bh.morton_sort(px, py, m, vx, vy)
     for x, y in zip(a, b):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", raster_shard.LAYOUTS)
+@pytest.mark.parametrize("per_pixel", [False, True])
+def test_b1_kernel_matches_plain_on_band_queues(layout, per_pixel):
+    """B1 on each of 4 band queues of KillerooP/V at 512x512: translated
+    contiguous bands and the cyclic interleave, whose chunks carry global
+    tile rows the kernel must evaluate at. Slot bit for bit, z and planes
+    under slot >= 0."""
+    dev = _card()
+    n_dev = 4
+    band_h = H // n_dev
+    cyclic = layout == "cyclic"
+    scene = pp.make_scene(mesh.get_mesh(0), cubemap.get_cm_set(0), dev)
+    eye = camera.camera_eye(mesh.mesh_camera(0), 0.0)
+    colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0, W, H, 5)
+    caps = raster_shard.band_queue_caps(scene, [eye], w=W, h=H, n_dev=n_dev,
+                                        layout=layout)
+    for band in range(n_dev):
+        queue = raster_shard.build_band_queue(scene, eye, caps, w=W, h=H,
+                                              n_dev=n_dev, band=band,
+                                              layout=layout)
+        setup, extra, n2, n3 = pp.queue_attr_channels(
+            scene, colors, eye, W, H, per_pixel=per_pixel,
+            band_h=None if cyclic else band_h,
+            y_shift=0 if cyclic else band * band_h)
+        rows_i, rows_f = rq.gather_rows(queue, rq.pack_table(setup, extra))
+        args = (queue.scal, rows_i, rows_f, n2, n3, band_h, W)
+        zk, sk, lk = rq.raster_attrs_queue_cuda(*args)
+        zp, sp, lp = rq.raster_attrs_queue_plain(*args)
+        mask = sp >= 0
+        assert torch.equal(sk, sp) and mask.any(), band
+        assert torch.equal(zk[mask].view(torch.int32),
+                           zp[mask].view(torch.int32))
+        assert torch.equal(lk[:, mask].view(torch.int32),
+                           lp[:, mask].view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 32768])
+def test_b6_merge_kv_matches_plain_on_card(n):
+    """B6 in its merge_kv form (the distributed sort's merge): a bitonic
+    (key, gidx) sequence with heavy ties, one half of Batcher's split of
+    two sorted runs, against sort_kv_plain; 24 launches (explicit idx)."""
+    dev = _card()
+    gen = torch.Generator().manual_seed(n)
+    key = torch.randint(-20, 20, (2 * n,), generator=gen, dtype=torch.int32)
+    gidx = torch.randperm(2 * n, generator=gen).to(torch.int32)
+    val = torch.randn(2 * n, generator=gen)
+    k2, g2, (v2,) = sb.sort_kv_plain(key, gidx, [val])
+    a_k, a_g, a_v = k2[:n], g2[:n], v2[:n]
+    b_k, b_g, b_v = k2[n:].flip(0), g2[n:].flip(0), v2[n:].flip(0)
+    mine = (a_k < b_k) | ((a_k == b_k) & (a_g < b_g))
+    key, gidx = torch.where(mine, a_k, b_k), torch.where(mine, a_g, b_g)
+    val = torch.where(mine, a_v, b_v)
+    launches = sb.sort_kv_cuda.launches
+    kk, gk, (vk,) = sb.merge_kv(key.to(dev), gidx.to(dev), [val.to(dev)])
+    assert sb.sort_kv_cuda.launches == launches + 24
+    kp, gp, (vp,) = sb.sort_kv_plain(key, gidx, [val])
+    assert torch.equal(kk.cpu(), kp) and torch.equal(gk.cpu(), gp)
+    assert torch.equal(vk.cpu().view(torch.int32), vp.view(torch.int32))
