@@ -60,7 +60,13 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      (auto -> B4, pallas -> B8); the N-body Experiment at N = 131,072
      (theta 0.85 -> block BH, its Morton sort B6; theta 0 -> brute force,
      B5) and at N = 10,000 (BH, argsort); bench_gol (256^2, 2048^2) and
-     bench_nbody (brute and BH at 131,072). Each raster frame must be more
+     bench_nbody (brute and BH at 131,072); the seeded states
+     (seeded_states below): jax.random's known answers (KAT_*) drawn on
+     the card, the GoL R grid at 2048^2, stable orbits at 131,072 and the
+     W key's disk of 10,000 drawn on the card equal to the CPU's word for
+     word, their draws timed, B4, B5 and B6 on them against their plain
+     versions, and the GoL Experiment with backend "bits_banded" (-> B4,
+     counted) from the R grid. Each raster frame must be more
      than background and match the port's CPU frame within 0.3% of pixels
      (the repo's golden bound, tests/test_golden.py); the xla, pallas and
      B3 band frames must equal each other and the deferred frames the
@@ -218,6 +224,32 @@ NBODY_FRAME_FRAC = 0.01  # tests/test_golden.py's N-body bound
 GOL_BENCH_GENS = 65536
 NBODY_BENCH_STEPS = {"bh": 16, "pallas": 32}
 BENCH_RUNS = 3
+# The seeded states (rustexp_tpu_torch/core/prng.py, jax.random's
+# threefry2x32). Known answers drawn with jax.random on the CPU (jax
+# 0.9.0, jax_threefry_partitionable on, x64 off) and pasted in:
+# split(PRNGKey(0)); uniform(PRNGKey(0), (4,)) at the three bounds the
+# JAX package draws with, as float32 bits; the GoL Experiment's grid after
+# init(n=2048, seed=0) and an R key, its live cells and four 32-cell words
+# ((row, first column): cell c of a word at bit c); and
+# stable_orbits(PRNGKey(0), 131072)'s particles KAT_ORBITS_AT as float32
+# bits, which the port draws within SEEDED_ULPS (XLA:CPU's cos and sin
+# are not correctly rounded; the port's are, rustexp_tpu_torch/ops/ieee.py).
+KAT_SPLIT = ((1797259609, 2579123966), (928981903, 3453687069))
+KAT_UNIFORM = {(0.0, 1.0): (0x3F729A4E, 0x3F7A8436, 0x3EAA221C, 0x3EEFF550),
+               (-3.5, 3.5): (0x40488E08, 0x4056675E, 0xBF96444F, 0xBE6095A0),
+               (0.1, 1.5): (0x3FB69F36, 0x3FBC2959, 0x3F10B17A, 0x3F41921E)}
+SEEDED_GOL_N = 2048
+KAT_GOL_LIVE = 2096087
+KAT_GOL_WORDS = {(0, 0): 0xD33F757B, (0, 32): 0x15A92FFD,
+                 (1024, 1024): 0xD9A68956, (2047, 2016): 0xF59D08A3}
+KAT_ORBITS_AT = (1, 2, 3, 131071)
+KAT_ORBITS = {"px": (0x41CA92BF, 0x40BA8BF6, 0xC0C8F26F, 0xC15E4332),
+              "py": (0x3F94A452, 0x3F4506D5, 0xC061A84D, 0x41B60640),
+              "vx": (0xBFB96F7D, 0xC08472AB, 0x4177B6E7, 0xC1D7EBC6),
+              "vy": (0x41FCB773, 0x41FACE4E, 0xC1DC96B6, 0xC183D37B)}
+SEEDED_ULPS = 2
+SEEDED_DISK_N = 10_000   # the W key's disk
+SEEDED_GOL_GENS = 8      # one step of the bits_banded Experiment, counted
 
 
 def fail(msg: str) -> int:
@@ -1045,9 +1077,11 @@ def b6_case(dev, case: str, n: int, bh, stable_orbits):
     keys from a seed (full-range signed with INT32_MIN, -1, 0 and
     INT32_MAX; constant; random) carrying four f32 and one int32 payload,
     with an explicit, permuted, partly negative idx for "idx"."""
+    from rustexp_tpu_torch.core import prng
+
     gen = torch.Generator().manual_seed(n)
     if case == "morton":
-        px, py, vx, vy, m = stable_orbits(gen, n, device=dev)
+        px, py, vx, vy, m = stable_orbits(prng.key(n), n, device=dev)
         key = bh.morton_codes(px, py, px.min(), px.max(), py.min(), py.max())
         return key, None, [px, py, m, vx, vy]
     lo, hi = -(1 << 31), (1 << 31) - 1
@@ -1140,10 +1174,11 @@ def force_errors(fk, fp) -> tuple:
 def b5_vs_plain(dev, npl, stable_orbits) -> dict:
     """B5, both reciprocals, against its plain version at B5_NS (stable
     orbits), with the launches its plan gives."""
+    from rustexp_tpu_torch.core import prng
+
     out = {}
     for n in B5_NS:
-        px, py, _, _, m = stable_orbits(torch.Generator().manual_seed(2), n,
-                                        device=dev)
+        px, py, _, _, m = stable_orbits(prng.key(2), n, device=dev)
         want = npl.forces_pallas_plain(px, py, m)
         splits, launches = npl._b5_plan(n)
         for approx in (False, True):
@@ -1269,6 +1304,180 @@ def nbody_card_vs_cpu(dev, nb_exp) -> str | None:
         if diff > NBODY_FRAME_FRAC * 256 * 256:
             return f"N-body N={n}: {diff} px differ from the CPU frame"
     return None
+
+
+def _cells_word(row) -> int:
+    """32 cells as a word, cell c at bit c."""
+    return sum(int(v) << c for c, v in enumerate(row.tolist()))
+
+
+def _ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in float32 steps between two same-sign
+    arrays (their bits as integers)."""
+    ai = a.cpu().view(torch.int32).to(torch.int64)
+    bi = b.cpu().view(torch.int32).to(torch.int64)
+    return int((ai - bi).abs().max())
+
+
+def seeded_draws(dev) -> tuple[list[str], dict]:
+    """The seeded states drawn on the card and on the CPU: the known
+    answers above, and the card's GoL R grid at 2048^2, stable orbits at
+    131,072 and the W key's disk of 10,000 equal to the CPU's word for
+    word. -> (failures, {name: the card's draw as it is used})."""
+    from rustexp_tpu_torch.core import prng
+    from rustexp_tpu_torch.sims.gol import GoLExperiment
+    from rustexp_tpu_torch.sims.nbody import NBodyExperiment, stable_orbits
+
+    cpu, bad = torch.device("cpu"), []
+    key0 = prng.key(0)
+    if prng.split(key0).to(torch.int64).tolist() != [list(k)
+                                                      for k in KAT_SPLIT]:
+        bad.append("split(key(0)) differs from jax.random's")
+    for (lo, hi), want in KAT_UNIFORM.items():
+        u = prng.uniform(key0, (4,), lo, hi, dev)
+        got = tuple(u.cpu().view(torch.int32).to(torch.int64).remainder(
+            1 << 32).tolist())
+        if got != want:
+            bad.append(f"uniform({lo}, {hi}) on the card {got} != {want}")
+    grids = []
+    for d in (dev, cpu):
+        exp = GoLExperiment(d)
+        grids.append(exp.handle_key(exp.init(n=SEEDED_GOL_N), "R").grid)
+    grid = grids[0]
+    if not torch.equal(grid.cpu(), grids[1]):
+        bad.append("the card's GoL R grid differs from the CPU's")
+    g = grid.cpu()
+    words = {rc: _cells_word(g[rc[0], rc[1]:rc[1] + 32])
+             for rc in KAT_GOL_WORDS}
+    if int(g.sum()) != KAT_GOL_LIVE or words != KAT_GOL_WORDS:
+        bad.append(f"GoL R grid: {int(g.sum())} live, words {words}")
+    orbits = [stable_orbits(key0, NBODY_N, device=d) for d in (dev, cpu)]
+    if sum(_bits_differ(a.cpu(), b) for a, b in zip(*orbits)):
+        bad.append("the card's stable orbits differ from the CPU's")
+    at = torch.tensor(KAT_ORBITS_AT)
+    for name, a in zip(("px", "py", "vx", "vy"), orbits[0]):
+        want = torch.tensor(KAT_ORBITS[name], dtype=torch.int64).to(
+            torch.int32).view(torch.float32)
+        if _ulps(a.cpu()[at], want) > SEEDED_ULPS:
+            bad.append(f"stable_orbits {name}: {a.cpu()[at].tolist()} "
+                       f"against JAX's {want.tolist()}")
+    disks = [NBodyExperiment(d).init(mode="disk", n=SEEDED_DISK_N)
+             for d in (dev, cpu)]
+    if sum(_bits_differ(a.cpu(), b) for a, b in zip(
+            *((s.px, s.py, s.vx, s.vy, s.m) for s in disks))):
+        bad.append("the card's W-key disk differs from the CPU's")
+    return bad, {"grid": grid, "orbits": orbits[0]}
+
+
+def seeded_kernels(dev, gb, sb, bh, npl, grid, orbits) -> dict:
+    """B4, B5 and B6 on the seeded states against their plain versions on
+    the card: B4 100 generations of the 2048^2 R grid, B6 the Morton sort
+    of the stable orbits (positions form, five payloads), bit for bit;
+    B5 their forces, both reciprocals, within B5_RTOL. -> {kernel: {label:
+    {"err", "bad"}}}"""
+    packed = gb.pack_rows(grid.to(torch.int32))
+    got = gb.multi_step_packed_cuda(packed, 100)
+    bad4 = int((got != gb.multi_step_packed_plain(packed, 100)).sum())
+    px, py, vx, vy, m = orbits
+    key = bh.morton_codes(px, py, px.min(), px.max(), py.min(), py.max())
+    kk, ik, vk = sb.sort_kv_cuda(key, None, [px, py, m, vx, vy])
+    kp, ip, vp = sb.sort_kv_plain(key, None, [px, py, m, vx, vy])
+    bad6 = sum(_bits_differ(a, b)
+               for a, b in zip((kk, ik, *vk), (kp, ip, *vp)))
+    want = npl.forces_pallas_plain(px, py, m)
+    out5 = {}
+    for approx in (False, True):
+        rel, _, err = force_errors(npl.forces_pallas_cuda(px, py, m, approx),
+                                   want)
+        out5[f"seeded {NBODY_N} approx={approx}"] = dict(
+            err=err, rel=rel, bad=int(rel > B5_RTOL[approx]))
+    return {"B4": {f"seeded R {SEEDED_GOL_N}^2 x100": dict(err=float(bad4),
+                                                          bad=bad4)},
+            "B6": {f"seeded morton {NBODY_N}": dict(err=float(bad6),
+                                                    bad=bad6)},
+            "B5": out5}
+
+
+def seeded_states(dev, card, gb, sb, bh, npl, gol_exp, counters, launches
+                  ) -> tuple[str | None, dict]:
+    """The seeded-state phase: seeded_draws, the draws timed on the card
+    (CUDA events) and on the CPU, seeded_kernels, and the GoL Experiment
+    with backend "bits_banded" one step of SEEDED_GOL_GENS from the R grid,
+    counted (B4, as its plan says), its grid against the CPU's. Which
+    uint32 operations the card's torch has is printed: the draws compute
+    in int64 because the CPU's has no add or shift for uint32.
+    -> (a failure message or None, seeded_kernels' records)."""
+    from rustexp_tpu_torch.core import prng
+    from rustexp_tpu_torch.sims.gol import randomize
+    from rustexp_tpu_torch.sims.nbody import stable_orbits
+
+    have = {}
+    for op, fn in (("make", lambda a: a), ("add", lambda a: a + a),
+                   ("shift", lambda a: a >> 3), ("xor", lambda a: a ^ a),
+                   ("less", lambda a: a < a)):
+        try:
+            fn(torch.tensor([0xFFFFFFF0, 5], device=dev).to(torch.uint32))
+            have[op] = True
+        except (RuntimeError, NotImplementedError):
+            have[op] = False
+    print(f"torch.uint32 on the card (torch {torch.__version__}): {have}",
+          flush=True)
+    bad, drawn = seeded_draws(dev)
+    for msg in bad:
+        print(f"seeded: {msg}", flush=True)
+    if bad:
+        return f"seeded states: {bad[0]}", {}
+    print(f"seeded states: split, uniform and the GoL grid equal JAX's known "
+          f"answers, stable orbits within {SEEDED_ULPS} ulps of them; the "
+          f"card's GoL R grid {SEEDED_GOL_N}^2, stable orbits {NBODY_N} "
+          f"and disk {SEEDED_DISK_N} equal the CPU's word for word",
+          flush=True)
+    sub = prng.split(prng.key(0))[1]
+    for label, run in (
+            (f"GoL R {SEEDED_GOL_N}^2",
+             lambda d: randomize(sub, SEEDED_GOL_N, d)),
+            (f"stable_orbits {NBODY_N}",
+             lambda d: stable_orbits(sub, NBODY_N, device=d))):
+        ms = cuda_ms(lambda: run(dev), 5)
+        t0 = time.perf_counter()
+        run("cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        print(f"time seeded draw {label}: card {ms:.4f} ms (CUDA events), "
+              f"CPU {cpu_ms:.1f} ms (host clock, one call) [{card}]",
+              flush=True)
+    rec = seeded_kernels(dev, gb, sb, bh, npl, drawn["grid"],
+                         drawn["orbits"])
+    for kernel, cmp in rec.items():
+        for label, r in cmp.items():
+            print(f"{kernel} {label}: error {r['err']:.3e}, bad {r['bad']}",
+                  flush=True)
+            if r["bad"]:
+                return (f"{kernel} {label} disagrees with its plain version "
+                        f"on the seeded state"), rec
+    grids = []
+    expect = gb._b4_plan(SEEDED_GOL_N // 32, SEEDED_GOL_N,
+                         SEEDED_GOL_GENS).launches
+    for d in (dev, torch.device("cpu")):
+        exp = gol_exp(d)
+        st = exp.handle_key(exp.init(n=SEEDED_GOL_N, backend="bits_banded",
+                                     steps_per_frame=SEEDED_GOL_GENS), "R")
+        for c in counters.values():
+            c.launches = 0
+        st = exp.step(st)
+        if d.type == "cuda":
+            got = {k: c.launches for k, c in counters.items()}
+            print(f"launches during the GoL bits_banded Experiment path "
+                  f"(seeded R grid {SEEDED_GOL_N}^2): {got}; "
+                  f"{exp.status(st)} [{card}]", flush=True)
+            if got["B4"] != expect:
+                return (f"the GoL bits_banded path launched B4 {got['B4']} "
+                        f"times, not {expect}"), rec
+            for k in counters:
+                launches[k] += got[k]
+        grids.append(st.grid.cpu())
+    if not torch.equal(grids[0], grids[1]):
+        return "the bits_banded grid differs from the CPU's", rec
+    return None, rec
 
 
 def gbuffer_paths(dev, card, pp, shard, meshes, cubemap, camera, exp_cls,
@@ -1435,6 +1644,8 @@ def bench_profiles(dev, records, gb, bh, npl, stable_orbits) -> list[dict]:
     device-busy ms and device activities per generation or step, by the
     profiler (GoL: a call of 4,096 generations; N-body: one step), and the
     idle share against the record's unprofiled median."""
+    from rustexp_tpu_torch.core import prng
+
     out = []
     for label, rec in records:
         if rec["metric"] == "gol_cell_updates_per_s":
@@ -1443,8 +1654,7 @@ def bench_profiles(dev, records, gb, bh, npl, stable_orbits) -> list[dict]:
             units, unit = 4096, "generation"
             wall = rec["n"] ** 2 / rec["value_median"]
         else:
-            st = stable_orbits(torch.Generator().manual_seed(0), rec["n"],
-                               device=dev)
+            st = stable_orbits(prng.key(0), rec["n"], device=dev)
             if rec["route"] == "bh":
                 fn = lambda st=st, k=rec["k_near"]: bh.step_bh(*st, 256, k)
             else:
@@ -2135,6 +2345,7 @@ def _shard_rank(group, dev) -> dict:
     counted runs, so those launches are not counted)."""
     from rustexp_tpu_torch.app.multidev import kernel_launches
     from rustexp_tpu_torch.assets import cubemap, mesh as meshes
+    from rustexp_tpu_torch.core import prng
     from rustexp_tpu_torch.ops.nbody_bh import theta_to_k
     from rustexp_tpu_torch.parallel import collectives as coll
     from rustexp_tpu_torch.parallel import gol_shard, nbody_shard
@@ -2220,8 +2431,7 @@ def _shard_rank(group, dev) -> dict:
         out["plain"][f"{'B4' if backend == 'bits' else 'B8'} {label}"] = \
             _gol_vs_plain(grid, rank, n_dev, backend, k, dev)
 
-    arrs = stable_orbits(torch.Generator().manual_seed(0), SHARD_BH_N,
-                         device=dev)
+    arrs = stable_orbits(prng.key(0), SHARD_BH_N, device=dev)
     state = nbody_shard.shard_particles(arrs, group)
     bh = nbody_shard.make_step_bh(group, block=256, k_near=theta_to_k(
         0.85, SHARD_BH_N // 256))
@@ -2238,8 +2448,7 @@ def _shard_rank(group, dev) -> dict:
         lambda: bh(*state, 0.01), dev)
     out["plain"][f"B6 {label}"] = _b6_vs_plain(arrs, rank, n_dev)
 
-    arrs = stable_orbits(torch.Generator().manual_seed(1), SHARD_BRUTE_N,
-                         device=dev)
+    arrs = stable_orbits(prng.key(1), SHARD_BRUTE_N, device=dev)
     brute = nbody_shard.make_step(group)
     sl = nbody_shard.shard_particles(arrs, group)
     label = f"brute {SHARD_BRUTE_N}"
@@ -2254,12 +2463,12 @@ def _shard_odd_rank(group, dev) -> dict:
     """One of SHARD_ODD_RANKS gloo ranks: the BH steps at SHARD_BH_ODD_N,
     the odd-even transposition sort with B6 on its 32,768-body chunks."""
     from rustexp_tpu_torch.app.multidev import kernel_launches
+    from rustexp_tpu_torch.core import prng
     from rustexp_tpu_torch.ops.nbody_bh import theta_to_k
     from rustexp_tpu_torch.parallel import nbody_shard
     from rustexp_tpu_torch.sims.nbody import stable_orbits
 
-    arrs = stable_orbits(torch.Generator().manual_seed(2), SHARD_BH_ODD_N,
-                         device=dev)
+    arrs = stable_orbits(prng.key(2), SHARD_BH_ODD_N, device=dev)
     st = nbody_shard.shard_particles(arrs, group)
     bh = nbody_shard.make_step_bh(group, block=256, k_near=theta_to_k(
         0.85, SHARD_BH_ODD_N // 256))
@@ -2298,7 +2507,7 @@ def sharded_paths(dev, card, launches, tmp: str) -> str | None:
 
     from rustexp_tpu_torch.app import cli
     from rustexp_tpu_torch.assets import cubemap, mesh as meshes
-    from rustexp_tpu_torch.core import framebuffer as fbm
+    from rustexp_tpu_torch.core import framebuffer as fbm, prng
     from rustexp_tpu_torch.ops import gol_bits, gol_stencil, nbody_bh
     from rustexp_tpu_torch.ops.nbody_forces import step_brute_force
     from rustexp_tpu_torch.parallel import collectives as coll
@@ -2411,7 +2620,7 @@ def sharded_paths(dev, card, launches, tmp: str) -> str | None:
             return f"sharded {label}: {bad} cells differ"
 
     def bh_check(label, got_shards, n, seed, ranks):
-        st = stable_orbits(torch.Generator().manual_seed(seed), n, device=dev)
+        st = stable_orbits(prng.key(seed), n, device=dev)
         k = nbody_bh.theta_to_k(0.85, n // 256)
         for _ in range(SHARD_BH_STEPS):
             st = nbody_bh.step_bh(*st, 256, k, 0.01)
@@ -2427,8 +2636,7 @@ def sharded_paths(dev, card, launches, tmp: str) -> str | None:
                            for j in range(5)], SHARD_BH_N, 0, SHARD_RANKS)
     if msg:
         return msg
-    arrs = stable_orbits(torch.Generator().manual_seed(1), SHARD_BRUTE_N,
-                         device=dev)
+    arrs = stable_orbits(prng.key(1), SHARD_BRUTE_N, device=dev)
     want_b = step_brute_force(*arrs, dt=0.01)
     label = f"brute {SHARD_BRUTE_N}"
     err = max(float((torch.from_numpy(np.concatenate(
@@ -2465,8 +2673,7 @@ def sharded_paths(dev, card, launches, tmp: str) -> str | None:
     for _ in range(SHARD_CLI_FRAMES):
         g = gol_stencil.multi_step(g, 8, "roll")
         expect["gol"].append(gol_render(g, W, H))
-    st = stable_orbits(torch.Generator().manual_seed(0), 256 * 8 * SHARD_RANKS,
-                       device=dev)
+    st = stable_orbits(prng.key(0), 256 * 8 * SHARD_RANKS, device=dev)
     expect["nbody"] = []
     for _ in range(SHARD_CLI_FRAMES):
         st = nbody_bh.step_bh(*st, 256, nbody_bh.theta_to_k(0.85, 32), 0.01)
@@ -2735,6 +2942,13 @@ def main() -> int:
         if msg:
             return fail(msg)
     phase_done("the GoL and N-body paths")
+    msg, seeded = seeded_states(dev, card, gb, sb, bh, npl, GoLExperiment,
+                                counters, launches)
+    if msg:
+        return fail(msg)
+    for kernel, cmp in (("B4", cmp4), ("B5", cmp5), ("B6", cmp6)):
+        cmp.update(seeded[kernel])
+    phase_done("the seeded states")
     records = []
     # each bench makes a warm-up call and BENCH_RUNS timed ones; B4 and B5
     # launch what their plans say, B6 12 times a step

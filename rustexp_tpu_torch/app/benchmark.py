@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..assets import cubemap, mesh
+from ..core import prng
 from ..ops import gol_bits, gol_stencil, nbody_bh, nbody_forces, nbody_pallas
 from ..ops.raster_queue import (SHADE_W, TILE_H, TILE_W, build_queue,
                                 choose_shade_w, read_queue_stats,
@@ -475,7 +476,7 @@ def bench_nbody(n: int = 131072, steps_per_dispatch: int = 64, runs: int = 3,
                 backend: str = "pallas", approx_recip: bool = True,
                 device: torch.device | str | None = None) -> dict:
     """Steps/s at N particles (north-star config: N = 131,072 stable
-    orbits from torch.Generator seed 0), one call of k steps per run.
+    orbits from JAX's PRNGKey(0), core/prng.py), one call of k steps per run.
 
     "pallas" is the brute force through kernel B5 (``approx_recip`` picks
     its reciprocal), "bh" block Barnes-Hut at theta 0.85, block 256
@@ -486,8 +487,7 @@ def bench_nbody(n: int = 131072, steps_per_dispatch: int = 64, runs: int = 3,
     from ..sims.nbody import stable_orbits
 
     device = _card(device)
-    state0 = stable_orbits(torch.Generator().manual_seed(0), n,
-                           device=device)
+    state0 = stable_orbits(prng.key(0), n, device=device)
     k = int(steps_per_dispatch)
     block = 256
     kk = nbody_bh.theta_to_k(0.85, n // block) if backend == "bh" else 0

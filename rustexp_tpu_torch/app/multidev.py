@@ -23,6 +23,7 @@ import time
 import numpy as np
 import torch
 
+from ..core import prng
 from ..parallel import collectives as coll
 
 EXPERIMENTS = ("gol", "nbody", "rasterizer", "sine")
@@ -149,8 +150,7 @@ def _run_rank(group, dev, experiment: str, frames: int, size: int, out: str,
             dt_step, theta = float(st.dt), float(st.theta)
         else:
             n0 = 256 * 8 * n_dev   # the default scales with the ranks
-            arrays = stable_orbits(torch.Generator().manual_seed(0), n0,
-                                   device=dev)
+            arrays = stable_orbits(prng.key(0), n0, device=dev)
             dt_step, theta = 0.01, 0.85
         n = int(arrays[0].shape[0])
         # the one-rank routing (select_backend), with whole target blocks
@@ -316,7 +316,7 @@ def _dryrun_rank(group, dev) -> dict:
 
     # 3) brute-force N-body, sources all-gathered
     nb = 16 * n
-    arrs = stable_orbits(torch.Generator().manual_seed(0), nb, device=dev)
+    arrs = stable_orbits(prng.key(0), nb, device=dev)
     nout = nbody_shard.make_step(group)(
         *nbody_shard.shard_particles(arrs, group), 0.01)
     _check(nout[0].shape == (16,), "nout shape")
@@ -359,8 +359,7 @@ def _dryrun_rank(group, dev) -> dict:
     done.append("queue bands")
 
     # 7) block Barnes-Hut, target blocks sharded
-    arrs = stable_orbits(torch.Generator().manual_seed(1), 32 * 8 * n,
-                         device=dev)
+    arrs = stable_orbits(prng.key(1), 32 * 8 * n, device=dev)
     bout = nbody_shard.make_step_bh(group, block=32, k_near=6)(
         *nbody_shard.shard_particles(arrs, group), 0.01)
     _check(bout[0].shape == (32 * 8,), "bout shape")
@@ -390,7 +389,7 @@ def _dryrun_rank(group, dev) -> dict:
         g2out = gol_shard.make_multi_step(group, k=4)(
             gol_shard.shard_grid(g2, group))
         _check(g2out.shape == (8, 128), "g2out shape")
-        arrs = stable_orbits(torch.Generator().manual_seed(0), nb, device=dev)
+        arrs = stable_orbits(prng.key(0), nb, device=dev)
         n2out = nbody_shard.make_step(group)(
             *nbody_shard.shard_particles(arrs, group), 0.01)
         _check(n2out[0].shape == (16,), "n2out shape")

@@ -6,14 +6,16 @@ compressed npz:
 
   * tensor fields (grid, particle arrays) -> npz arrays, read back to
     the host once;
-  * torch.Generator fields (GoL's ``gen``, the counterpart of the JAX
-    package's PRNG key) -> their ``get_state()`` bytes, restored with
-    ``set_state``, so a resumed 'R' key draws what the uninterrupted run
-    draws;
+  * the prng key (core/prng.py) -> the uint32[2] array the JAX package
+    saves for its jax.random key, so a resumed 'R' key draws what the
+    uninterrupted run draws;
   * config scalars (dt, theta, steps_per_frame, ...) -> a JSON meta blob;
   * transient fields (timing rings, the rasterizer's scene cache) are
     dropped and rebuilt on resume.
 
+The layout is the JAX package's, so either package loads the other's GoL
+and N-body files. A file of the port's that holds a torch generator's
+state (``gen``) loads its grid and scalars and keeps the init key.
 GoL resumes bit-exactly; N-body resumes exactly from the saved float32
 arrays. CLI: --save-state / --load-state.
 """
@@ -27,6 +29,9 @@ import os
 import numpy as np
 import torch
 
+from . import prng
+from .trace import trace_info
+
 # Rebuilt on resume, not persisted: timing rings and device-side caches.
 _TRANSIENT = {"step_times", "frame_times", "_scene_cache"}
 
@@ -38,22 +43,18 @@ def save_state(path: str, state) -> str:
     path = str(path)
     if not path.endswith(".npz"):
         path += ".npz"
-    arrays, scalars, generators = {}, {}, []
+    arrays, scalars = {}, {}
     for f in dataclasses.fields(state):
         if f.name in _TRANSIENT:
             continue
         v = getattr(state, f.name)
         if v is None:
             continue
-        if isinstance(v, torch.Generator):
-            arrays[f.name] = v.get_state().numpy()
-            generators.append(f.name)
-        elif isinstance(v, torch.Tensor):
+        if isinstance(v, torch.Tensor):
             arrays[f.name] = v.detach().cpu().numpy()
         elif isinstance(v, (bool, int, float, str)):
             scalars[f.name] = v
-    meta = json.dumps({"type": type(state).__name__, "scalars": scalars,
-                       "generators": generators})
+    meta = json.dumps({"type": type(state).__name__, "scalars": scalars})
     arrays["__meta__"] = np.frombuffer(meta.encode(), np.uint8)
     np.savez_compressed(path, **arrays)
     return path
@@ -65,7 +66,7 @@ def load_state(path: str, experiment):
 
     Starts from experiment.init() (fresh transients, defaults for fields
     added since the save), then overlays the saved scalars, tensors and
-    generator states.
+    prng key.
     """
     path = str(path)
     if not path.endswith(".npz") and not os.path.exists(path):
@@ -82,11 +83,13 @@ def load_state(path: str, experiment):
         for k in data.files:
             if k == "__meta__":
                 continue
-            t = torch.from_numpy(data[k])
-            if k in meta["generators"]:
-                gen = torch.Generator()
-                gen.set_state(t)
-                setattr(state, k, gen)
+            if k in meta.get("generators", ()):
+                trace_info(f"checkpoint {path}: {k!r} is a torch generator's "
+                           "state, which no longer seeds the port; the "
+                           "state keeps the init key")
+            elif k == "key":
+                state.key = prng.as_key(data[k])
             else:
-                setattr(state, k, t.to(experiment.device))
+                setattr(state, k,
+                        torch.from_numpy(data[k]).to(experiment.device))
     return state

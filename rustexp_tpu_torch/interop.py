@@ -11,7 +11,8 @@ unless the dict names it (a JAX queue does not record its order).
 
 A GoL grid and an N-body particle set (px, py, vx, vy, m, as JAX's
 stable_orbits or random_disk make them) come across as numpy arrays, to
-the port's tensors or to a GoLState / NBodyState on `device`.
+the port's tensors or to a GoLState / NBodyState on `device`, with JAX's
+uint32[2] PRNG key as the state's prng key (core/prng.py).
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core import prng
 from .ops.raster_bins import BinnedTris
 from .ops.raster_queue import Queue
 from .raster.pipeline import Scene
@@ -55,16 +57,23 @@ def bins_from_numpy(d: dict, device: Device = None) -> BinnedTris:
     return BinnedTris(**{f: _tensor(d[f], dev) for f in BinnedTris._fields})
 
 
+def _with_key(state: dict) -> dict:
+    if state.get("key") is not None:
+        state["key"] = prng.as_key(state["key"])
+    return state
+
+
 def gol_state_from_numpy(grid, device: Device = None, **state) -> GoLState:
     """A GoLState around a {0, 1} cell grid of any integer dtype (kept);
-    `state` sets the other fields (steps_per_frame, backend, ...)."""
-    return GoLState(grid=_tensor(grid, pick_device(device)), **state)
+    `state` sets the other fields (steps_per_frame, backend, key, ...)."""
+    return GoLState(grid=_tensor(grid, pick_device(device)),
+                    **_with_key(state))
 
 
 def nbody_state_from_numpy(arrays, device: Device = None,
                            **state) -> NBodyState:
     """An NBodyState around (px, py, vx, vy, m) as f32 tensors; `state`
-    sets the other fields (dt, theta, ...)."""
+    sets the other fields (dt, theta, key, ...)."""
     dev = pick_device(device)
     return NBodyState(*(_tensor(np.asarray(a, np.float32), dev)
-                        for a in arrays), **state)
+                        for a in arrays), **_with_key(state))

@@ -21,7 +21,42 @@ exact, on the CPU and on the card:
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+# Taylor coefficients of sin(r) / r and cos(r) in r**2 on |r| <= pi/4; the
+# first term left out is below 2**-60 of the result.
+_SIN = tuple((-1) ** i / math.factorial(2 * i + 1) for i in range(10))
+_COS = tuple((-1) ** i / math.factorial(2 * i) for i in range(10))
+# pi/2 in two parts (fdlibm's pio2_1, pio2_1t): the first 33 bits, so that
+# k * _PIO2_HI is exact for |k| < 2**20, and the rest.
+_PIO2_HI = 1.57079632673412561417e+00
+_PIO2_LO = 6.07710050650619224932e-11
+
+
+def cos_sin(theta: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """float32 cos and sin of a float32 tensor (|theta| < 2**20), the same
+    bits on the CPU and the card: the libraries' cos and sin differ by
+    device, so the reduction to |r| <= pi/4 and the polynomials are plain
+    float64 adds and multiplies, each rounded once on both devices, and
+    the results are rounded once to float32 (within an ulp of the true
+    value)."""
+    t = theta.double()
+    k = torch.round(t * (2.0 / math.pi))
+    r = (t - k * _PIO2_HI) - k * _PIO2_LO
+    z = r * r
+    ps, pc = z.new_full((), _SIN[-1]), z.new_full((), _COS[-1])
+    for cs, cc in zip(_SIN[-2::-1], _COS[-2::-1]):
+        ps = ps * z + cs
+        pc = pc * z + cc
+    s, c = r * ps, pc
+    q = k.to(torch.int64) % 4
+    swap = (q & 1) == 1
+    c0, s0 = torch.where(swap, s, c), torch.where(swap, c, s)
+    cos = torch.where((q == 1) | (q == 2), -c0, c0)
+    sin = torch.where(q >= 2, -s0, s0)
+    return cos.float(), sin.float()
 
 
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:

@@ -5,15 +5,16 @@ and hs-src/RustGoLExperiment.hs, the driver). ``steps_per_frame``
 generations run per step; ``backend`` picks the stencil:
 
   * "auto"   — kernel B4 (ops/gol_bits.py, SWAR) when rows % 32 == 0, else
-               "mxu". B4 tiles any such size, so the JAX package's banded
-               route past its VMEM ceiling has no counterpart here;
-  * "bits"   — kernel B4;
+               "mxu";
+  * "bits", "bits_banded" — kernel B4. B4 tiles any 32-row-aligned grid,
+               so the JAX package's banded route past its VMEM ceiling
+               is B4 here too;
   * "pallas" — kernel B8 (ops/gol_stencil.py, the fused f32 stencil);
   * "mxu", "roll" — gol_stencil.multi_step's circulant or roll form.
 
-All backends give the same grid bit for bit. Random fills come from a
-torch.Generator seeded at init, so they differ from the JAX package's
-jax.random fills of the same seed; patterns are identical.
+All backends give the same grid bit for bit. Random fills ('R') are
+drawn with core/prng.py, jax.random's threefry, from the key JAX's init
+makes of the same seed, so they equal the JAX package's grid for grid.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ..assets.gol_patterns import PATTERNS, pattern_to_array
+from ..core import prng
 from ..core.timing import FrameTimes
 from ..ops import gol_bits, gol_stencil
 from ..runtime import device as pick_device, require_on
@@ -31,13 +33,12 @@ from ..runtime import device as pick_device, require_on
 GRID_WDH = gol_stencil.GRID_WDH
 
 
-def randomize(gen: torch.Generator, n: int = GRID_WDH,
+def randomize(key: torch.Tensor, n: int = GRID_WDH,
               device: torch.device | str | None = None) -> torch.Tensor:
     """Uniform random fill, uint8 [n, n] (reference gol_randomize,
-    gol.rs:18-29) on `device` (the card by default); `gen` is a CPU
-    generator."""
-    grid = (torch.rand((n, n), generator=gen) < 0.5).to(torch.uint8)
-    return grid.to(pick_device(device))
+    gol.rs:18-29), JAX's bernoulli(key, 0.5) drawn on `device` (the card
+    by default)."""
+    return prng.bernoulli(key, 0.5, (n, n), device).to(torch.uint8)
 
 
 def set_pattern(pattern, n: int = GRID_WDH,
@@ -81,7 +82,7 @@ class GoLState:
     steps_per_frame: int = 1
     backend: str = "auto"
     step_times: FrameTimes = field(default_factory=FrameTimes)
-    gen: torch.Generator | None = None
+    key: torch.Tensor | None = None  # a prng key, as JAX's GoLState.key
 
 
 class GoLExperiment:
@@ -103,16 +104,15 @@ class GoLExperiment:
         grid = set_pattern(pattern_to_array(PATTERNS[pattern]), n,
                            self.device)
         return GoLState(grid=grid, steps_per_frame=steps_per_frame,
-                        backend=backend,
-                        gen=torch.Generator().manual_seed(seed))
+                        backend=backend, key=prng.key(seed))
 
     @staticmethod
     def route(rows: int, backend: str) -> str:
         """The backend a step runs: "auto" is B4 ("bits") on a 32-row-
-        aligned grid, else "mxu"."""
+        aligned grid, else "mxu"; "bits_banded" is B4."""
         if backend == "auto":
             return "mxu" if rows % gol_bits.BITS else "bits"
-        return backend
+        return "bits" if backend == "bits_banded" else backend
 
     def step(self, state: GoLState) -> GoLState:
         require_on(self.device, (state.grid,), "the GoL grid")
@@ -150,7 +150,8 @@ class GoLExperiment:
         key = key.upper() if len(key) == 1 else key
         n = int(state.grid.shape[0])
         if key == "R":
-            state.grid = randomize(state.gen, n, self.device)
+            state.key, sub = prng.split(state.key)
+            state.grid = randomize(sub, n, self.device)
             state.generations = 0
         elif key in ("G", "A", "F", "K"):
             name = {"G": "gun", "A": "acorn", "F": "spacefill",

@@ -13,9 +13,10 @@ sort runs kernel B6 at power-of-two N. There is no Prewarmer: eager
 PyTorch has no compile to hide, so a theta change applies at the next
 step, and the routing it implies is logged.
 
-Initial conditions come from a torch.Generator seeded at init, so they
-differ from the JAX package's jax.random ones of the same seed;
-interop.nbody_state_from_numpy carries JAX-made ones across.
+Initial conditions are drawn with core/prng.py, jax.random's threefry,
+from the key JAX's init makes of the same seed, so a seed gives JAX's
+particle set (positions and velocities within 2 ulps, see the initial
+conditions below); the state carries the key on as JAX's does.
 """
 
 from __future__ import annotations
@@ -25,11 +26,14 @@ import math
 import time
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 
+from ..core import prng
 from ..core.colors import trunc_i32
 from ..core.timing import FrameTimes
 from ..ops import nbody_bh, nbody_forces, nbody_pallas
+from ..ops.ieee import cos_sin, sqrt_rn
 from ..runtime import device as pick_device, require_on
 
 log = logging.getLogger(__name__)
@@ -41,45 +45,53 @@ VP_ORG_Y = 0.0
 
 
 # ---------------------------------------------------------------------------
-# Initial conditions (nbody.rs:39-104); the distributions of JAX's.
+# Initial conditions (nbody.rs:39-104): JAX's draws, split for split
+# (rustexp_tpu/sims/nbody.py:36-64). The uniforms and masses are JAX's bit
+# for bit; cos and sin are within an ulp of XLA:CPU's, which are not
+# correctly rounded, so positions and velocities are within 2 ulps of
+# JAX's, and the same bits on the CPU and the card.
 # ---------------------------------------------------------------------------
 
+_TWO_PI = float(np.float32(2.0 * math.pi))  # JAX's weakly typed 2.0 * pi
 
-def random_disk(gen: torch.Generator, n: int,
+
+def random_disk(key: torch.Tensor, n: int,
                 device: torch.device | str | None = None):
     """Uniform disk of radius 23, velocity in +-3.5, mass in 0.1-1.5
-    (nbody.rs:40-64), on `device` (the card by default); `gen` is a CPU
-    generator."""
+    (nbody.rs:40-64) from a prng key, on `device` (the card by default)."""
     dev = pick_device(device)
-    u = torch.rand(n, generator=gen)
-    v = torch.rand(n, generator=gen)
-    r = torch.sqrt(u) * 23.0
-    theta = 2.0 * math.pi * v
-    vel = torch.rand((n, 2), generator=gen) * 7.0 - 3.5
-    m = torch.rand(n, generator=gen) * 1.4 + 0.1
-    out = (r * torch.cos(theta), r * torch.sin(theta), vel[:, 0], vel[:, 1], m)
-    return tuple(a.contiguous().to(dev) for a in out)
+    k1, k2, k3, k4 = prng.split(key, 4)
+    u = prng.uniform(k1, (n,), device=dev)
+    v = prng.uniform(k2, (n,), device=dev)
+    r = sqrt_rn(u) * 23.0
+    cos, sin = cos_sin(_TWO_PI * v)
+    vel = prng.uniform(k3, (n, 2), -3.5, 3.5, device=dev)
+    m = prng.uniform(k4, (n,), 0.1, 1.5, device=dev)
+    return (r * cos, r * sin, vel[:, 0].contiguous(), vel[:, 1].contiguous(),
+            m)
 
 
-def stable_orbits(gen: torch.Generator, n: int, rmin: float = 0.5,
+def stable_orbits(key: torch.Tensor, n: int, rmin: float = 0.5,
                   rmax: float = 30.0,
                   device: torch.device | str | None = None):
     """Sun (mass 1000) at the origin and n - 1 planets (mass 1) on circular
-    orbits, v = sqrt(G*M) (nbody.rs:74-104), on `device` (the card by
-    default); `gen` is a CPU generator."""
+    orbits, v = sqrt(G*M) (nbody.rs:74-104), from a prng key, on `device`
+    (the card by default)."""
     dev = pick_device(device)
     sun_mass, planet_mass, g = 1000.0, 1.0, 1.0
-    speed = math.sqrt(g * sun_mass)
-    r = torch.rand(n - 1, generator=gen) * (rmax - rmin) + rmin
-    theta = 2.0 * math.pi * torch.rand(n - 1, generator=gen)
-    zero = torch.zeros(1)
-    px = torch.cat([zero, r * torch.cos(theta)])
-    py = torch.cat([zero, r * torch.sin(theta)])
-    vx = torch.cat([zero, -speed * torch.sin(theta)])
-    vy = torch.cat([zero, speed * torch.cos(theta)])
-    m = torch.cat([torch.full((1,), sun_mass),
-                   torch.full((n - 1,), planet_mass)])
-    return tuple(a.to(dev) for a in (px, py, vx, vy, m))
+    speed = float(np.float32(math.sqrt(g * sun_mass)))
+    k1, k2 = prng.split(key)
+    r = (prng.uniform(k1, (n - 1,), device=dev)
+         * float(np.float32(rmax - rmin)) + float(np.float32(rmin)))
+    cos, sin = cos_sin(_TWO_PI * prng.uniform(k2, (n - 1,), device=dev))
+    zero = torch.zeros(1, device=dev)
+    px = torch.cat([zero, r * cos])
+    py = torch.cat([zero, r * sin])
+    vx = torch.cat([zero, -speed * sin])
+    vy = torch.cat([zero, speed * cos])
+    m = torch.cat([torch.full((1,), sun_mass, device=dev),
+                   torch.full((n - 1,), planet_mass, device=dev)])
+    return px, py, vx, vy, m
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +161,7 @@ class NBodyState:
     theta: float = 0.85            # 0 -> brute force (reference semantics)
     steps: int = 0
     step_times: FrameTimes = field(default_factory=FrameTimes)
+    key: torch.Tensor | None = None  # a prng key, as JAX's NBodyState.key
 
     @property
     def n(self) -> int:
@@ -170,12 +183,12 @@ class NBodyExperiment:
              rmax: float = 30.0, seed: int = 0, dt: float = 0.01,
              theta: float = 0.85) -> NBodyState:
         """Defaults per reference driver (RustNBodyExperiment.hs:42-48)."""
-        gen = torch.Generator().manual_seed(seed)
+        key, sub = prng.split(prng.key(seed))
         if mode == "disk":
-            arrays = random_disk(gen, n, self.device)
+            arrays = random_disk(sub, n, self.device)
         else:
-            arrays = stable_orbits(gen, n, rmin, rmax, self.device)
-        return NBodyState(*arrays, dt=dt, theta=theta)
+            arrays = stable_orbits(sub, n, rmin, rmax, self.device)
+        return NBodyState(*arrays, dt=dt, theta=theta, key=key)
 
     def select_backend(self, n: int, theta: float) -> tuple:
         """Step routing -> ("brute" | "bh", block or None): theta == 0 is
@@ -237,7 +250,11 @@ class NBodyExperiment:
     def handle_key(self, state: NBodyState, key: str) -> NBodyState:
         """Keys per reference RustNBodyExperiment.hs:81-98: Q/W/E reset
         (shift-insensitive), x/X halve/double dt, a/A lower/raise theta by
-        0.05 within [0, 0.95]."""
+        0.05 within [0, 0.95]. Every key advances the state's prng key
+        first, as JAX's does (rustexp_tpu/sims/nbody.py:357); a reset
+        starts from the init key of seed 0."""
+        if state.key is not None:  # a state made from arrays has none
+            state.key, _ = prng.split(state.key)
         if key in ("Q", "q"):
             st = self.init(mode="orbits", n=10_000)
         elif key in ("W", "w"):

@@ -148,7 +148,7 @@ def test_trace_none_color_and_raise(capsys, trace_reset):
 
 def test_gol_resume_bit_exact_with_r_after_resume(tmp_path):
     """Interrupted and resumed == uninterrupted, an 'R' key (a draw from
-    the saved generator) on each side of the save included."""
+    the saved prng key) on each side of the save included."""
     exp = GoLExperiment(CPU)
     ref = exp.handle_key(exp.init(pattern="gun"), "R")
     for _ in range(3):
@@ -166,7 +166,7 @@ def test_gol_resume_bit_exact_with_r_after_resume(tmp_path):
     for _ in range(3):
         st2 = exp.step(st2)
     assert torch.equal(st2.grid, ref.grid)
-    assert torch.equal(st2.gen.get_state(), ref.gen.get_state())
+    assert torch.equal(st2.key, ref.key)
 
 
 def test_nbody_resume_exact_arrays(tmp_path):

@@ -200,19 +200,20 @@ def test_state_builders_mean_the_card(monkeypatch):
     from rustexp_tpu_torch import interop
     from rustexp_tpu_torch.assets.gol_patterns import PATTERNS, \
         pattern_to_array
+    from rustexp_tpu_torch.core import prng
     from rustexp_tpu_torch.sims import gol, nbody
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     grid = np.zeros((64, 64), np.uint8)
     arrays = [np.ones(8, np.float32)] * 5
-    gen = torch.Generator().manual_seed(0)
+    key = prng.key(0)
     pat = pattern_to_array(PATTERNS["gun"])
     builders = (lambda d: interop.gol_state_from_numpy(grid, d).grid,
                 lambda d: interop.nbody_state_from_numpy(arrays, d).px,
-                lambda d: gol.randomize(gen, 64, d),
+                lambda d: gol.randomize(key, 64, d),
                 lambda d: gol.set_pattern(pat, 64, d),
-                lambda d: nbody.random_disk(gen, 8, d)[0],
-                lambda d: nbody.stable_orbits(gen, 8, device=d)[0])
+                lambda d: nbody.random_disk(key, 8, d)[0],
+                lambda d: nbody.stable_orbits(key, 8, device=d)[0])
     for build in builders:
         with pytest.raises(RuntimeError, match="CUDA"):
             build(None)

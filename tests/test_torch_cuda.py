@@ -3,7 +3,9 @@ PyTorch version (B1 and B3 also on hand-built inputs that stress their
 races, B1 and B7 on the moving camera's plane and direct queues), and
 whole frames on the card (queue, moving-camera, every shader, deferred
 queue, bins, G-buffer oracle and band paths, the GoL and N-body
-Experiments) against the same frames on the CPU.
+Experiments) against the same frames on the CPU; the seeded states
+(core/prng.py) drawn on the card against JAX's known answers and the
+CPU's draws, word for word, and run through B4, B5 and B6.
 
 These tests need a CUDA device and skip without one. This file imports no
 jax (the card's machine has none), so it runs there on its own:
@@ -14,10 +16,12 @@ jax (the card's machine has none), so it runs there on its own:
 import pytest
 import torch
 
-from chip_smoke import (MOVING_EYE, moving_queue_args, moving_scene,
+from chip_smoke import (MOVING_EYE, SEEDED_GOL_N, moving_queue_args,
+                        moving_scene, seeded_draws, seeded_kernels,
                         stress_bins, stress_queue)
 from rustexp_tpu_torch.app import benchmark as bench
 from rustexp_tpu_torch.assets import cubemap, mesh
+from rustexp_tpu_torch.core import prng
 from rustexp_tpu_torch.ops import gol_bits as gb
 from rustexp_tpu_torch.ops import gol_stencil as gs
 from rustexp_tpu_torch.ops import nbody_bh as bh
@@ -567,8 +571,7 @@ def test_b5_kernel_matches_plain_on_card(n, approx, split, monkeypatch):
     dev = _card()
     if not split:
         monkeypatch.setattr(npl, "B5_MIN_BLOCKS", 1)
-    px, py, _, _, m = stable_orbits(torch.Generator().manual_seed(n), n,
-                                    device=dev)
+    px, py, _, _, m = stable_orbits(prng.key(n), n, device=dev)
     splits, planned = npl._b5_plan(n)
     assert (splits, planned) == ((16, 2) if split else (1, 1))
     launches = npl.forces_pallas_cuda.launches
@@ -617,8 +620,7 @@ def test_nbody_experiment_on_card_matches_cpu(n, theta):
 @pytest.mark.cuda
 def test_morton_sort_routes_agree_on_card(monkeypatch):
     dev = _card()
-    px, py, vx, vy, m = stable_orbits(torch.Generator().manual_seed(5),
-                                      131072, device=dev)
+    px, py, vx, vy, m = stable_orbits(prng.key(5), 131072, device=dev)
     a = bh.morton_sort(px, py, m, vx, vy)
     monkeypatch.setattr(bh, "USE_BITONIC_SORT", False)
     b = bh.morton_sort(px, py, m, vx, vy)
@@ -686,3 +688,42 @@ def test_b6_merge_kv_matches_plain_on_card(n):
     kp, gp, (vp,) = sb.sort_kv_plain(key, gidx, [val])
     assert torch.equal(kk.cpu(), kp) and torch.equal(gk.cpu(), gp)
     assert torch.equal(vk.cpu().view(torch.int32), vp.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_seeded_states_on_card_match_cpu_and_jax():
+    """jax.random's known answers (split, uniform at the JAX package's
+    three bounds, the 2048^2 GoL R grid, stable orbits at 131,072 within
+    2 ulps) drawn on the card, and the card's GoL R grid, stable orbits
+    and W-key disk equal to the CPU's word for word; then B4, B5 and B6
+    on those states against their plain versions."""
+    dev = _card()
+    bad, drawn = seeded_draws(dev)
+    assert bad == []
+    assert drawn["grid"].device.type == "cuda"
+    rec = seeded_kernels(dev, gb, sb, bh, npl, drawn["grid"],
+                         drawn["orbits"])
+    for kernel, cmp in rec.items():
+        for label, r in cmp.items():
+            assert r["bad"] == 0, (kernel, label, r)
+
+
+@pytest.mark.cuda
+def test_gol_bits_banded_launches_b4_on_card():
+    """backend "bits_banded" is B4 (the JAX package's banded SWAR route):
+    one step of 8 generations from the 2048^2 R grid launches B4 as its
+    plan says and gives the CPU's grid."""
+    dev = _card()
+    grids = []
+    for d in (dev, torch.device("cpu")):
+        exp = GoLExperiment(d)
+        st = exp.handle_key(exp.init(n=SEEDED_GOL_N, backend="bits_banded",
+                                     steps_per_frame=8), "R")
+        launches = gb.multi_step_packed_cuda.launches
+        st = exp.step(st)
+        if d.type == "cuda":
+            assert (gb.multi_step_packed_cuda.launches - launches
+                    == gb._b4_plan(SEEDED_GOL_N // 32, SEEDED_GOL_N,
+                                   8).launches)
+        grids.append(st.grid.cpu())
+    assert torch.equal(grids[0], grids[1])

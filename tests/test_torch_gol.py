@@ -154,6 +154,25 @@ def test_experiment_matches_jax(backend):
                           np.asarray(je.render(js, 512, 512)))
 
 
+def test_bits_banded_runs_b4_like_jax(monkeypatch):
+    """backend "bits_banded" (the JAX package's banded SWAR route) reaches
+    gol_bits.multi_step_swar, B4, and gives JAX's grid from an R grid."""
+    calls = []
+    swar = tbits.multi_step_swar
+    monkeypatch.setattr(tbits, "multi_step_swar",
+                        lambda g, k: calls.append(k) or swar(g, k))
+    je, te = jgol.GoLExperiment(), tgol.GoLExperiment(CPU)
+    js = je.handle_key(je.init(n=64, backend="bits_banded",
+                               steps_per_frame=4), "R")
+    ts = te.handle_key(te.init(n=64, backend="bits_banded",
+                               steps_per_frame=4), "R")
+    assert te.route(64, "bits_banded") == "bits"
+    for _ in range(2):
+        js, ts = je.step(js), te.step(ts)
+        assert np.array_equal(ts.grid.numpy(), np.asarray(js.grid))
+    assert calls == [4, 4] and ts.generations == js.generations == 8
+
+
 @pytest.mark.parametrize("backend", ["mxu", "auto"])
 def test_golden_gol_gun_64(backend):
     """tests/test_golden.py's GoL golden (gun, 64 generations, 256^2

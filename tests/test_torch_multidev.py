@@ -23,7 +23,7 @@ from rustexp_tpu.app import multidev as jmultidev
 from rustexp_tpu.core import framebuffer as jfb
 from rustexp_tpu_torch.app import cli, multidev
 from rustexp_tpu_torch.assets import cubemap, mesh as meshes
-from rustexp_tpu_torch.core import framebuffer as fbm
+from rustexp_tpu_torch.core import framebuffer as fbm, prng
 from rustexp_tpu_torch.ops import gol_stencil, nbody_bh
 from rustexp_tpu_torch.raster import camera, pipeline as pp
 from rustexp_tpu_torch.sims.gol import GoLExperiment, gol_render
@@ -47,7 +47,7 @@ def _gol_frames(n_dev):
 
 def _nbody_frames(n_dev):
     n = 256 * 8 * n_dev
-    st = stable_orbits(torch.Generator().manual_seed(0), n, device=CPU)
+    st = stable_orbits(prng.key(0), n, device=CPU)
     k = nbody_bh.theta_to_k(0.85, n // 256)
     out = []
     for _ in range(FRAMES):

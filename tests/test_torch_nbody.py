@@ -2,7 +2,8 @@
 
 Particle sets are made by numpy from a seed or by JAX's own initial
 conditions (stable_orbits from a PRNGKey, carried across as numpy
-arrays) and fed to both packages. Bit for bit: the plain version of
+arrays) and fed to both packages; the port's own draws of the same keys
+are held against JAX's in tests/test_torch_prng.py. Bit for bit: the plain version of
 kernel B6 against the Pallas sorter in interpret mode, Morton codes and
 Morton sorts, the near-block ranking, the runaway kill and the routing.
 Within stated tolerances, because sums run in another order: the plain
@@ -26,6 +27,7 @@ from rustexp_tpu.ops import sort_bitonic as jsb
 from rustexp_tpu.sims import nbody as jn
 from rustexp_tpu_torch import interop
 from rustexp_tpu_torch.app import benchmark as tbench
+from rustexp_tpu_torch.core import prng
 from rustexp_tpu_torch.ops import nbody_bh as tbh
 from rustexp_tpu_torch.ops import nbody_forces as tf
 from rustexp_tpu_torch.ops import nbody_pallas as tp
@@ -240,13 +242,13 @@ def _frame(fb):
 
 
 def test_golden_nbody_orbits():
-    """tests/test_golden.py's N-body golden: JAX's stable_orbits(PRNGKey(0),
-    512) carried across, four brute steps of the port's Experiment (N %
-    1024 != 0: the dense route), rendered 256^2, within the golden's 0.01
-    bound; and the port's render of JAX's own particles differs from
-    JAX's render by 0 pixels."""
+    """tests/test_golden.py's N-body golden: the port's own
+    stable_orbits(prng.key(0), 512), four brute steps of the port's
+    Experiment (N % 1024 != 0: the dense route), rendered 256^2, within
+    the golden's 0.01 bound; and the port's render of JAX's own particles
+    differs from JAX's render by 0 pixels."""
     te = tn.NBodyExperiment(CPU)
-    st = interop.nbody_state_from_numpy(_orbits(0, 512), CPU)
+    st = tn.NBodyState(*tn.stable_orbits(prng.key(0), 512, device=CPU))
     ref = _orbits(0, 512)
     for _ in range(4):
         st = te.step(st)
