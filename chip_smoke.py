@@ -110,7 +110,15 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      brute step within 2e-4, PNGs the one-rank frames; each rank's
      launches must be as counted; it prints each rank's wall and
      device-busy ms, labelled as ranks sharing one card (not a scaling
-     figure).
+     figure);
+  8. drives the port's two top-level surfaces (surfaces below): python -m
+     rustexp_tpu_torch.bench in a fresh process, as a user runs it (rc 0,
+     a last line that parses with metric raster_suite_Mpix_per_s, 12
+     fixed and 12 moving scenes, exactly the keys of the root bench.py's
+     full summary, no "partial"; the launches it reports on stderr count
+     on the main path and must include B1, B2, B4, B5 and B6), printing
+     its line and wall time; then graft_entry.entry()'s flagship frame on
+     the card against the CPU's (0 px, B2 launched once).
 
 Its last lines are nvidia-smi's name and power limit, a JSON object of the
 kernels (grid launches on the main paths, error, times and each one's
@@ -2733,6 +2741,93 @@ def sharded_paths(dev, card, launches, tmp: str) -> str | None:
     return None
 
 
+# The two top-level surfaces (surfaces below). SUMMARY_KEYS: the keys of
+# the root bench.py's summary line over every step's record (its
+# compose_summary; tests/test_torch_bench.py holds the two lists equal).
+SUMMARY_KEYS = (
+    "metric", "value", "unit", "vs_baseline", "suite_total_us",
+    "scenes_done", "scene_us", "scene_spread_pct", "gol_cell_updates_per_s",
+    "gol_gens_per_s", "gol_spread_pct", "gol_256_note",
+    "gol_2048_cell_updates_per_s", "gol_2048_spread_pct",
+    "nbody_bh_steps_per_s_131k", "nbody_bh_spread_pct",
+    "nbody_brute_steps_per_s_131k", "moving_suite_total_us",
+    "moving_scenes_done", "moving_vs_baseline", "moving_scene_us",
+    "moving_scene_spread_pct", "raster_moving_camera_us_KillerooP", "sha",
+    "engine_hash")
+BENCH_KERNELS = ("B1", "B2", "B4", "B5", "B6")  # the bench's steps launch
+BENCH_TIMEOUT_S = 900
+
+
+def surfaces(dev, card, counters, launches) -> str | None:
+    """The port's two top-level surfaces as a user calls them.
+
+    `python -m rustexp_tpu_torch.bench` in a fresh process: it must exit
+    0 with a last line that parses, `metric` raster_suite_Mpix_per_s, 12
+    fixed and 12 moving scenes, exactly the keys of bench.py's full
+    summary (SUMMARY_KEYS) and no `partial`; the launches it reports on
+    stderr must include each kernel its steps run (BENCH_KERNELS), and
+    count on the main path. Then graft_entry.entry()'s flagship frame on
+    the card against the same frame on the CPU: 0 px, B2 launched once
+    and no other kernel."""
+    from rustexp_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "rustexp_tpu_torch.bench"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in out.stderr.splitlines():
+        if line.startswith(("# device", "# launches", "# watchdog")) or (
+                " failed: " in line):
+            print(f"bench stderr {line}", flush=True)
+    last = (out.stdout.strip().splitlines() or [""])[-1]
+    print(f"bench line {last} [{card}]", flush=True)
+    print(f"time bench: python -m rustexp_tpu_torch.bench {wall:.1f} s "
+          f"wall (host clock), rc {out.returncode} [{card}]", flush=True)
+    if out.returncode != 0:
+        return (f"the bench exited {out.returncode}: "
+                f"{out.stderr.strip()[-2000:]}")
+    try:
+        line = json.loads(last)
+    except ValueError:
+        return f"the bench's last line does not parse: {last[:200]}"
+    if line.get("metric") != "raster_suite_Mpix_per_s" or (
+            line.get("scenes_done"), line.get("moving_scenes_done")) != (
+            12, 12) or "partial" in line:
+        return (f"the bench's line: metric {line.get('metric')}, scenes "
+                f"{line.get('scenes_done')}, moving "
+                f"{line.get('moving_scenes_done')}, partial "
+                f"{line.get('partial')}")
+    if set(line) != set(SUMMARY_KEYS):
+        return (f"the bench's keys: missing "
+                f"{sorted(set(SUMMARY_KEYS) - set(line))}, extra "
+                f"{sorted(set(line) - set(SUMMARY_KEYS))}")
+    m = re.search(r"^# launches: (\{.*\})$", out.stderr, re.M)
+    got = json.loads(m.group(1)) if m else {}
+    if not all(got.get(k) for k in BENCH_KERNELS):
+        return f"the bench launched {got}, not each of {BENCH_KERNELS}"
+    for k, v in got.items():
+        launches[k] += v
+
+    fn, args = graft_entry.entry()
+    _zero(counters)
+    fb = fn(*args)
+    torch.cuda.synchronize(dev)
+    got = {k: v for k, v in _launches(counters).items() if v}
+    cfn, cargs = graft_entry.entry("cpu")
+    ref = cfn(*cargs)
+    diff = int((fb.cpu().view(torch.int32) != ref.view(torch.int32)).sum())
+    print(f"graft_entry.entry() Cube 512x512 per-pixel shader 5 on the card: "
+          f"{diff} px differ from entry('cpu'); launches {got} [{card}]",
+          flush=True)
+    if fb.shape != (H, W) or fb.dtype != torch.uint32 or diff or got != {
+            "B2": 1}:
+        return f"entry(): {diff} px differ from the CPU frame, launches {got}"
+    launches["B2"] += 1
+    return None
+
+
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel of ptxas's -v report: its name (without the
     namespace and the argument types), registers and spills."""
@@ -2885,7 +2980,7 @@ def main() -> int:
 
     for c in counters.values():
         c.launches = 0
-    suite = bench.run_suite(SUITE_RUNS, dev)
+    suite = bench.run_suite(SUITE_RUNS, verbose=False, device=dev)
     got = {k: c.launches for k, c in counters.items()}
     print(f"launches during run_suite: {got}", flush=True)
     for k in path_kernels["run_suite"]:
@@ -3058,6 +3153,10 @@ def main() -> int:
     if msg:
         return fail(msg)
     phase_done("sharded paths")
+    msg = surfaces(dev, card, counters, launches)
+    if msg:
+        return fail(msg)
+    phase_done("the surfaces (bench and graft_entry)")
     head = {k: suite[k] for k in ("metric", "value", "unit", "vs_baseline")}
     print(f"run_suite (procedural stand-ins for the meshes and the envmap) "
           f"{json.dumps(head)} [{card}]")

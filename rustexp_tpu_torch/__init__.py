@@ -11,7 +11,10 @@ to end, the 12-scene suite, the deferred queue frame, the G-buffer
 oracle (backend "xla", any frame size) and the band renderer; the point
 and line modes; the Game of Life, N-body and sine experiments and their
 benches; and the app shell: the CLI (python -m rustexp_tpu_torch.app.cli),
-the terminal viewer, the turntable and checkpoints. Every TPU kernel has
+the terminal viewer, the turntable and checkpoints; and the two
+top-level surfaces: the one-line benchmark (python -m
+rustexp_tpu_torch.bench, the root bench.py's counterpart) and the
+flagship frame (graft_entry.entry, __graft_entry__.py's). Every TPU kernel has
 its hand-written CUDA counterpart for sm_90a: the flat-queue rasterizer
 and its depth race alone (csrc/raster_queue.cu), the binned rasterizer
 and its G-buffer form (csrc/raster_bins.cu), SWAR GoL and the f32 GoL
@@ -35,6 +38,8 @@ Layout mirrors the JAX package:
              benchmarks: raster scenes and suite, GoL, N-body
   csrc/      CUDA C++ kernel sources, built at first use (runtime.py)
   interop.py the JAX package's scenes, queues, bins, grids and particles
+  bench.py   the headline benchmark's one JSON line
+  graft_entry.py  the flagship frame and the multi-rank dry run
 """
 
 __version__ = "0.5.0"

@@ -14,6 +14,8 @@ the "vs-own" ratio) are not carried over.
 
 from __future__ import annotations
 
+import sys
+
 import numpy as np
 import torch
 
@@ -56,6 +58,9 @@ QUEUE_MIN_TRIS = 1000
 
 FRAMES_PER_RUN = 32  # back-to-back frames between one pair of CUDA events
 
+# bench_scene's backends, as the JAX bench takes them
+BACKENDS = ("auto", "queue", "pallas", "xla")
+
 
 def _run_stats(run, runs: int, per: float) -> dict:
     """Call run() `runs` times; run returns the seconds it took. Per-unit
@@ -86,61 +91,74 @@ def _event_seconds(fn) -> float:
     return start.elapsed_time(end) / 1e3
 
 
-def scene_frame(mesh_idx: int, per_pixel: bool, device: torch.device):
+def scene_frame(mesh_idx: int, per_pixel: bool, device: torch.device,
+                backend: str = "auto", shade_w: int | None = None):
     """One bench scene on `device` -> (frame, structure, mesh, envmap).
 
-    The raster structure is built once and reused, as the renderer does
-    for a temporally coherent camera: a flat queue for meshes of >=
-    QUEUE_MIN_TRIS triangles, else a suggest_binning config for the bins.
-    frame() renders one frame and returns its stale/overflow flag, a
-    device tensor; each frame pays transform, setup, binning or row
+    `backend` is the JAX bench's (rustexp_tpu/app/benchmark.py:114-121):
+    "auto" takes the flat queue for meshes of >= QUEUE_MIN_TRIS triangles,
+    else the bins; "queue" builds a flat queue (compacted-shade width
+    `shade_w`, else choose_shade_w's), "pallas" a suggest_binning config
+    for the bins, "xla" no structure (the G-buffer oracle, no kernel). The
+    structure is built once and reused, as the renderer does for a
+    temporally coherent camera. frame() renders one frame and returns (fb,
+    stale), the flag a device tensor (the cached queue went stale or the
+    bins overflowed); each frame pays transform, setup, binning or row
     gather, the raster kernel (B1 or B2), shading and pack. `structure`
     names the backend and its structure (queue order and shade_w, or cap,
     spans and rows_cap).
     """
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
     m = mesh.get_mesh(mesh_idx)
     cm = cubemap.get_cm_set(ENV)
     scene = pp.make_scene(m, cm, device)
     eye = camera.camera_eye(mesh.mesh_camera(mesh_idx), TICK)
-    if m.num_tris >= QUEUE_MIN_TRIS:
-        queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
-        kw = dict(backend="queue", raster_queue=queue)
-        structure = {"backend": "queue", "queue_order": queue.order,
-                     "shade_w": queue.shade_w}
-    else:
+    if backend == "auto":
+        backend = "queue" if m.num_tris >= QUEUE_MIN_TRIS else "pallas"
+    kw = dict(backend=backend)
+    structure = {"backend": backend}
+    if backend == "queue":
+        queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel,
+                                     shade_w=shade_w)
+        kw.update(raster_queue=queue)
+        structure.update(queue_order=queue.order, shade_w=queue.shade_w)
+    elif backend == "pallas":
         cap, spans, rows_cap = pp.suggest_binning(scene, eye, W, H)
-        kw = dict(backend="pallas", raster_cap=cap, raster_spans=spans,
-                  raster_rows=rows_cap)
-        structure = {"backend": "pallas", "cap": cap, "spans": list(spans),
-                     "rows_cap": rows_cap}
+        kw.update(raster_cap=cap, raster_spans=spans, raster_rows=rows_cap)
+        structure.update(cap=cap, spans=list(spans), rows_cap=rows_cap)
 
-    def frame() -> torch.Tensor:
-        _, stale = pp.render_frame(
+    def frame() -> tuple[torch.Tensor, torch.Tensor]:
+        return pp.render_frame(
             scene, eye, TICK, w=W, h=H, mode=pp.MODE_FILL,
             per_pixel=per_pixel, shader_idx=SHADER, bg_idx=0, show_cm=False,
             return_overflow=True, **kw)
-        return stale
 
     return frame, structure, m, cm
 
 
 def bench_scene(mesh_idx: int, per_pixel: bool, runs: int,
-                device: torch.device) -> dict:
-    """Per-frame seconds for one scene (scene_frame), as a record.
+                backend: str = "auto", return_stats: bool = False,
+                shade_w: int | None = None,
+                device: torch.device | str | None = None):
+    """Best per-frame seconds for one scene (scene_frame's route for
+    `backend` and `shade_w`), or with return_stats its record.
 
     Each run times FRAMES_PER_RUN back-to-back frames between two CUDA
-    events. The record names the card, the backend and its structure, and
+    events. The record holds JAX's stats (best, median, spread_pct,
+    n_runs) and names the card, the backend and its structure, and
     whether the mesh and envmap are the procedural stand-ins (assets
     absent) or the reference's.
     """
     device = _card(device)
-    frame, structure, m, cm = scene_frame(mesh_idx, per_pixel, device)
+    frame, structure, m, cm = scene_frame(mesh_idx, per_pixel, device,
+                                          backend, shade_w)
     stale_any = torch.zeros((), dtype=torch.bool, device=device)
 
     def frames() -> None:
         nonlocal stale_any
         for _ in range(FRAMES_PER_RUN):
-            stale_any = stale_any | frame()
+            stale_any = stale_any | frame()[1]
 
     def run() -> float:
         return _event_seconds(frames)
@@ -151,6 +169,8 @@ def bench_scene(mesh_idx: int, per_pixel: bool, runs: int,
     if bool(stale_any):
         raise RuntimeError("the cached raster structure went stale or "
                            "overflowed at a fixed eye")
+    if not return_stats:
+        return st["best"]
     return {
         "scene": _label(mesh_idx, per_pixel), **st,
         "frames_per_run": FRAMES_PER_RUN,
@@ -177,7 +197,20 @@ def _assets(m, cm) -> dict:
     }
 
 
-def run_suite(runs: int, device: torch.device) -> dict:
+def _tinted(speedup: float, text: str) -> str:
+    """ANSI red/green outside the reference's +-1% tolerance band
+    (rasterizer.rs:1813-1883: faster = green, slower = red)."""
+    if not sys.stdout.isatty():
+        return text
+    if speedup >= 1.01:
+        return f"\x1b[32m{text}\x1b[0m"
+    if speedup <= 0.99:
+        return f"\x1b[31m{text}\x1b[0m"
+    return text
+
+
+def run_suite(runs: int = 20, backend: str = "auto", verbose: bool = True,
+              device: torch.device | str | None = None) -> dict:
     """All 12 SCENES through bench_scene -> the headline record
     (rustexp_tpu/app/benchmark.py:162).
 
@@ -185,16 +218,32 @@ def run_suite(runs: int, device: torch.device) -> dict:
     per-frame time; ``value`` is 12 x 512^2 pixels over their sum, and
     ``vs_baseline`` the reference CPU's 27,286 us over that sum.
     ``scene_us`` holds each scene's best and ``rows`` each full record,
-    with its median, spread and stand-in flags.
+    with its median, spread and stand-in flags. `verbose` prints JAX's
+    per-scene table and total line, each tinted by its speedup over the
+    reference CPU (JAX's "vs-own" column divides by a TPU's stored times
+    and is left out).
     """
-    rows = [bench_scene(mesh_idx, per_pixel, runs, device)
-            for _, mesh_idx, per_pixel, _ in SCENES]
+    rows = []
+    for label, mesh_idx, per_pixel, ref_us in SCENES:
+        rows.append(bench_scene(mesh_idx, per_pixel, runs, backend,
+                                return_stats=True, device=device))
+        if verbose:
+            us = rows[-1]["best"] * 1e6
+            sp = ref_us / us
+            print(_tinted(sp, f"# {label:<12} {us:9.0f} us   ref "
+                              f"{ref_us:6d} us   speedup x{sp:6.2f}"))
     total_s = sum(r["best"] for r in rows)
+    mpix_s = len(rows) * W * H / total_s / 1e6
+    sp = REF_TOTAL_US / (total_s * 1e6)
+    if verbose:
+        print(_tinted(sp, f"# total {total_s * 1e6:9.0f} us   ref "
+                          f"{REF_TOTAL_US} us   speedup x{sp:.2f}   "
+                          f"{mpix_s:.0f} Mpix/s"))
     return {
         "metric": "raster_suite_Mpix_per_s",
-        "value": len(rows) * W * H / total_s / 1e6,
+        "value": mpix_s,
         "unit": "Mpix/s",
-        "vs_baseline": REF_TOTAL_US / (total_s * 1e6),
+        "vs_baseline": sp,
         "scene_us": {r["scene"]: r["best"] * 1e6 for r in rows},
         "device": rows[0]["device"],
         "rows": rows,
@@ -456,7 +505,7 @@ def bench_gol(generations_per_dispatch: int = 65536, runs: int = 3,
     call()  # warm-up: first-use kernel build
     torch.cuda.synchronize(device)
     st = _run_stats(lambda: _event_seconds(call), runs, k)
-    return {
+    rec = {
         "metric": "gol_cell_updates_per_s",
         "value": n * n / st["best"],
         "unit": "cells/s",
@@ -470,6 +519,11 @@ def bench_gol(generations_per_dispatch: int = 65536, runs: int = 3,
         "live_cells": int(out.sum()),
         "device": torch.cuda.get_device_name(device),
     }
+    if n * n <= 1 << 17:
+        # as JAX's record flags its launch-bound small grid
+        rec["note"] = ("one SM's work at this size (B4 resident); see "
+                       "gol_2048 for the form that fills the card")
+    return rec
 
 
 def bench_nbody(n: int = 131072, steps_per_dispatch: int = 64, runs: int = 3,

@@ -118,7 +118,7 @@ def main(argv=None):
     if args.experiment == "bench":
         from .benchmark import run_suite
 
-        print(json.dumps(run_suite(args.runs, dev)))
+        print(json.dumps(run_suite(args.runs, device=dev)))
         return 0
 
     if args.animate:

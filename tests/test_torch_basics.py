@@ -130,8 +130,9 @@ def test_port_imports_no_jax():
     """The port runs where jax is not installed and keeps its own copies
     of what it needs: importing every module of it (in a fresh
     interpreter), the GoL, N-body, G-buffer, band-rendering, app-shell
-    and sharded (parallel/, app/multidev) modules among them, must leave
-    jax and every rustexp_tpu module out of sys.modules."""
+    and sharded (parallel/, app/multidev) modules and the two top-level
+    surfaces (bench, graft_entry) among them, must leave jax and every
+    rustexp_tpu module out of sys.modules."""
     code = (
         "import sys, pkgutil, importlib, rustexp_tpu_torch\n"
         "for m in pkgutil.walk_packages(rustexp_tpu_torch.__path__,\n"
@@ -152,6 +153,7 @@ def test_port_imports_no_jax():
         "from rustexp_tpu_torch.core import checkpoint, font, framebuffer\n"
         "from rustexp_tpu_torch.core import gif, platform, prewarm, trace\n"
         "from rustexp_tpu_torch.sims import base, sine\n"
+        "import rustexp_tpu_torch.bench, rustexp_tpu_torch.graft_entry\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'rustexp_tpu'))\n"
         "assert not bad, bad\n"

@@ -5,7 +5,8 @@ whole frames on the card (queue, moving-camera, every shader, deferred
 queue, bins, G-buffer oracle and band paths, the GoL and N-body
 Experiments) against the same frames on the CPU; the seeded states
 (core/prng.py) drawn on the card against JAX's known answers and the
-CPU's draws, word for word, and run through B4, B5 and B6.
+CPU's draws, word for word, and run through B4, B5 and B6; and the
+flagship frame of graft_entry.entry() on the card against the CPU's.
 
 These tests need a CUDA device and skip without one. This file imports no
 jax (the card's machine has none), so it runs there on its own:
@@ -727,3 +728,25 @@ def test_gol_bits_banded_launches_b4_on_card():
                                    8).launches)
         grids.append(st.grid.cpu())
     assert torch.equal(grids[0], grids[1])
+
+
+@pytest.mark.cuda
+def test_graft_entry_frame_on_card_matches_cpu():
+    """graft_entry.entry()'s flagship frame (Cube, 512^2, per-pixel,
+    shader 5, "auto") on the card equals entry("cpu")'s at 0 px, and
+    launches B2 once and no other kernel."""
+    from rustexp_tpu_torch import graft_entry
+    from rustexp_tpu_torch.app.multidev import kernel_launches
+
+    _card()
+    fn, args = graft_entry.entry()
+    before = kernel_launches()
+    fb = fn(*args)
+    torch.cuda.synchronize()
+    after = kernel_launches()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"B2": 1}
+    cfn, cargs = graft_entry.entry("cpu")
+    assert fb.shape == (H, W) and fb.dtype == torch.uint32
+    assert torch.equal(fb.cpu().view(torch.int32),
+                       cfn(*cargs).view(torch.int32))

@@ -134,9 +134,9 @@ def test_bins_path_and_cpu_timing_refused():
         0.0, w=120, h=H, backend="xla"))
     for mesh_idx in (0, 9):
         with pytest.raises(ValueError, match="times the card"):
-            tbench.bench_scene(mesh_idx, True, 1, CPU)
+            tbench.bench_scene(mesh_idx, True, 1, device=CPU)
     with pytest.raises(ValueError, match="times the card"):
-        tbench.run_suite(1, CPU)
+        tbench.run_suite(1, device=CPU)
     assert sum(s[3] for s in tbench.SCENES) == tbench.REF_TOTAL_US == 27286
     with pytest.raises(ValueError, match="CUDA"):
         trq.raster_attrs_queue_cuda(
