@@ -43,7 +43,12 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
   4. runs each main path with the launch counters set to 0 just before it
      and read just after, and fails if its kernel never ran: the queue path
      (RasterizerExperiment.render, KillerooV and KillerooP, a few ticks),
-     the bins path (the same on Cube, mesh 9) and the 12-scene run_suite;
+     the bins path (the same on Cube, mesh 9), and run_suite at bench.py's
+     runs over its SCENES cut to KillerooP (B1) and CubeP (B2), after short
+     batches of the same frames (sampling below: JAX's 1,024-frame warm-up
+     and 2 runs of 1,024 frames, each frame with its checksum, against 20
+     runs of 32 frames after one; each counted alone, exactly the kernel
+     once a frame; the checksums equal the CPU frames');
      the G-buffer band path (render_frame_sharded(group=None,
      backend="pallas") and four bands one after another -> B3), the
      deferred queue frame (raster_and_shade_queue(defer=True), P and V ->
@@ -75,13 +80,16 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      conditions match within 1% of pixels (the N-body golden's bound);
   5. prints times, each with the card's name and power limit: each
      kernel's device time (torch.profiler), its wrapper call's and its
-     plain version's (CUDA events), the bench frames, the suite and the
-     GoL and N-body bench records, and per bench scene the device-busy
+     plain version's (CUDA events), both samplings' best, median and
+     spread, the GoL and N-body bench records, and, after the bench of
+     item 8, its 12 scenes' frame times, both samplings here over the
+     bench's in its fresh process, and per bench scene the device-busy
      time, device activities and raster kernel time per frame
-     (torch.profiler) with the device's idle share of the suite's
-     unprofiled frame time, the same per G-buffer and deferred path
-     against its CUDA-event frame time, and per GoL and N-body bench
-     record per generation or step, and each phase's seconds;
+     (torch.profiler) with the device's idle share of the median frame
+     time of 5 unprofiled runs of 20 frames just before the profile, the
+     same per G-buffer and deferred path against its CUDA-event frame
+     time, and per GoL and N-body bench record per generation or step,
+     and each phase's seconds;
   6. drives the app shell as a user calls it (app_shell below): the CLI
      (rustexp_tpu_torch.app.cli.main) on the rasterizer at 512^2 with PNGs
      and a GIF, its point and line modes (keys M, MM) on Killeroo and
@@ -91,7 +99,8 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      at its defaults and resumed at N = 16,384, and sine; then the viewer
      (app.viewer.run_viewer) headless with each experiment as its start.
      Each run's launches are counted on their own (B1 once a frame
-     rendered, stale rebuilds included; B2 on the Cube; B4 once a GoL step;
+     rendered, stale rebuilds included, each counted by its core.trace line
+     in a file sink; B2 on the Cube; B4 once a GoL step;
      B6 12 times a BH step at 16,384; none for points, lines and sine); the
      PNGs must equal the card's frames, the point, line and sine frames the
      CPU's at 0 px, the resumed GoL the uninterrupted run bit for bit; it
@@ -115,8 +124,10 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      rustexp_tpu_torch.bench in a fresh process, as a user runs it (rc 0,
      a last line that parses with metric raster_suite_Mpix_per_s, 12
      fixed and 12 moving scenes, exactly the keys of the root bench.py's
-     full summary, no "partial"; the launches it reports on stderr count
-     on the main path and must include B1, B2, B4, B5 and B6), printing
+     full summary, no "partial", each fixed scene timed in 2 runs of 1,024
+     frames and its step's launches on stderr exactly 3,072 of its raster
+     kernel, B1 or B2; the launches of the whole run count on the main
+     path and must include B1, B2, B4, B5 and B6), printing
      its line and wall time; then graft_entry.entry()'s flagship frame on
      the card against the CPU's (0 px, B2 launched once).
 
@@ -129,10 +140,10 @@ when there is no CUDA device, a build or launch fails, or a check fails.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import io
 import json
-import logging
 import os
 import re
 import subprocess
@@ -164,8 +175,16 @@ B2_SCENES = (("CubeV", 9, False, "suite"), ("CubeP", 9, True, "suite"),
              ("KillerooP", 0, True, "default"))
 EXPERIMENT_MESHES = (("Killeroo", 0), ("Cube", 9))
 TICKS = (0.0, 0.05, 0.1)
-SUITE_RUNS = 3
+# run_suite in this process (sampling below) over bench.SCENES cut to one
+# scene of each raster kernel, KillerooP (B1) and CubeP (B2), beside short
+# batches of the same frames: SHORT_RUNS runs of SHORT_FRAMES after a
+# one-frame warm-up, no checksum. BENCH_SCENE_RUNS is bench.py's runs
+# argument: max(1, 20 // 8) = 2 timed runs of 1,024 frames a scene.
+SAMPLING_SCENES = ("KillerooP", "CubeP")
+SHORT_RUNS, SHORT_FRAMES = 20, 32
+BENCH_SCENE_RUNS = 20
 PROFILE_FRAMES = 20  # frames per bench scene under torch.profiler
+WALL_RUNS = 5  # unprofiled runs of PROFILE_FRAMES before each profile
 GOLDEN_FRAC = 0.003  # tests/test_golden.py: <= 0.3% differing pixels
 
 # The least time the card could take (H100 SXM peak rates): bytes over
@@ -383,24 +402,32 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
-def frame_breakdowns(bench, suite) -> list[dict]:
+def frame_breakdowns(bench) -> list[dict]:
     """Per bench scene, where a frame's time goes on the card: device-busy
     ms, device activities and raster-kernel ms per frame, by the profiler
     over PROFILE_FRAMES frames, and the idle share against the scene's
-    median frame time in the unprofiled run_suite (the profiler's own host
-    overhead stretches a profiled frame's wall time)."""
-    wall = {r["scene"]: r["median"] * 1e3 for r in suite["rows"]}
+    median ms a frame unprofiled, in WALL_RUNS runs of PROFILE_FRAMES
+    frames (CUDA events) just before the profile in this process (the
+    profiler's own host overhead stretches a profiled frame's wall
+    time)."""
     out = []
     for label, mesh_idx, per_pixel, _ in bench.SCENES:
         frame, structure, _, _ = bench.scene_frame(mesh_idx, per_pixel,
                                                    torch.device("cuda"))
+
+        def frames():
+            for _ in range(PROFILE_FRAMES):
+                frame()
+
+        frame()
+        wall = bench._run_stats(lambda: bench._event_seconds(frames),
+                                WALL_RUNS, PROFILE_FRAMES)["median"] * 1e3
         events = device_events(frame, PROFILE_FRAMES)
         busy = busy_ms(events) / PROFILE_FRAMES
         raster = sum(e.time_range.end - e.time_range.start for e in events
                      if "raster_kernel" in e.name) / 1e3 / PROFILE_FRAMES
         out.append(dict(scene=label, backend=structure["backend"],
-                        wall_ms=wall[label], busy_ms=busy,
-                        idle=1.0 - busy / wall[label],
+                        wall_ms=wall, busy_ms=busy, idle=1.0 - busy / wall,
                         activities=len(events) / PROFILE_FRAMES,
                         raster_ms=raster))
     return out
@@ -1693,6 +1720,108 @@ B1_FORMS = (("V", False, True), ("P", True, True),
 SHADER_FRAGMENTS = 1 << 16  # seeded fragments per shader, card vs CPU
 
 
+def short_batches(bench, mesh_idx: int, per_pixel: bool, dev) -> dict:
+    """bench_scene's frame (scene_frame, "auto") timed in SHORT_RUNS runs
+    of SHORT_FRAMES back-to-back frames after a one-frame warm-up, each run
+    between two CUDA events, with no checksum -> _run_stats' record."""
+    frame, _, _, _ = bench.scene_frame(mesh_idx, per_pixel, dev)
+    stale_any = torch.zeros((), dtype=torch.bool, device=dev)
+
+    def frames() -> None:
+        nonlocal stale_any
+        for _ in range(SHORT_FRAMES):
+            stale_any = stale_any | frame()[1]
+
+    frame()
+    torch.cuda.synchronize(dev)
+    st = bench._run_stats(lambda: bench._event_seconds(frames), SHORT_RUNS,
+                          SHORT_FRAMES)
+    if bool(stale_any):
+        raise RuntimeError("short batches: the cached structure went stale")
+    return st
+
+
+def _stats_text(st: dict) -> str:
+    return (f"best {st['best'] * 1e3:.4f} ms, median "
+            f"{st['median'] * 1e3:.4f} ms, spread {st['spread_pct']:.1f}% "
+            f"over {st['n_runs']} runs")
+
+
+def sampling(dev, card, bench, counters, launches
+             ) -> tuple[str | None, dict]:
+    """run_suite in this process at bench.py's runs (BENCH_SCENE_RUNS:
+    bench_scene's 1,024-frame warm-up, then 2 timed runs of 1,024 frames,
+    each frame with its checksum) over bench.SCENES cut to SAMPLING_SCENES,
+    one scene of each raster kernel, for the time limit (the fresh bench
+    of surfaces() times all 12); before it, short batches of the same
+    frames (short_batches) on each. Launches are counted on their own for
+    each scene's short batches and for run_suite: the scene's raster
+    kernel (B1 on the queue, B2 on the bins) once a frame, and no other
+    kernel. Each row's checksum must equal that of the same frame rendered
+    on the CPU. Returns a failure message or None, and {scene: {"short":
+    stats, "bench_scene": run_suite's row}}.
+    """
+    k = bench.FRAMES_PER_DISPATCH
+    timed = max(1, BENCH_SCENE_RUNS // 8)
+    cpu = torch.device("cpu")
+    cut = tuple(s for s in bench.SCENES if s[0] in SAMPLING_SCENES)
+    shorts = {}
+    for label, mesh_idx, per_pixel, _ in cut:
+        _zero(counters)
+        shorts[label] = (short_batches(bench, mesh_idx, per_pixel, dev),
+                         _launches(counters))
+    _zero(counters)
+    full, bench.SCENES = bench.SCENES, cut
+    try:
+        suite = bench.run_suite(BENCH_SCENE_RUNS, verbose=False, device=dev)
+    finally:
+        bench.SCENES = full
+    got = _launches(counters)
+    print(f"launches during run_suite ({', '.join(SAMPLING_SCENES)}): "
+          f"{_nonzero(got)}", flush=True)
+    for c in counters:
+        launches[c] += got[c] + sum(g[c] for _, g in shorts.values())
+    kernel = {r["scene"]: "B1" if r["backend"] == "queue" else "B2"
+              for r in suite["rows"]}
+    for want_k in ("B1", "B2"):
+        if got[want_k] == 0:
+            return f"run_suite never launched kernel {want_k}", {}
+    want = {}
+    for r in suite["rows"]:
+        want[kernel[r["scene"]]] = want.get(kernel[r["scene"]], 0) + (
+            1 + timed) * k
+    if _nonzero(got) != want or len(suite["scene_us"]) != len(cut):
+        return (f"run_suite launched {_nonzero(got)} over "
+                f"{len(suite['scene_us'])} scenes, want {want} over "
+                f"{len(cut)}"), {}
+    out = {}
+    for r, (label, mesh_idx, per_pixel, _) in zip(suite["rows"], cut):
+        short, got_short = shorts[label]
+        fb, stale = bench.scene_frame(mesh_idx, per_pixel, cpu)[0]()
+        want_sum = int(bench.wrap32(bench.frame_sum(fb, stale)))
+        print(f"sampling {label} 512x512 ({r['backend']}), short batches "
+              f"({SHORT_RUNS} runs x {SHORT_FRAMES} frames, a one-frame "
+              f"warm-up, CUDA events): {_stats_text(short)}; launches "
+              f"{_nonzero(got_short)} [{card}]", flush=True)
+        print(f"sampling {label} 512x512 ({r['backend']}), run_suite's "
+              f"bench_scene (JAX's: {r['n_runs']} runs x "
+              f"{r['frames_per_run']} frames, a {k}-frame warm-up, CUDA "
+              f"events): {_stats_text(r)}; checksum {r['checksum']:#010x} "
+              f"(the CPU frame's {want_sum:#010x}) [{card}]", flush=True)
+        want_short = {kernel[label]: 1 + SHORT_RUNS * SHORT_FRAMES}
+        if (r["scene"] != label or _nonzero(got_short) != want_short
+                or (r["n_runs"], r["frames_per_run"]) != (timed, k)):
+            return (f"sampling {label}: run_suite's row {r['scene']} in "
+                    f"{r['n_runs']} runs x {r['frames_per_run']} frames, "
+                    f"short batches launched {got_short} (want "
+                    f"{want_short})"), out
+        if r["checksum"] != want_sum:
+            return (f"sampling {label}: checksum {r['checksum']:#010x} on "
+                    f"the card, {want_sum:#010x} on the CPU"), out
+        out[label] = {"short": short, "bench_scene": r}
+    return None, out
+
+
 def moving_scene(dev, pp, bench, meshes, cubemap, mesh_idx: int):
     """(scene, path eyes, caps) of a moving scene on `dev`: MOVING_K host
     eyes of the mesh's camera path and moving_caps' per-pixel caps, as
@@ -1946,20 +2075,40 @@ APP_MODE_KEYS = (("Killeroo points", "M"), ("Killeroo lines", "MM"),
                  ("TorusKnot lines", "WWWWWWMM"))
 
 
-class _StaleCount(logging.Handler):
+class _StaleCount:
     """Counts the rasterizer Experiment's stale-structure rebuilds: each
-    renders its frame a second time, and so launches its kernel again."""
+    renders its frame a second time, and so launches its kernel again. The
+    Experiment traces each one (core.trace, INFO); this sets the trace to
+    INFO with a file sink at `path` and counts the sink's stale lines since
+    the last reset(). close() puts the trace back to its defaults."""
 
-    def __init__(self):
-        super().__init__(logging.INFO)
-        self.n = 0
+    def __init__(self, path: str):
+        from rustexp_tpu_torch.core import trace
 
-    def emit(self, record):
-        self.n += "stale" in record.getMessage()
+        self._trace, self._path, self._base = trace, path, 0
+        trace.setup(trace.TraceLevel.INFO, file_path=path, echo=False)
+
+    def _lines(self) -> int:
+        with open(self._path) as f:
+            return sum("structure stale" in line for line in f)
+
+    @property
+    def n(self) -> int:
+        return self._lines() - self._base
+
+    def reset(self) -> None:
+        self._base = self._lines()
+
+    def close(self) -> None:
+        self._trace.setup(self._trace.TraceLevel.WARN, file_path=None)
 
 
 def _launches(counters) -> dict:
     return {k: c.launches for k, c in counters.items()}
+
+
+def _nonzero(got: dict) -> dict:
+    return {k: v for k, v in got.items() if v}
 
 
 def _zero(counters) -> None:
@@ -1972,7 +2121,7 @@ def cli_run(cli, dev, argv, counters, stale) -> tuple[str, dict, int]:
     count set to 0 just before and read just after -> (stdout, launches,
     rebuilds). Raises if the CLI does not return 0."""
     _zero(counters)
-    stale.n = 0
+    stale.reset()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main([*argv, "--device", dev.type])
@@ -2019,10 +2168,7 @@ def app_shell(dev, card, counters, launches, tmp: str) -> str | None:
     from rustexp_tpu_torch.sims.sine import SineExperiment
 
     cpu = torch.device("cpu")
-    stale = _StaleCount()
-    rlog = logging.getLogger("rustexp_tpu_torch.sims.rasterizer")
-    rlog.addHandler(stale)
-    rlog.setLevel(logging.INFO)
+    stale = _StaleCount(os.path.join(tmp, "trace.log"))
     tpf = 1.0 / 60.0  # the CLI's default ticks per frame
 
     def report(label, text, got, frames):
@@ -2174,7 +2320,7 @@ def app_shell(dev, card, counters, launches, tmp: str) -> str | None:
     # 8. the viewer, headless, each experiment as its start
     for start, kernel in ((0, "B4"), (1, None), (2, "B1")):
         _zero(counters)
-        stale.n = 0
+        stale.reset()
         err = io.StringIO()
         with contextlib.redirect_stdout(io.StringIO()), \
                 contextlib.redirect_stderr(err):
@@ -2194,7 +2340,7 @@ def app_shell(dev, card, counters, launches, tmp: str) -> str | None:
             return f"app viewer: B1 launched {got['B1']} times for {n} frames"
         if kernel == "B4" and got["B4"] == 0:
             return "app viewer: GoL's worker never launched B4"
-    rlog.removeHandler(stale)
+    stale.close()
     return None
 
 
@@ -2758,18 +2904,26 @@ BENCH_KERNELS = ("B1", "B2", "B4", "B5", "B6")  # the bench's steps launch
 BENCH_TIMEOUT_S = 900
 
 
-def surfaces(dev, card, counters, launches) -> str | None:
+def surfaces(dev, card, counters, launches) -> tuple[str | None, dict]:
     """The port's two top-level surfaces as a user calls them.
 
     `python -m rustexp_tpu_torch.bench` in a fresh process: it must exit
     0 with a last line that parses, `metric` raster_suite_Mpix_per_s, 12
     fixed and 12 moving scenes, exactly the keys of bench.py's full
-    summary (SUMMARY_KEYS) and no `partial`; the launches it reports on
-    stderr must include each kernel its steps run (BENCH_KERNELS), and
-    count on the main path. Then graft_entry.entry()'s flagship frame on
-    the card against the same frame on the CPU: 0 px, B2 launched once
-    and no other kernel."""
+    summary (SUMMARY_KEYS) and no `partial`; each fixed scene's record
+    on stderr (`# recorded scene:<name>: {...}`) must hold bench_scene's
+    timed runs at bench.py's runs (2), and its launches on stderr (`#
+    launches scene:<name>: {...}`, counted over that step alone) exactly
+    its raster kernel once a frame: 3,072 of B1 on the queue scenes, of
+    B2 on CubeV and CubeP, and no other kernel; the launches of the whole
+    run must include each kernel its steps run (BENCH_KERNELS), and count
+    on the main path. Then graft_entry.entry()'s flagship frame on the card
+    against the same frame on the CPU: 0 px, B2 launched once and no other
+    kernel. Returns a failure message or None, and the fixed scenes'
+    records by scene name."""
     from rustexp_tpu_torch import graft_entry
+    from rustexp_tpu_torch.app import benchmark as bench
+    from rustexp_tpu_torch.assets import mesh as meshes
 
     t0 = time.perf_counter()
     out = subprocess.run(
@@ -2787,26 +2941,44 @@ def surfaces(dev, card, counters, launches) -> str | None:
           f"wall (host clock), rc {out.returncode} [{card}]", flush=True)
     if out.returncode != 0:
         return (f"the bench exited {out.returncode}: "
-                f"{out.stderr.strip()[-2000:]}")
+                f"{out.stderr.strip()[-2000:]}"), {}
     try:
         line = json.loads(last)
     except ValueError:
-        return f"the bench's last line does not parse: {last[:200]}"
+        return f"the bench's last line does not parse: {last[:200]}", {}
     if line.get("metric") != "raster_suite_Mpix_per_s" or (
             line.get("scenes_done"), line.get("moving_scenes_done")) != (
             12, 12) or "partial" in line:
         return (f"the bench's line: metric {line.get('metric')}, scenes "
                 f"{line.get('scenes_done')}, moving "
                 f"{line.get('moving_scenes_done')}, partial "
-                f"{line.get('partial')}")
+                f"{line.get('partial')}"), {}
     if set(line) != set(SUMMARY_KEYS):
         return (f"the bench's keys: missing "
                 f"{sorted(set(SUMMARY_KEYS) - set(line))}, extra "
-                f"{sorted(set(line) - set(SUMMARY_KEYS))}")
+                f"{sorted(set(line) - set(SUMMARY_KEYS))}"), {}
+    scenes = {m.group(1): ast.literal_eval(m.group(2)) for m in re.finditer(
+        r"^# recorded scene:(\w+): (\{.*\})$", out.stderr, re.M)}
+    timed = max(1, BENCH_SCENE_RUNS // 8)
+    if len(scenes) != 12 or len(line["scene_us"]) != 12 or any(
+            r["n_runs"] != timed for r in scenes.values()):
+        return (f"the bench timed {len(scenes)} fixed scenes, runs "
+                f"{ {k: r['n_runs'] for k, r in scenes.items()} }, not 12 "
+                f"scenes of {timed}"), scenes
+    steps = {m.group(1): json.loads(m.group(2)) for m in re.finditer(
+        r"^# launches scene:(\w+): (\{.*\})$", out.stderr, re.M)}
+    for label, mesh_idx, _, _ in bench.SCENES:
+        kernel = "B1" if meshes.get_mesh(mesh_idx).num_tris >= (
+            bench.QUEUE_MIN_TRIS) else "B2"
+        want = {kernel: (1 + timed) * bench.FRAMES_PER_DISPATCH}
+        if steps.get(label) != want:
+            return (f"the bench's scene:{label} launched "
+                    f"{steps.get(label)}, want {want}"), scenes
     m = re.search(r"^# launches: (\{.*\})$", out.stderr, re.M)
     got = json.loads(m.group(1)) if m else {}
     if not all(got.get(k) for k in BENCH_KERNELS):
-        return f"the bench launched {got}, not each of {BENCH_KERNELS}"
+        return (f"the bench launched {got}, not each of {BENCH_KERNELS}"
+                ), scenes
     for k, v in got.items():
         launches[k] += v
 
@@ -2823,9 +2995,10 @@ def surfaces(dev, card, counters, launches) -> str | None:
           flush=True)
     if fb.shape != (H, W) or fb.dtype != torch.uint32 or diff or got != {
             "B2": 1}:
-        return f"entry(): {diff} px differ from the CPU frame, launches {got}"
+        return (f"entry(): {diff} px differ from the CPU frame, launches "
+                f"{got}"), scenes
     launches["B2"] += 1
-    return None
+    return None, scenes
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -2954,8 +3127,7 @@ def main() -> int:
                 "B6": sb.sort_kv_cuda,
                 "B7": rq.raster_zslot_queue_cuda,
                 "B8": gs.multi_step_pallas_cuda}
-    path_kernels = {"Killeroo": ("B1",), "Cube": ("B2",),
-                    "run_suite": ("B1", "B2")}
+    path_kernels = {"Killeroo": ("B1",), "Cube": ("B2",)}
     launches = {k: 0 for k in counters}
     exp = RasterizerExperiment(dev)
     frames = {}
@@ -2978,18 +3150,11 @@ def main() -> int:
         for k in counters:
             launches[k] += got[k]
 
-    for c in counters.values():
-        c.launches = 0
-    suite = bench.run_suite(SUITE_RUNS, verbose=False, device=dev)
-    got = {k: c.launches for k, c in counters.items()}
-    print(f"launches during run_suite: {got}", flush=True)
-    for k in path_kernels["run_suite"]:
-        if got[k] == 0:
-            return fail(f"run_suite never launched kernel {k}")
-    for k in counters:
-        launches[k] += got[k]
-    if len(suite["scene_us"]) != 12:
-        return fail(f"run_suite timed {len(suite['scene_us'])} scenes")
+    phase_done("the Experiment paths")
+    msg, sampled = sampling(dev, card, bench, counters, launches)
+    if msg:
+        return fail(msg)
+    phase_done("run_suite and short batches")
 
     cpu = RasterizerExperiment("cpu")
     for (name, mesh_idx, per_pixel, tick), fb in frames.items():
@@ -3018,7 +3183,8 @@ def main() -> int:
                                   counters, launches)
     if msg:
         return fail(msg)
-    phase_done("the Experiment paths, run_suite and the G-buffer paths")
+    phase_done("the Experiment frames against the CPU and the G-buffer "
+               "paths")
     msg = moving_paths(dev, card, pp, rq, bench, meshes, cubemap, counters,
                        launches)
     if msg:
@@ -3094,20 +3260,6 @@ def main() -> int:
                   f"{r['call_ms']:.4f} ms and plain version "
                   f"{r['plain_ms']:.4f} ms (CUDA events), bound "
                   f"{r['bound_ms']:.5f} ms ({r['bound_by']}) [{card}]")
-    for r in suite["rows"]:
-        print(f"time frame {r['scene']} 512x512 (bench_scene, {r['backend']}, "
-              f"CUDA events, {r['n_runs']} runs x {r['frames_per_run']} "
-              f"frames, mesh {r['mesh']}): best {r['best'] * 1e3:.4f} ms, "
-              f"median {r['median'] * 1e3:.4f} ms, spread "
-              f"{r['spread_pct']:.1f}% [{card}]")
-    for r in frame_breakdowns(bench, suite):
-        print(f"profile frame {r['scene']} 512x512 ({r['backend']}, "
-              f"{PROFILE_FRAMES} frames): device busy {r['busy_ms']:.4f} "
-              f"ms/frame (profiler, union of the card's activities), "
-              f"{r['activities']:.1f} device activities/frame, raster "
-              f"kernel {r['raster_ms']:.4f} ms/frame; idle share "
-              f"{r['idle'] * 100:.1f}% of the run_suite median "
-              f"{r['wall_ms']:.4f} ms/frame [{card}]")
     for r in path_profiles(profiles):
         print(f"profile path {r['label']} ({PATH_FRAMES} frames): "
               f"wall {r['wall_ms']:.4f} ms/frame (CUDA events), device busy "
@@ -3153,15 +3305,37 @@ def main() -> int:
     if msg:
         return fail(msg)
     phase_done("sharded paths")
-    msg = surfaces(dev, card, counters, launches)
+    msg, scenes = surfaces(dev, card, counters, launches)
     if msg:
         return fail(msg)
     phase_done("the surfaces (bench and graft_entry)")
-    head = {k: suite[k] for k in ("metric", "value", "unit", "vs_baseline")}
-    print(f"run_suite (procedural stand-ins for the meshes and the envmap) "
-          f"{json.dumps(head)} [{card}]")
-    print(f"run_suite per-scene best us (procedural stand-ins) "
-          f"{json.dumps(suite['scene_us'])} [{card}]")
+    k = bench.FRAMES_PER_DISPATCH
+    for label, r in scenes.items():
+        print(f"time frame {label} 512x512 (the bench's bench_scene, a "
+              f"fresh process, CUDA events, {r['n_runs']} runs x {k} "
+              f"frames): best {r['us'] / 1e3:.4f} ms, "
+              f"median {r['us_median'] / 1e3:.4f} ms, spread "
+              f"{r['spread_pct']:.1f}% [{card}]")
+    for label, forms in sampled.items():
+        here, short, fresh = (forms["bench_scene"], forms["short"],
+                              scenes[label])
+        print(f"sampling {label}: this process over the bench's fresh "
+              f"process, bench_scene best x"
+              f"{here['best'] * 1e6 / fresh['us']:.3f} and median x"
+              f"{here['median'] * 1e6 / fresh['us_median']:.3f}, short "
+              f"batches best x{short['best'] * 1e6 / fresh['us']:.3f} and "
+              f"median x{short['median'] * 1e6 / fresh['us_median']:.3f} "
+              f"[{card}]")
+    for r in frame_breakdowns(bench):
+        print(f"profile frame {r['scene']} 512x512 ({r['backend']}, "
+              f"{PROFILE_FRAMES} frames): device busy {r['busy_ms']:.4f} "
+              f"ms/frame (profiler, union of the card's activities), "
+              f"{r['activities']:.1f} device activities/frame, raster "
+              f"kernel {r['raster_ms']:.4f} ms/frame; idle share "
+              f"{r['idle'] * 100:.1f}% of the unprofiled median "
+              f"{r['wall_ms']:.4f} ms/frame ({WALL_RUNS} runs x "
+              f"{PROFILE_FRAMES} frames, CUDA events) [{card}]")
+    phase_done("the frame profiles")
 
     def entry(name, source, replaces, kernel, cmp, label, *more):
         r = cmp[label]

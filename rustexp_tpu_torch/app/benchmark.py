@@ -1,15 +1,16 @@
 """The benchmarks on the card: the 12-scene rasterizer suite, GoL and N-body.
 
 Port of rustexp_tpu/app/benchmark.py (SCENES, the scene constants,
-QUEUE_MIN_TRIS, _run_stats, bench_scene, run_suite, the moving-camera
-benches bench_scene_moving and bench_scene_moving_amortized, bench_gol
-and bench_nbody). The scene matches the reference's rast_benchmark
-(rasterizer.rs:1781-1884): 512x512, Fill, shader 5 (CMRefl), envmap 0,
-tick 0. Work is timed with CUDA events around a batch (K back-to-back
-frames, a camera path's k frames, or one call of k generations or
-steps); a device without CUDA is refused, never measured on the CPU
-instead. The JAX package's TPU-only columns (its stored TPU times and
-the "vs-own" ratio) are not carried over.
+FRAMES_PER_DISPATCH, QUEUE_MIN_TRIS, _run_stats, bench_scene, run_suite,
+the moving-camera benches bench_scene_moving and
+bench_scene_moving_amortized, bench_gol and bench_nbody). The scene
+matches the reference's rast_benchmark (rasterizer.rs:1781-1884):
+512x512, Fill, shader 5 (CMRefl), envmap 0, tick 0. Work is timed with
+CUDA events around a batch (FRAMES_PER_DISPATCH back-to-back frames with
+JAX's checksum each, a camera path's k frames, or one call of k
+generations or steps); a device without CUDA is refused, never measured
+on the CPU instead. The JAX package's TPU-only columns (its stored TPU
+times and the "vs-own" ratio) are not carried over.
 """
 
 from __future__ import annotations
@@ -56,7 +57,9 @@ REF_TOTAL_US = 27286  # rasterizer.rs:1829-1834
 # at or above it, the flat queue (kernel B1).
 QUEUE_MIN_TRIS = 1000
 
-FRAMES_PER_RUN = 32  # back-to-back frames between one pair of CUDA events
+# bench_scene's frames a run, back to back between one pair of CUDA events
+# (JAX's frames a dispatch, rustexp_tpu/app/benchmark.py:55)
+FRAMES_PER_DISPATCH = 1024
 
 # bench_scene's backends, as the JAX bench takes them
 BACKENDS = ("auto", "queue", "pallas", "xla")
@@ -137,6 +140,19 @@ def scene_frame(mesh_idx: int, per_pixel: bool, device: torch.device,
     return frame, structure, m, cm
 
 
+def frame_sum(fb: torch.Tensor, stale: torch.Tensor) -> torch.Tensor:
+    """One frame's checksum before its 32-bit wrap: an int64 on fb's
+    device. JAX reduces each frame to jnp.sum(fb, dtype=uint32) + stale
+    (rustexp_tpu/app/benchmark.py:136); the sum of fb's int32 view differs
+    from the uint32 sum by a multiple of 2^32, so wrap32 of this is JAX's."""
+    return fb.view(torch.int32).sum(dtype=torch.int64) + stale
+
+
+def wrap32(sums: torch.Tensor) -> torch.Tensor:
+    """int64 sums -> their uint32 values (32-bit wraparound), as int64."""
+    return sums & prng.MASK
+
+
 def bench_scene(mesh_idx: int, per_pixel: bool, runs: int,
                 backend: str = "auto", return_stats: bool = False,
                 shade_w: int | None = None,
@@ -144,38 +160,63 @@ def bench_scene(mesh_idx: int, per_pixel: bool, runs: int,
     """Best per-frame seconds for one scene (scene_frame's route for
     `backend` and `shade_w`), or with return_stats its record.
 
-    Each run times FRAMES_PER_RUN back-to-back frames between two CUDA
-    events. The record holds JAX's stats (best, median, spread_pct,
-    n_runs) and names the card, the backend and its structure, and
+    JAX's sampling (rustexp_tpu/app/benchmark.py:123-144): a run is
+    FRAMES_PER_DISPATCH back-to-back frames, each reduced on the card to
+    JAX's uint32 checksum (frame_sum, wrap32); one whole run warms up,
+    then max(1, runs // 8) runs are timed, each between two CUDA events.
+    A run's checksums stay on the card until its end event and are then
+    read once, as JAX's np.asarray pull reads its scan's. A fixed eye
+    renders one frame, so a run whose checksums differ raises, and so does
+    a stale flag (ORed on the card, read after the runs) where JAX only
+    folds it into the checksum. The record holds JAX's stats (best,
+    median, spread_pct, n_runs), the frames a run and the frame's
+    checksum, and names the card, the backend and its structure, and
     whether the mesh and envmap are the procedural stand-ins (assets
     absent) or the reference's.
     """
     device = _card(device)
     frame, structure, m, cm = scene_frame(mesh_idx, per_pixel, device,
                                           backend, shade_w)
+    k = FRAMES_PER_DISPATCH
     stale_any = torch.zeros((), dtype=torch.bool, device=device)
+    checksum = None
 
-    def frames() -> None:
+    def frames() -> torch.Tensor:
         nonlocal stale_any
-        for _ in range(FRAMES_PER_RUN):
-            stale_any = stale_any | frame()[1]
+        sums = []
+        for _ in range(k):
+            fb, stale = frame()
+            stale_any = stale_any | stale
+            sums.append(frame_sum(fb, stale))
+        return wrap32(torch.stack(sums))
+
+    def check(sums: torch.Tensor) -> None:
+        nonlocal checksum
+        got = set(sums.tolist())  # the run's one read of the card
+        if checksum is not None:
+            got.add(checksum)
+        if len(got) != 1:
+            raise RuntimeError(f"the frames of a fixed eye differ: "
+                               f"checksums {sorted(got)}")
+        checksum = got.pop()
 
     def run() -> float:
-        return _event_seconds(frames)
+        out = []
+        seconds = _event_seconds(lambda: out.append(frames()))
+        check(out[0])
+        return seconds
 
-    frame()  # warm-up: first-use kernel build and allocator growth
-    torch.cuda.synchronize(device)
-    st = _run_stats(run, runs, FRAMES_PER_RUN)
+    check(frames())  # warm-up: a whole run (kernel builds, allocator growth)
+    st = _run_stats(run, max(1, runs // 8), k)
     if bool(stale_any):
         raise RuntimeError("the cached raster structure went stale or "
                            "overflowed at a fixed eye")
     if not return_stats:
         return st["best"]
     return {
-        "scene": _label(mesh_idx, per_pixel), **st,
-        "frames_per_run": FRAMES_PER_RUN,
-        "device": torch.cuda.get_device_name(device), **structure,
-        **_assets(m, cm),
+        "scene": _label(mesh_idx, per_pixel), **st, "frames_per_run": k,
+        "checksum": checksum, "device": torch.cuda.get_device_name(device),
+        **structure, **_assets(m, cm),
     }
 
 

@@ -11,7 +11,7 @@ no block size in BH_BLOCKS take brute force, through kernel B5
 otherwise; the rest take block Barnes-Hut (ops/nbody_bh.py), whose Morton
 sort runs kernel B6 at power-of-two N. There is no Prewarmer: eager
 PyTorch has no compile to hide, so a theta change applies at the next
-step, and the routing it implies is logged.
+step, and the routing it implies goes to core.trace's trace_info.
 
 Initial conditions are drawn with core/prng.py, jax.random's threefry,
 from the key JAX's init makes of the same seed, so a seed gives JAX's
@@ -21,7 +21,6 @@ conditions below); the state carries the key on as JAX's does.
 
 from __future__ import annotations
 
-import logging
 import math
 import time
 from dataclasses import dataclass, field
@@ -32,11 +31,10 @@ import torch
 from ..core import prng
 from ..core.colors import trunc_i32
 from ..core.timing import FrameTimes
+from ..core.trace import trace_info
 from ..ops import nbody_bh, nbody_forces, nbody_pallas
 from ..ops.ieee import cos_sin, sqrt_rn
 from ..runtime import device as pick_device, require_on
-
-log = logging.getLogger(__name__)
 
 # Viewport over the simulation (nbody.rs:13-15)
 VP_WDH = 100.0
@@ -238,14 +236,16 @@ class NBodyExperiment:
         return (f"{state.steps} Steps, SPS: {sps:.0f}, {med * 1000:.2f}ms, "
                 f"{state.n} Bodies, dt {state.dt}, {algo}")
 
-    def _log_route(self, state: NBodyState) -> None:
+    def _trace_replan(self, state: NBodyState) -> None:
+        """Announce the route and K a theta change gives, in JAX's words
+        (rustexp_tpu/sims/nbody.py:310-320); nothing recompiles here."""
         backend, block = self.select_backend(state.n, state.theta)
         if backend == "brute":
-            log.info("theta=%.2f: routing to brute force", state.theta)
+            trace_info(f"theta={state.theta:.2f}: routing to brute force")
         else:
-            log.info("theta=%.2f: block-BH K=%d exact near blocks",
-                     state.theta,
-                     nbody_bh.theta_to_k(state.theta, state.n // block))
+            k = nbody_bh.theta_to_k(state.theta, state.n // block)
+            trace_info(f"theta={state.theta:.2f}: block-BH K={k} exact near "
+                       f"blocks")
 
     def handle_key(self, state: NBodyState, key: str) -> NBodyState:
         """Keys per reference RustNBodyExperiment.hs:81-98: Q/W/E reset
@@ -270,7 +270,7 @@ class NBodyExperiment:
         elif key in ("A", "a"):
             state.theta = (min(0.95, state.theta + 0.05) if key == "A"
                            else max(0.0, state.theta - 0.05))
-            self._log_route(state)
+            self._trace_replan(state)
             return state
         else:
             return state

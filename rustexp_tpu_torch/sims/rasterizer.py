@@ -16,7 +16,6 @@ Prewarmer builds the kernel libraries instead, app/viewer.py).
 
 from __future__ import annotations
 
-import logging
 import time
 from dataclasses import dataclass, field
 
@@ -24,10 +23,9 @@ import torch
 
 from ..assets import cubemap, mesh
 from ..core.timing import FrameTimes
+from ..core.trace import trace_info
 from ..raster import camera, pipeline as pp
 from ..runtime import device as pick_device
-
-log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -120,7 +118,8 @@ class RasterizerExperiment:
         if bool(stale):
             # The camera left the cached queue's coverage, or the static
             # bins overflowed: rebuild at this viewpoint, re-render.
-            log.info("raster structure stale at tick %.2f; rebuilding", tick)
+            trace_info(f"raster structure stale at tick {tick:.2f}; "
+                       f"rebuilding")
             work = self._build(scene, eye, w, h, work[0])
             state._scene_cache = (state._scene_cache[0], scene, work)
             fb, stale = pp.render_frame(

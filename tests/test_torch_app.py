@@ -144,6 +144,76 @@ def test_trace_none_color_and_raise(capsys, trace_reset):
         trace.trace_and_raise("fatal thing")
 
 
+# JAX's N-body replan line ends with a clause the port drops: it compiles
+# nothing per theta (ROADMAP C, "No pending state").
+JAX_RECOMPILE_CLAUSE = " (recompiles on first step if K changed)"
+
+
+def _traced(mod, level, path, run) -> list[str]:
+    """The messages run() writes through trace module `mod` to a file
+    sink at `level` (the header before " | " dropped)."""
+    mod.setup(level=level, file_path=str(path), echo=False)
+    try:
+        run()
+    finally:
+        mod.setup(level=mod.TraceLevel.WARN, file_path=None, echo=True)
+    return [line.split(" | ", 1)[1] for line in path.read_text().splitlines()]
+
+
+def _stale_rebuild(exp_cls, **kw):
+    """A Rasterizer Experiment at 128^2 whose queue goes stale at tick 3
+    (test_torch_frame.test_experiment_rebuilds_stale_queue)."""
+    def run():
+        exp = exp_cls(**kw)
+        st = exp.init(per_pixel=True)
+        exp.render(st, 128, 128, 0.0)
+        exp.render(st, 128, 128, 3.0)
+    return run
+
+
+def _theta_keys(exp_cls, **kw):
+    """a/A on N-body states of both routes: BH at 4,096 bodies (a, A),
+    brute once theta reaches 0 (a from 0.05) and below BH_MIN_N (A)."""
+    def run():
+        exp = exp_cls(**kw)
+        for n, theta, key in ((4096, 0.85, "a"), (4096, 0.85, "A"),
+                              (4096, 0.05, "a"), (1024, 0.85, "A")):
+            exp.handle_key(exp.init(mode="orbits", n=n, theta=theta), key)
+    return run
+
+
+def test_experiments_trace_jaxs_lines(tmp_path, trace_reset):
+    """ROADMAP C6: the Rasterizer's stale rebuild and N-body's a/A replan
+    go through core.trace's trace_info with JAX's text, so a file sink at
+    INFO holds them; at the default WARN neither appears."""
+    from rustexp_tpu.core import trace as jtrace
+    from rustexp_tpu.sims.nbody import NBodyExperiment as JNBody
+    from rustexp_tpu.sims.rasterizer import RasterizerExperiment as JRaster
+
+    info, warn = trace.TraceLevel.INFO, trace.TraceLevel.WARN
+    got = _traced(trace, info, tmp_path / "raster.log",
+                  _stale_rebuild(RasterizerExperiment, device=CPU))
+    want = _traced(jtrace, jtrace.TraceLevel.INFO, tmp_path / "jraster.log",
+                   _stale_rebuild(JRaster))
+    assert got == want == ["raster structure stale at tick 3.00; rebuilding"]
+
+    got = _traced(trace, info, tmp_path / "nbody.log",
+                  _theta_keys(NBodyExperiment, device=CPU))
+    want = _traced(jtrace, jtrace.TraceLevel.INFO, tmp_path / "jnbody.log",
+                   _theta_keys(JNBody))
+    assert got == [w.removesuffix(JAX_RECOMPILE_CLAUSE) for w in want]
+    assert got[0].startswith("theta=0.80: block-BH K=")
+    assert got[1].startswith("theta=0.90: block-BH K=")
+    assert got[2:] == ["theta=0.00: routing to brute force",
+                       "theta=0.90: routing to brute force"]
+    assert all(w.endswith(JAX_RECOMPILE_CLAUSE) for w in want[:2])
+
+    for name, run in (("raster", _stale_rebuild(RasterizerExperiment,
+                                                device=CPU)),
+                      ("nbody", _theta_keys(NBodyExperiment, device=CPU))):
+        assert _traced(trace, warn, tmp_path / f"{name}_warn.log", run) == []
+
+
 # ------------------------------------------------------------ checkpoints
 
 def test_gol_resume_bit_exact_with_r_after_resume(tmp_path):

@@ -12,6 +12,7 @@ flagship frame; bound 0.3% of pixels (the golden bound,
 tests/test_golden.py), measured 0 px in every case.
 """
 
+import functools
 import importlib.util
 import json
 import os
@@ -22,6 +23,7 @@ import types
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -36,6 +38,7 @@ from rustexp_tpu_torch import graft_entry
 from rustexp_tpu_torch import runtime
 from rustexp_tpu_torch.app import benchmark as tbench
 from rustexp_tpu_torch.app import multidev
+from rustexp_tpu_torch.ops import raster_queue
 
 import chip_smoke
 
@@ -158,15 +161,19 @@ def test_chip_smoke_summary_keys_are_bench_pys(jax_bench):
 # ---------------------------------------------------------------------------
 
 
-def _stub_benches(log: list, fail: str | None = None) -> dict:
+def _stub_benches(log: list, fail: str | None = None,
+                  launch: dict | None = None) -> dict:
     """Stand-ins for bench_gol, bench_nbody, bench_scene and
     bench_scene_moving that log each call (without the port's device) and
-    return a payload of the real record's keys; `fail` names one to raise."""
+    return a payload of the real record's keys; `fail` names one to raise,
+    and `launch` maps a name to the B1 launches each of its calls adds."""
 
     def stub(fname, payload):
         def fn(*args, **kwargs):
             kwargs.pop("device", None)
             log.append(("call", fname, args, tuple(sorted(kwargs.items()))))
+            raster_queue.raster_attrs_queue_cuda.launches += (
+                launch or {}).get(fname, 0)
             if fname == fail:
                 raise RuntimeError(f"{fname} stub fault")
             return dict(payload)
@@ -227,7 +234,7 @@ def _run_jax_main(jax_bench, monkeypatch, capsys) -> tuple[list, dict]:
     return log, json.loads(line)
 
 
-def _run_port_main(monkeypatch, capsys, fail=None):
+def _run_port_main(monkeypatch, capsys, fail=None, launch=None):
     log = []
 
     class Rec(tb.Recorder):
@@ -240,7 +247,7 @@ def _run_port_main(monkeypatch, capsys, fail=None):
     monkeypatch.setattr(tb, "card_line", lambda: "a stand-in card, 700 W")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(runtime, "device", lambda kind=None: CPU)
-    for name, fn in _stub_benches(log, fail).items():
+    for name, fn in _stub_benches(log, fail, launch).items():
         monkeypatch.setattr(tbench, name, fn)
     rc = tb.main()
     out = capsys.readouterr()
@@ -275,6 +282,31 @@ def test_main_runs_bench_pys_steps_in_its_order(jax_bench, monkeypatch,
     assert got["scenes_done"] == got["moving_scenes_done"] == 12
     assert "# device: a stand-in card, 700 W" in err
     assert '# launches: {"B1": ' in err
+
+
+def test_main_prints_each_steps_launches(monkeypatch, capsys):
+    """Each step's launches on stderr, counted over that step alone and
+    naming only the kernels it launched (chip_smoke.py holds each fixed
+    scene's to its frames), then the run's total."""
+    q = raster_queue.raster_attrs_queue_cuda
+    monkeypatch.setattr(q, "launches", 0)
+    _, _, rc, err = _run_port_main(
+        monkeypatch, capsys, fail="bench_scene_moving",
+        launch={"bench_scene": 3072, "bench_scene_moving": 5})
+    assert rc == 1
+    steps = {m.group(1): json.loads(m.group(2)) for m in re.finditer(
+        r"^# launches (\S+): (\{.*\})$", err, re.M)}
+    names = [s[0] for s in tb.plan(tbench, CPU)]
+    assert list(steps) == names
+    for name in names:
+        want = {"scene": {"B1": 3072}, "moving": {"B1": 5}}.get(
+            name.split(":")[0], {})
+        assert steps[name] == want, name
+    total = json.loads(re.search(r"^# launches: (\{.*\})$", err,
+                                 re.M).group(1))
+    assert total["B1"] == 12 * 3072 + 12 * 5
+    assert err.index("# launches gol_256: {}") < err.index(
+        "# recorded nbody_bh")
 
 
 def test_main_reports_a_failed_step_and_exits_1(monkeypatch, capsys):
@@ -335,9 +367,11 @@ def test_bench_sine_refuses_the_cpu():
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_frame(mesh_idx, per_pixel, backend, shade_w):
     """One frame of JAX's bench_scene route (rustexp_tpu/app/
-    benchmark.py:113-137), jitted as its scan body is."""
+    benchmark.py:113-137), jitted as its scan body is; cached, as the
+    frame and checksum tests share it."""
     m = jmesh.get_mesh(mesh_idx)
     scene = jpp.make_scene(m, jcubemap.get_cm_set(0))
     eye = camera.camera_eye(jmesh.mesh_camera(mesh_idx), 0.0)
@@ -363,14 +397,24 @@ def _jax_frame(mesh_idx, per_pixel, backend, shade_w):
     return np.asarray(fb), backend
 
 
-@pytest.mark.parametrize("backend", tbench.BACKENDS)
-@pytest.mark.parametrize("label,mesh_idx,per_pixel,shade_w", [
-    ("KillerooP", 0, True, None), ("CubeV", 9, False, None)])
-def test_scene_frame_backends_match_jax(label, mesh_idx, per_pixel, shade_w,
-                                        backend):
+@functools.lru_cache(maxsize=None)
+def _port_frame(mesh_idx, per_pixel, backend, shade_w):
+    """One frame of the port's scene_frame on the CPU -> (fb, stale,
+    structure); cached, as the frame and checksum tests share it."""
     frame, structure, _, _ = tbench.scene_frame(mesh_idx, per_pixel, CPU,
                                                 backend, shade_w)
-    got, stale = frame()
+    return (*frame(), structure)
+
+
+SCENE_FRAMES = [("KillerooP", 0, True, None), ("CubeV", 9, False, None)]
+
+
+@pytest.mark.parametrize("backend", tbench.BACKENDS)
+@pytest.mark.parametrize("label,mesh_idx,per_pixel,shade_w", SCENE_FRAMES)
+def test_scene_frame_backends_match_jax(label, mesh_idx, per_pixel, shade_w,
+                                        backend):
+    got, stale, structure = _port_frame(mesh_idx, per_pixel, backend,
+                                        shade_w)
     assert not bool(stale)
     want, resolved = _jax_frame(mesh_idx, per_pixel, backend, shade_w)
     assert structure["backend"] == resolved
@@ -391,6 +435,115 @@ def test_scene_frame_shade_w_matches_jax():
 def test_scene_frame_refuses_an_unknown_backend():
     with pytest.raises(ValueError, match="backend 'mxu'"):
         tbench.scene_frame(9, False, CPU, "mxu")
+
+
+# ---------------------------------------------------------------------------
+# bench_scene's sampling and checksum (rustexp_tpu/app/benchmark.py:123-144)
+# ---------------------------------------------------------------------------
+
+
+def _jax_checksum(fb: np.ndarray, stale: bool) -> int:
+    """JAX's per-frame reduction, as its scan body writes it."""
+    return int(jnp.sum(jnp.asarray(fb), dtype=jnp.uint32)
+               + jnp.asarray(stale).astype(jnp.uint32))
+
+
+def _port_checksum(fb: torch.Tensor, stale: bool) -> int:
+    return int(tbench.wrap32(tbench.frame_sum(fb, torch.tensor(stale))))
+
+
+@pytest.mark.parametrize("backend", tbench.BACKENDS)
+@pytest.mark.parametrize("label,mesh_idx,per_pixel,shade_w", SCENE_FRAMES)
+def test_frame_checksum_matches_jax(label, mesh_idx, per_pixel, shade_w,
+                                    backend):
+    """The port's checksum of a real 512^2 frame equals JAX's uint32
+    jnp.sum + stale on the same frame, bit for bit, with and without the
+    stale flag; the frame's exact sum passes 2^32, so both wrap."""
+    fb, _, _ = _port_frame(mesh_idx, per_pixel, backend, shade_w)
+    assert int(fb.numpy().astype(np.uint64).sum()) >= 1 << 32
+    for stale in (False, True):
+        assert _port_checksum(fb, stale) == _jax_checksum(fb.numpy(), stale)
+
+
+def test_frame_checksum_wraps_as_jax():
+    """Every word 0xFFFFFFFF plus a stale flag: the sum wraps past 2^32
+    once a word, and the flag's +1 on top of it."""
+    fb = np.full((H, W), 0xFFFFFFFF, dtype=np.uint32)
+    want = _jax_checksum(fb, True)
+    assert want == (1 << 32) - H * W + 1
+    assert _port_checksum(torch.from_numpy(fb), True) == want
+
+
+class _Sampling:
+    """bench_scene's collaborators on the CPU: _card gives the CPU,
+    scene_frame a stand-in frame that counts its renders (a 4x4 frame of
+    `word`s, stale when `stale`, another word on the frame numbered
+    `odd_frame`), _event_seconds counts the frames inside each timed run
+    and returns made-up seconds, and the card's name is a stand-in."""
+
+    def __init__(self, monkeypatch, word=0xFFFFFFF0, stale=False,
+                 odd_frame=None):
+        self.frames, self.runs, self.warmup = 0, [], None
+        self.word, self.stale, self.odd_frame = word, stale, odd_frame
+        m = types.SimpleNamespace(num_tris=12, name="cube (procedural)")
+        cm = types.SimpleNamespace(name="grace")
+        monkeypatch.setattr(tbench, "_card", lambda device: CPU)
+        monkeypatch.setattr(tbench, "scene_frame", lambda *a: (
+            self.frame, {"backend": "pallas"}, m, cm))
+        monkeypatch.setattr(tbench, "_event_seconds", self.event_seconds)
+        monkeypatch.setattr(tbench.torch.cuda, "get_device_name",
+                            lambda device: "stand-in card")
+
+    def frame(self):
+        word = self.word + (self.frames == self.odd_frame)
+        self.frames += 1
+        fb = torch.tensor(np.full((4, 4), word, dtype=np.uint32))
+        return fb, torch.tensor(self.stale)
+
+    def event_seconds(self, fn) -> float:
+        if self.warmup is None:
+            self.warmup = self.frames
+        before = self.frames
+        fn()
+        self.runs.append(self.frames - before)
+        return 0.5 + 0.25 * len(self.runs)
+
+
+@pytest.mark.parametrize("runs", [1, 3, 8, 16, 20])
+def test_bench_scene_samples_as_jax(monkeypatch, runs):
+    """A whole dispatch of warm-up, then max(1, runs // 8) timed runs of
+    FRAMES_PER_DISPATCH frames each (JAX's counts at the same `runs`), and
+    the record's n_runs, frames a run, per-frame stats and checksum."""
+    k = jbench.FRAMES_PER_DISPATCH
+    assert tbench.FRAMES_PER_DISPATCH == k == 1024
+    timed = max(1, runs // 8)
+    stub = _Sampling(monkeypatch)
+    rec = tbench.bench_scene(9, True, runs, return_stats=True)
+    assert stub.warmup == k
+    assert stub.runs == [k] * timed
+    assert stub.frames == (1 + timed) * k
+    assert (rec["n_runs"], rec["frames_per_run"]) == (timed, k)
+    assert rec["best"] == 0.75 / k
+    assert rec["checksum"] == _jax_checksum(np.full((4, 4), stub.word,
+                                                    dtype=np.uint32), False)
+    assert rec["device"] == "stand-in card" and rec["backend"] == "pallas"
+    _Sampling(monkeypatch)
+    assert tbench.bench_scene(9, True, runs) == 0.75 / k  # JAX's float
+
+
+@pytest.mark.parametrize("fault,match", [
+    ("stale", "went stale"), ("odd frame", "frames of a fixed eye differ"),
+    ("odd warm-up frame", "frames of a fixed eye differ")])
+def test_bench_scene_guards_raise(monkeypatch, fault, match):
+    """The stale flag (ORed on the card, read after the runs) raises, and so
+    does a run whose frames' checksums differ from each other or from the
+    warm-up's."""
+    k = tbench.FRAMES_PER_DISPATCH
+    _Sampling(monkeypatch, stale=fault == "stale",
+              odd_frame={"odd frame": k + 5, "odd warm-up frame": 7}.get(
+                  fault))
+    with pytest.raises(RuntimeError, match=match):
+        tbench.bench_scene(9, True, 20)
 
 
 def test_run_suite_prints_jaxs_table(monkeypatch, capsys):

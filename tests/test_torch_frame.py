@@ -9,8 +9,6 @@ inv_world_to_vp's ``@``. Measured on this suite's scenes: 0 pixels
 (ROADMAP C).
 """
 
-import logging
-
 import numpy as np
 import pytest
 import torch
@@ -23,6 +21,7 @@ from rustexp_tpu.sims.rasterizer import RasterizerExperiment as JaxExperiment
 from rustexp_tpu_torch import interop
 from rustexp_tpu_torch.app import benchmark as tbench
 from rustexp_tpu_torch.assets import cubemap as tcubemap
+from rustexp_tpu_torch.core import trace
 from rustexp_tpu_torch.ops import raster_bins as trb
 from rustexp_tpu_torch.ops import raster_queue as trq
 from rustexp_tpu_torch.raster import pipeline as tpp
@@ -90,16 +89,21 @@ def test_experiment_render_matches_jax(per_pixel):
     assert te.status(ts).split("| ", 2)[2] == je.status(js).split("| ", 2)[2]
 
 
-def test_experiment_rebuilds_stale_queue(caplog):
+def test_experiment_rebuilds_stale_queue(tmp_path):
     """A tick far from the one the queue was built at makes it stale: the
-    experiment logs, rebuilds, and renders what a fresh state renders."""
+    experiment traces it (core.trace, INFO), rebuilds, and renders what a
+    fresh state renders."""
     te = RasterizerExperiment(CPU)
     ts = te.init(per_pixel=True)
     te.render(ts, W, H, 0.0)
     built = ts._scene_cache[2][1]
-    with caplog.at_level(logging.INFO, logger="rustexp_tpu_torch"):
+    log = tmp_path / "trace.log"
+    trace.setup(level=trace.TraceLevel.INFO, file_path=str(log), echo=False)
+    try:
         got = te.render(ts, W, H, 3.0)
-    assert "stale at tick 3.00" in caplog.text
+    finally:
+        trace.setup(level=trace.TraceLevel.WARN, file_path=None, echo=True)
+    assert "stale at tick 3.00" in log.read_text()
     assert ts._scene_cache[2][1] is not built
     fresh = te.render(te.init(per_pixel=True), W, H, 3.0)
     assert torch.equal(got, fresh)
