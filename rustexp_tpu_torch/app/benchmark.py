@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..assets import cubemap, mesh
-from ..core import prng
+from ..core import prng, trace
 from ..ops import gol_bits, gol_stencil, nbody_bh, nbody_forces, nbody_pallas
 from ..ops.raster_queue import (SHADE_W, TILE_H, TILE_W, build_queue,
                                 choose_shade_w, read_queue_stats,
@@ -104,12 +104,12 @@ def scene_frame(mesh_idx: int, per_pixel: bool, device: torch.device,
     `shade_w`, else choose_shade_w's), "pallas" a suggest_binning config
     for the bins, "xla" no structure (the G-buffer oracle, no kernel). The
     structure is built once and reused, as the renderer does for a
-    temporally coherent camera. frame() renders one frame and returns (fb,
-    stale), the flag a device tensor (the cached queue went stale or the
-    bins overflowed); each frame pays transform, setup, binning or row
-    gather, the raster kernel (B1 or B2), shading and pack. `structure`
-    names the backend and its structure (queue order and shade_w, or cap,
-    spans and rows_cap).
+    temporally coherent camera. frame() renders one frame, the span
+    ``frame``, and returns (fb, stale), the flag a device tensor (the
+    cached queue went stale or the bins overflowed); each frame pays
+    transform, setup, binning or row gather, the raster kernel (B1 or
+    B2), shading and pack. `structure` names the backend and its
+    structure (queue order and shade_w, or cap, spans and rows_cap).
     """
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
@@ -132,10 +132,11 @@ def scene_frame(mesh_idx: int, per_pixel: bool, device: torch.device,
         structure.update(cap=cap, spans=list(spans), rows_cap=rows_cap)
 
     def frame() -> tuple[torch.Tensor, torch.Tensor]:
-        return pp.render_frame(
-            scene, eye, TICK, w=W, h=H, mode=pp.MODE_FILL,
-            per_pixel=per_pixel, shader_idx=SHADER, bg_idx=0, show_cm=False,
-            return_overflow=True, **kw)
+        with trace.span("frame"):
+            return pp.render_frame(
+                scene, eye, TICK, w=W, h=H, mode=pp.MODE_FILL,
+                per_pixel=per_pixel, shader_idx=SHADER, bg_idx=0,
+                show_cm=False, return_overflow=True, **kw)
 
     return frame, structure, m, cm
 
@@ -333,7 +334,8 @@ def moving_frame(scene: pp.Scene, eye, caps: dict, per_pixel: bool,
     setup_triangles_planar -> build_queue (order "auto", the path's
     caps) -> render_frame(backend="queue"). `overflow` is a device flag:
     the caps were exceeded."""
-    queue = build_queue(pp._queue_setup(scene, eye, w, h), h, w, **caps)
+    with trace.span("structure.queue"):
+        queue = build_queue(pp._queue_setup(scene, eye, w, h), h, w, **caps)
     return pp.render_frame(
         scene, eye, TICK, w=w, h=h, mode=pp.MODE_FILL, per_pixel=per_pixel,
         shader_idx=SHADER, bg_idx=0, show_cm=False, backend="queue",

@@ -40,6 +40,7 @@ import numpy as np
 from ..core.framebuffer import to_rgb8_topleft, write_png
 from ..core.platform import require_live_device
 from ..core.prewarm import Prewarmer
+from ..core import trace
 from ..core.timing import FrameTimes, median
 from ..runtime import CSRC_DIR, load_kernel_lib
 
@@ -178,7 +179,9 @@ def run_viewer(size: int = 192, fps: float = 30.0, frames: int | None = None,
     `device` (the card by default).
 
     ``report=True`` prints one JSON line of the sustained loop stats (the
-    60-ring the header shows, first 3 frames dropped) to stderr at exit;
+    60-ring the header shows, first 3 frames dropped) to stderr at exit,
+    with each program span's calls and host ms per viewed frame
+    (core/trace.py, totals cleared when the loop starts);
     ``inject_every=(K, ch)`` feeds key ``ch`` through the real key path
     every K frames and records keypress-to-presented-frame latency.
     Returns the frames presented.
@@ -214,6 +217,7 @@ def run_viewer(size: int = 192, fps: float = 30.0, frames: int | None = None,
     # FPS header over a 60-deep ring, the first 3 frames dropped as
     # warm-up outliers (reference App.hs:135-150, 211)
     ftimes = FrameTimes(limit=60)
+    trace.reset_spans()
     t_prev = time.perf_counter()
     try:
         with _RawTerm() as term:
@@ -304,6 +308,11 @@ def run_viewer(size: int = 192, fps: float = 30.0, frames: int | None = None,
             "frame_ms_best": round(lo * 1e3, 3),
             "frame_ms_worst": round(hi * 1e3, 3),
         }
+        per = max(frame, 1)
+        rec["spans"] = {
+            name: {"calls": round(calls / per, 3),
+                   "host_ms": round(ns / 1e6 / per, 4)}
+            for name, (calls, ns) in sorted(trace.span_totals().items())}
         if key_lat:
             rec["key_to_frame_ms_median"] = round(median(key_lat) * 1e3, 3)
             rec["key_to_frame_ms_worst"] = round(max(key_lat) * 1e3, 3)
@@ -328,7 +337,8 @@ def main(argv=None):
                    help="uncapped loop (the 'v' toggle, pre-toggled)")
     p.add_argument("--report", action="store_true",
                    help="print one JSON line of sustained loop stats to "
-                        "stderr at exit (60-ring, first 3 frames dropped)")
+                        "stderr at exit (60-ring, first 3 frames dropped; "
+                        "each span's calls and host ms per frame)")
     p.add_argument("--inject-key", default=None, metavar="K:CH",
                    help="feed key CH through the real key path every K "
                         "frames and record keypress-to-frame latency")

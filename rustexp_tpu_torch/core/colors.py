@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from .trace import upload
+
 # ---------------------------------------------------------------------------
 # LUT construction (host-side, numpy, float32 to match the generators)
 # ---------------------------------------------------------------------------
@@ -68,7 +70,7 @@ def _gamma_curve(device: torch.device) -> torch.Tensor:
     """
     x = torch.arange(2048, dtype=torch.float32) * np.float32(1.0 / 2047.0)
     v = torch.round(torch.pow(x, np.float32(1.0 / 2.2)) * 255.0)
-    return v.to(torch.int32).to(device)
+    return upload("gamma", v.to(torch.int32), device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,33 +1,19 @@
-"""Timing helpers and frame-time statistics.
+"""Frame-time statistics.
 
 Port of rustexp_tpu/core/timing.py (pure Python, copied so the port
-imports no jax through rustexp_tpu/core/__init__.py).
+imports no jax through rustexp_tpu/core/__init__.py), less its getTick
+and timeIt, which the port does not use (core/trace.py's spans time the
+program's layers).
 
-Re-expresses the reference's timing stack: getTick/timeIt
-(hs-src/Timing.hs:21-34), the bounded ring of frame times with median
+Re-expresses the reference's bounded ring of frame times with median
 (hs-src/BoundedSequence.hs:16-46, hs-src/Median.hs:7-15) and the
 median/min/max overlay statistics (hs-src/App.hs:135-150).
 """
 
 from __future__ import annotations
 
-import time
 from collections import deque
 from dataclasses import dataclass, field
-
-_T0 = time.perf_counter()
-
-
-def get_tick() -> float:
-    """Seconds since program start (reference Timing.hs:21-27)."""
-    return time.perf_counter() - _T0
-
-
-def time_it(fn, *args, **kwargs):
-    """Run fn, return (elapsed_seconds, result) — reference Timing.hs:29-34."""
-    t0 = time.perf_counter()
-    result = fn(*args, **kwargs)
-    return time.perf_counter() - t0, result
 
 
 def median(xs) -> float:

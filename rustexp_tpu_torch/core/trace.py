@@ -1,9 +1,24 @@
-"""Leveled tracing/logging.
+"""Leveled tracing/logging, and the program's spans.
 
-A copy of rustexp_tpu/core/trace.py (it imports no jax; the port keeps
-its own). Re-expresses the reference's Trace subsystem (hs-src/Trace.hs):
-global settings, levels None/Error/Warn/Info, optional file sink + stdout
-echo, ANSI-colored level tags, thread-id and timestamp message header.
+The logger is a copy of rustexp_tpu/core/trace.py (it imports no jax;
+the port keeps its own). It re-expresses the reference's Trace subsystem
+(hs-src/Trace.hs): global settings, levels None/Error/Warn/Info, optional
+file sink + stdout echo, ANSI-colored level tags, thread-id and timestamp
+message header.
+
+The spans are the port's own: ``with span("raster.setup"):`` adds one
+call and the host nanoseconds inside (``time.perf_counter_ns``) to
+process-wide totals under that name, read by span_totals() and cleared
+by reset_spans(). A span's nanoseconds include those of the spans it
+encloses. While a torch.profiler session records, a span is also a
+record-function range, so it lies among the profiler's host events, on
+the clock of the card's activities, with its enclosing span as its
+``cpu_parent``. Outside a session a span costs two clock reads and a
+dict update. The names are ``frame`` (one per frame of an entry point),
+``experiment.*``, ``raster.*``, ``structure.*`` and ``sync.*``: each
+``sync.*`` span is one place where the host waits for the card without
+an explicit synchronize (a read of a device value, or a pageable
+host-to-device copy through upload()).
 """
 
 from __future__ import annotations
@@ -12,6 +27,9 @@ import datetime
 import enum
 import sys
 import threading
+import time
+
+import torch
 
 
 class TraceLevel(enum.IntEnum):
@@ -78,3 +96,65 @@ def trace_and_raise(msg: str):
     """Reference Trace.hs:111-112."""
     trace_error(msg)
     raise RuntimeError(msg)
+
+
+# ---------------------------------------------------------------------------
+# Spans
+# ---------------------------------------------------------------------------
+
+# name -> [calls, ns]. A plain dict, not locked: two spans that close at
+# the same moment on two threads may lose an update. The program opens
+# its spans on the thread that renders.
+_span_totals: dict[str, list[int]] = {}
+_profiling = torch.autograd._profiler_enabled
+# A function-scope range: one host event. torch.profiler.record_function
+# opens a user-scope range, for which the profiler also records a device
+# activity (a "gpu_user_annotation") from the range's first launch to its
+# last, which a reader of the card's activities would count as busy.
+_record = torch._C._profiler._RecordFunctionFast
+
+
+class span:
+    """Context manager: one call and its host ns under `name` (above)."""
+
+    __slots__ = ("name", "t0", "rf")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.rf = None
+        if _profiling():
+            self.rf = _record(self.name)
+            self.rf.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        ns = time.perf_counter_ns() - self.t0
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        tot = _span_totals.get(self.name)
+        if tot is None:
+            _span_totals[self.name] = [1, ns]
+        else:
+            tot[0] += 1
+            tot[1] += ns
+        return False
+
+
+def span_totals() -> dict[str, tuple[int, int]]:
+    """A copy of the totals: {name: (calls, ns)}."""
+    return {k: (v[0], v[1]) for k, v in list(_span_totals.items())}
+
+
+def reset_spans() -> None:
+    _span_totals.clear()
+
+
+def upload(name: str, t: torch.Tensor, device) -> torch.Tensor:
+    """`t` copied to `device` under the span ``sync.upload.<name>``: from
+    pageable host memory the copy makes the host wait for the card's
+    queue to drain (one call a copy, whatever the device)."""
+    with span("sync.upload." + name):
+        return t.to(device)

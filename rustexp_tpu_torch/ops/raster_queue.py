@@ -37,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import trace
 from ..runtime import load_kernel_lib, ptr, stream_ptr
 from .ieee import lerp_2mad, lerp_3w
 
@@ -148,11 +149,11 @@ def _plane_run_index(nty_g: int, ntx: int, m_y: int, m_x: int,
             for sy in range(dy + 1, m_y + 1) for sx in range(dx + 1, m_x + 1)]
     off = nty_g * ntx * C
     rows = range(row_offset, nty_g, row_stride)
-    return torch.tensor(
+    return trace.upload("run_index", torch.tensor(
         [[((gy - dy) * ntx + (tx - dx)) * C + cls
           if gy >= dy and tx >= dx else off for dy, dx, cls in runs]
          for gy in rows for tx in range(ntx)],
-        dtype=torch.int64).to(device)
+        dtype=torch.int64), device)
 
 
 def build_queue(setup, h: int, w: int, *, s_cap: int, m_y: int, m_x: int,
@@ -811,6 +812,8 @@ def queue_stats(setup, h: int, w: int, row_stride: int = 1,
 
 def read_queue_stats(setup, h: int, w: int, row_stride: int = 1,
                      row_offset: int = 0) -> tuple:
-    """queue_stats as five Python ints, read back from the device at once."""
-    return tuple(torch.stack(queue_stats(setup, h, w, row_stride,
-                                         row_offset)).tolist())
+    """queue_stats as five Python ints, read back from the device at once
+    (the span sync.read.queue_stats)."""
+    stats = torch.stack(queue_stats(setup, h, w, row_stride, row_offset))
+    with trace.span("sync.read.queue_stats"):
+        return tuple(stats.tolist())

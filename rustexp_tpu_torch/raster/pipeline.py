@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..core import trace
 from ..core.colors import pack_abgr32, pack_abgr32_gamma_arith, trunc_i32
 from ..ops import raster_bins as rb
 from ..ops.ieee import lerp_2mad, lerp_3w
@@ -98,6 +99,8 @@ def make_scene(mesh, cm_set, device: torch.device) -> Scene:
     posh = np.concatenate([pos, np.ones((pos.shape[0], 1), np.float32)],
                           axis=1)
 
+    # Set-up, not a frame's work, so no sync.* span: the first of these
+    # copies starts the CUDA context.
     def t(a, dtype=np.float32):
         return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
 
@@ -154,6 +157,11 @@ def _host_eye(eye) -> torch.Tensor:
     if isinstance(eye, torch.Tensor):
         return eye.detach().to("cpu", torch.float32)
     return torch.as_tensor(np.asarray(eye, np.float32))
+
+
+def _device_eye(eye, device) -> torch.Tensor:
+    """The eye as f32 [3] on `device` (the span sync.upload.eye)."""
+    return trace.upload("eye", _host_eye(eye), device)
 
 
 def look_at(eye, at, up):
@@ -251,7 +259,8 @@ def _transform_points(scene: Scene, positions, normals, eye, w: int,
                       h: int):
     """(vp with 1/w, world positions, world normals) of [P, 3] mesh-space
     points and normals: transform_vertices' arithmetic on any rows."""
-    m = _world_to_vp_exact(_host_eye(eye), w, h).to(positions.device)
+    m = trace.upload("matrix", _world_to_vp_exact(_host_eye(eye), w, h),
+                     positions.device)
     pos_h = torch.cat([positions, positions.new_ones((positions.shape[0], 1))],
                       dim=1)
     world_h = _mv4_exact(scene.ndim, pos_h.T).T
@@ -287,7 +296,8 @@ def transform_corners_planar(scene: Scene, eye, w: int, h: int):
     Returns (xs, ys, zs, iw, n, world): f32 [3, T] viewport coordinates
     per corner and [3, 3, T] world normals / positions.
     """
-    m = _world_to_vp_exact(_host_eye(eye), w, h).to(scene.cp3.device)
+    m = trace.upload("matrix", _world_to_vp_exact(_host_eye(eye), w, h),
+                     scene.cp3.device)
     world = torch.stack([_mv4_exact(scene.ndim, scene.cp3[j])
                          for j in range(3)])                     # [3, 4, T]
     clip = torch.stack([_mv4_exact(m, world[j]) for j in range(3)])
@@ -306,9 +316,9 @@ def vertex_colors(scene: Scene, eye, tick, w: int, h: int, shader_idx: int):
     """Per-vertex shaded colors f32 [V, 3] for V mode: the shader runs on
     the world-space vertices, the raster only interpolates its output."""
     _, world, n_world = transform_vertices(scene, eye, w, h)
-    eye_d = _host_eye(eye).to(world.device)
-    return sh.shader_fn(shader_idx)(world, n_world, scene.colors, eye_d,
-                                    tick, scene.cm)
+    return sh.shader_fn(shader_idx)(world, n_world, scene.colors,
+                                    _device_eye(eye, world.device), tick,
+                                    scene.cm)
 
 
 def queue_attr_channels(scene: Scene, colors, eye, w: int, h: int, *,
@@ -324,35 +334,41 @@ def queue_attr_channels(scene: Scene, colors, eye, w: int, h: int, *,
     without it n3 = 6, world position then normal, interpolated like the
     reference. `band_h`/`y_shift` set up the band_h rows from global row
     y_shift of the w x h frame, translated after the snap (the band
-    renderer, parallel/raster_shard.py); the planes do not move.
+    renderer, parallel/raster_shard.py); the planes do not move. The span
+    raster.setup holds it all, raster.transform the transform.
     """
-    xs, ys, zs, iw, n_c, world_c = transform_corners_planar(scene, eye, w, h)
-    setup = setup_triangles_planar(xs, ys, zs, w,
-                                   h if band_h is None else band_h, y_shift)
-    one = torch.ones_like(iw[0])
+    with trace.span("raster.setup"):
+        with trace.span("raster.transform"):
+            xs, ys, zs, iw, n_c, world_c = transform_corners_planar(
+                scene, eye, w, h)
+        setup = setup_triangles_planar(
+            xs, ys, zs, w, h if band_h is None else band_h, y_shift)
+        one = torch.ones_like(iw[0])
 
-    if per_pixel:
-        crows = [scene.cc3[0], scene.cc3[1], scene.cc3[2]]   # [3, T] each
-    else:
-        crows = [colors[scene.tris[:, j]].T for j in range(3)]
+        if per_pixel:
+            crows = [scene.cc3[0], scene.cc3[1], scene.cc3[2]]  # [3, T]
+        else:
+            crows = [colors[scene.tris[:, j]].T for j in range(3)]
 
-    def base_d(j):
-        return [one, crows[j][0], crows[j][1], crows[j][2]]
+        def base_d(j):
+            return [one, crows[j][0], crows[j][1], crows[j][2]]
 
-    # attr_channels_2mad in planar form: (base, d10, d20) per channel,
-    # every product rounded before the subtraction (oracle.cpp:1242-1243)
-    base = [q * iw[0] for q in base_d(0)]
-    d10 = [q * iw[1] - b for q, b in zip(base_d(1), base)]
-    d20 = [q * iw[2] - b for q, b in zip(base_d(2), base)]
-    extra = base + d10 + d20
-    n2, n3 = 4, 0
-    if per_pixel:
-        # attr_channels_3w planar: (q*iw0, q*iw1, q*iw2) triples
-        cat3 = [([] if ray_world else [world_c[j, k] for k in range(3)])
-                + [n_c[j, k] for k in range(3)] for j in range(3)]
-        n3 = len(cat3[0])
-        extra = extra + [q * iw[j] for j in range(3) for q in cat3[j]]
-    return setup, extra, n2, n3
+        # attr_channels_2mad in planar form: (base, d10, d20) per channel,
+        # every product rounded before the subtraction
+        # (oracle.cpp:1242-1243)
+        base = [q * iw[0] for q in base_d(0)]
+        d10 = [q * iw[1] - b for q, b in zip(base_d(1), base)]
+        d20 = [q * iw[2] - b for q, b in zip(base_d(2), base)]
+        extra = base + d10 + d20
+        n2, n3 = 4, 0
+        if per_pixel:
+            # attr_channels_3w planar: (q*iw0, q*iw1, q*iw2) triples
+            cat3 = [([] if ray_world
+                     else [world_c[j, k] for k in range(3)])
+                    + [n_c[j, k] for k in range(3)] for j in range(3)]
+            n3 = len(cat3[0])
+            extra = extra + [q * iw[j] for j in range(3) for q in cat3[j]]
+        return setup, extra, n2, n3
 
 
 def raster_and_shade_queue(scene: Scene, queue, colors, eye, tick, *,
@@ -373,23 +389,28 @@ def raster_and_shade_queue(scene: Scene, queue, colors, eye, tick, *,
                                                per_pixel=per_pixel,
                                                ray_world=ray_world)
     if defer:
-        z, slot, rows_flat, stale = raster_zslot_queue(queue, setup, extra,
-                                                       h, w)
-        fb = _shade_deferred(queue, scene, z, slot, rows_flat, n2, n3, eye,
-                             tick, shader_idx, bg_fb, w, h, per_pixel,
-                             ray_world)
+        with trace.span("raster.kernel"):
+            z, slot, rows_flat, stale = raster_zslot_queue(queue, setup,
+                                                           extra, h, w)
+        with trace.span("raster.shade"):
+            fb = _shade_deferred(queue, scene, z, slot, rows_flat, n2, n3,
+                                 eye, tick, shader_idx, bg_fb, w, h,
+                                 per_pixel, ray_world)
         return fb, stale
-    z, mask, lin, stale = raster_attrs_queue(queue, setup, extra, n2, n3, h, w)
-    if per_pixel:
-        fb = _shade_compacted(queue.rows, scene, z, mask, lin, eye, tick,
-                              shader_idx, bg_fb, w, h, block_w=queue.shade_w,
-                              ray_world=ray_world)
-        return fb, stale
+    with trace.span("raster.kernel"):
+        z, mask, lin, stale = raster_attrs_queue(queue, setup, extra, n2, n3,
+                                                 h, w)
+    with trace.span("raster.shade"):
+        if per_pixel:
+            fb = _shade_compacted(queue.rows, scene, z, mask, lin, eye, tick,
+                                  shader_idx, bg_fb, w, h,
+                                  block_w=queue.shade_w, ray_world=ray_world)
+            return fb, stale
 
-    wr = 1.0 / lin[0]
-    c = [q * wr for q in lin[1:4]]
-    packed = pack_abgr32_gamma_arith(c[0], c[1], c[2])
-    return torch.where(mask, packed, bg_fb), stale
+        wr = 1.0 / lin[0]
+        c = [q * wr for q in lin[1:4]]
+        packed = pack_abgr32_gamma_arith(c[0], c[1], c[2])
+        return torch.where(mask, packed, bg_fb), stale
 
 
 # ---------------------------------------------------------------------------
@@ -440,12 +461,13 @@ def _nonzero_static(flags, size: int, fill: int):
     return out[:size]  # slot `size` took every unset entry, in no order
 
 
-def raster_and_shade_pallas(scene: Scene, setup, vp, world, n_world, colors,
+def raster_and_shade_pallas(scene: Scene, setup, extra, n2: int, n3: int,
                             eye, tick, *, w: int, h: int, per_pixel: bool,
                             shader_idx: int, bg_fb, cap=None, spans=None,
                             rows_cap=None):
     """Bins Fill path (rustexp_tpu/raster/pipeline.py:422): the attribute
-    planes interpolate inside kernel B2, then the shade.
+    planes (bins_attr_channels' `extra`, n2, n3) interpolate inside kernel
+    B2, then the shade.
 
     The name is the JAX package's, as ``render_frame(backend="pallas")``
     is public API. With per_pixel and ``rows_cap``, the shade runs only on
@@ -454,32 +476,34 @@ def raster_and_shade_pallas(scene: Scene, setup, vp, world, n_world, colors,
     Returns (fb int32 [h, w], overflow): overflow means the static bin
     capacity, spans or rows_cap were exceeded, so re-bin.
     """
-    extra, n2, n3 = bins_attr_channels(scene, vp, world, n_world, colors,
-                                       per_pixel=per_pixel)
-    z, mask, lin, overflow = rb.raster_attrs_bins(setup, extra, n2, n3, h, w,
-                                                  cap=cap, spans=spans)
-    eye_d = _host_eye(eye).to(z.device)
+    with trace.span("raster.kernel"):
+        z, mask, lin, overflow = rb.raster_attrs_bins(setup, extra, n2, n3,
+                                                      h, w, cap=cap,
+                                                      spans=spans)
+    with trace.span("raster.shade"):
+        if per_pixel and rows_cap is not None:
+            n_blk = h * (w // SHADE_W)
+            occ = mask.reshape(n_blk, SHADE_W).any(dim=1)
+            rows = _nonzero_static(occ, rows_cap, n_blk)
+            overflow = overflow | (occ.sum() > rows_cap)
+            fb = _shade_compacted(rows, scene, z, mask, lin, eye, tick,
+                                  shader_idx, bg_fb, w, h, ray_world=False)
+            return fb, overflow
 
-    if per_pixel and rows_cap is not None:
-        n_blk = h * (w // SHADE_W)
-        occ = mask.reshape(n_blk, SHADE_W).any(dim=1)
-        rows = _nonzero_static(occ, rows_cap, n_blk)
-        overflow = overflow | (occ.sum() > rows_cap)
-        fb = _shade_compacted(rows, scene, z, mask, lin, eye, tick,
-                              shader_idx, bg_fb, w, h, ray_world=False)
-        return fb, overflow
+        wr = 1.0 / lin[0]
 
-    wr = 1.0 / lin[0]
+        def ch_last(ps):
+            return torch.stack([q * wr for q in ps], dim=-1)
 
-    def ch_last(ps):
-        return torch.stack([q * wr for q in ps], dim=-1)
-
-    out = ch_last(lin[1:4])
-    if per_pixel:
-        out = sh.shader_fn(shader_idx)(ch_last(lin[4:7]), ch_last(lin[7:10]),
-                                       out, eye_d, tick, scene.cm)
-    packed = pack_abgr32_gamma_arith(out[..., 0], out[..., 1], out[..., 2])
-    return torch.where(mask, packed, bg_fb), overflow
+        out = ch_last(lin[1:4])
+        if per_pixel:
+            out = sh.shader_fn(shader_idx)(ch_last(lin[4:7]),
+                                           ch_last(lin[7:10]), out,
+                                           _device_eye(eye, z.device), tick,
+                                           scene.cm)
+        packed = pack_abgr32_gamma_arith(out[..., 0], out[..., 1],
+                                         out[..., 2])
+        return torch.where(mask, packed, bg_fb), overflow
 
 
 def shade_gbuffer(gb, scene: Scene, vp, world, n_world, colors, eye, tick,
@@ -516,9 +540,9 @@ def shade_gbuffer(gb, scene: Scene, vp, world, n_world, colors, eye, tick,
 
     out = persp_2mad(colors)
     if per_pixel:
-        eye_d = _host_eye(eye).to(out.device)
         out = sh.shader_fn(shader_idx)(persp_3w(world), persp_3w(n_world),
-                                       out, eye_d, tick, scene.cm)
+                                       out, _device_eye(eye, out.device),
+                                       tick, scene.cm)
     packed = pack_abgr32_gamma_arith(out[:, 0], out[:, 1], out[:, 2])
     return torch.where(mask, packed.reshape(h, w), bg_fb)
 
@@ -563,8 +587,9 @@ def _shade_blocks(rows, rows_g, padr, maskc, zc, linc, scene: Scene, eye,
             if y_rows is None:
                 yc = (ly + y0).to(torch.float32)[:, None]
             else:
-                yc = torch.as_tensor(y_rows).to(
-                    zc.device, torch.float32)[ly][:, None]
+                yc = trace.upload(
+                    "rows", torch.as_tensor(y_rows).to(torch.float32),
+                    zc.device)[ly][:, None]
             xc = ((rows_g % ntx) * block_w).to(torch.float32)[:, None] \
                 + torch.arange(block_w, dtype=torch.float32,
                                device=zc.device)[None, :]
@@ -576,8 +601,9 @@ def _shade_blocks(rows, rows_g, padr, maskc, zc, linc, scene: Scene, eye,
         else:
             pc = torch.stack([p_ * wrc for p_ in linc[4:7]], dim=-1)
             nc = torch.stack([p_ * wrc for p_ in linc[7:10]], dim=-1)
-        eye_d = _host_eye(eye).to(wrc.device)
-        out = sh.shader_fn(shader_idx)(pc, nc, out, eye_d, tick, scene.cm)
+        out = sh.shader_fn(shader_idx)(pc, nc, out,
+                                       _device_eye(eye, wrc.device), tick,
+                                       scene.cm)
     packed = pack_abgr32_gamma_arith(out[..., 0], out[..., 1], out[..., 2])
 
     bgv = bg_fb.reshape(n_blk, block_w)
@@ -673,7 +699,8 @@ def background(bg_idx: int, w: int, h: int, device: torch.device,
     col = (torch.tensor(start)[None, :] * (1.0 - pos)[:, None]
            + torch.tensor(end)[None, :] * pos[:, None])
     row = pack_abgr32(col[:, 0], col[:, 1], col[:, 2])
-    return row[:, None].expand(h, w).contiguous().to(device)
+    return trace.upload("background", row[:, None].expand(h, w).contiguous(),
+                        device)
 
 
 def overlay_cross(fb, cross):
@@ -772,16 +799,17 @@ def build_scene_queue(scene: Scene, eye, w: int, h: int,
     with its "auto" order. The compacted-shade width is choose_shade_w's
     unless `shade_w` is given. The build uses the same planar setup as
     the frame, so no triangle can snap into a tile the structure never
-    enumerated."""
-    setup = _queue_setup(scene, eye, w, h)
-    stats = read_queue_stats(setup, h, w)
-    if shade_w is None:
-        shade_w = choose_shade_w(stats[3], stats[4], per_pixel=per_pixel)
-    occ = stats[3] if shade_w == SHADE_W else stats[4]
-    s_cap, m_y, m_x, t_cap = suggest_queue_config(stats[:3] + (occ,),
-                                                  margin=margin)
-    return build_queue(setup, h, w, s_cap=s_cap, m_y=m_y, m_x=m_x,
-                       t_cap=t_cap, shade_w=shade_w)
+    enumerated. The span structure.queue holds it all."""
+    with trace.span("structure.queue"):
+        setup = _queue_setup(scene, eye, w, h)
+        stats = read_queue_stats(setup, h, w)
+        if shade_w is None:
+            shade_w = choose_shade_w(stats[3], stats[4], per_pixel=per_pixel)
+        occ = stats[3] if shade_w == SHADE_W else stats[4]
+        s_cap, m_y, m_x, t_cap = suggest_queue_config(stats[:3] + (occ,),
+                                                      margin=margin)
+        return build_queue(setup, h, w, s_cap=s_cap, m_y=m_y, m_x=m_x,
+                           t_cap=t_cap, shade_w=shade_w)
 
 
 def _bins_setup(scene: Scene, eye, w: int, h: int):
@@ -821,9 +849,13 @@ def suggest_binning(scene: Scene, eye, w: int, h: int, margin: float = 1.3):
     still reports ``overflow`` if a frame exceeds it. rows_cap bounds
     the occupied shade blocks (render_frame's raster_rows) with the same
     margin, or is None when >= 75% of the frame's blocks can be occupied
-    (compaction then costs more than the shade it skips).
+    (compaction then costs more than the shade it skips). The span
+    structure.bins holds the device work and its read.
     """
-    mc, sx, sy, rc = torch.stack(_bin_stats(scene, eye, w, h)).tolist()
+    with trace.span("structure.bins"):
+        stats = torch.stack(_bin_stats(scene, eye, w, h))
+        with trace.span("sync.read.bin_stats"):
+            mc, sx, sy, rc = stats.tolist()
     need = max(512, int(mc * margin))
     cap = (need + 511) // 512 * 512
     ntx = -(-w // SHADE_W)
@@ -836,7 +868,9 @@ def suggest_binning(scene: Scene, eye, w: int, h: int, margin: float = 1.3):
 def suggest_cap(scene: Scene, eye, w: int, h: int, margin: float = 1.3) -> int:
     """A bin capacity for this scene and viewpoint: the largest bin with a
     margin, rounded up to 512 (rustexp_tpu/raster/pipeline.py:976)."""
-    m = int(rb.max_bin_count(_bins_setup(scene, eye, w, h), h, w))
+    m = rb.max_bin_count(_bins_setup(scene, eye, w, h), h, w)
+    with trace.span("sync.read.bin_cap"):
+        m = int(m)
     need = max(512, int(m * margin))
     return (need + 511) // 512 * 512
 
@@ -866,44 +900,72 @@ def render_frame(scene: Scene, eye, tick, *, w: int, h: int,
     stale, or the static bins overflowed (always False for points and
     lines); rebuild and render again.
     """
-    if show_cm is None:
-        show_cm = sh.shader_uses_cm(shader_idx)
-    fb = background(bg_idx, w, h, scene.cp3.device)
-    no_overflow = torch.zeros((), dtype=torch.bool, device=fb.device)
-    if mode in (MODE_POINT, MODE_LINE):
-        vp, _, _ = transform_vertices(scene, eye, w, h)
-        draw = draw_points if mode == MODE_POINT else draw_lines
-        fb, overflow = draw(fb, vp, scene.tris, w, h), no_overflow
-    elif backend == "queue" and raster_queue is not None:
-        sh.shader_fn(shader_idx)  # a bad index raises before any work
-        colors = None if per_pixel else vertex_colors(scene, eye, tick, w, h,
-                                                      shader_idx)
-        fb, overflow = raster_and_shade_queue(
-            scene, raster_queue, colors, eye, tick, w=w, h=h,
-            per_pixel=per_pixel, shader_idx=shader_idx, bg_fb=fb)
-    else:
-        shader = sh.shader_fn(shader_idx)
-        vp, world, n_world = transform_vertices(scene, eye, w, h)
-        colors = scene.colors
-        if not per_pixel:
-            eye_d = _host_eye(eye).to(world.device)
-            colors = shader(world, n_world, scene.colors, eye_d, tick,
-                            scene.cm)
-        setup = setup_triangles(vp, scene.tris, w, h)
-        tileable = h % rb.TILE_H == 0 and w % rb.TILE_W == 0
-        if backend == "pallas" or (backend in ("auto", "queue")
-                                   and tileable):
-            fb, overflow = raster_and_shade_pallas(
-                scene, setup, vp, world, n_world, colors, eye, tick, w=w,
-                h=h, per_pixel=per_pixel, shader_idx=shader_idx, bg_fb=fb,
-                cap=raster_cap, spans=raster_spans, rows_cap=raster_rows)
+    with trace.span("raster.frame"):
+        if show_cm is None:
+            show_cm = sh.shader_uses_cm(shader_idx)
+        fb = background(bg_idx, w, h, scene.cp3.device)
+        no_overflow = torch.zeros((), dtype=torch.bool, device=fb.device)
+        if mode in (MODE_POINT, MODE_LINE):
+            vp, _, _ = transform_vertices(scene, eye, w, h)
+            draw = draw_points if mode == MODE_POINT else draw_lines
+            fb, overflow = draw(fb, vp, scene.tris, w, h), no_overflow
+        elif backend == "queue" and raster_queue is not None:
+            sh.shader_fn(shader_idx)  # a bad index raises before any work
+            colors = None
+            if not per_pixel:
+                with trace.span("raster.shade"):
+                    colors = vertex_colors(scene, eye, tick, w, h,
+                                           shader_idx)
+            fb, overflow = raster_and_shade_queue(
+                scene, raster_queue, colors, eye, tick, w=w, h=h,
+                per_pixel=per_pixel, shader_idx=shader_idx, bg_fb=fb)
         else:
-            fb = shade_gbuffer(raster_gbuffer_xla(setup, h, w), scene, vp,
-                               world, n_world, colors, eye, tick,
-                               per_pixel=per_pixel, shader_idx=shader_idx,
-                               bg_fb=fb)
-            overflow = no_overflow
-    if show_cm:
-        fb = overlay_cross(fb, scene.cross)
-    fb = fb.view(torch.uint32)
+            fb, overflow = _bins_or_oracle(
+                scene, eye, tick, w, h, per_pixel, shader_idx, fb, backend,
+                raster_cap, raster_spans, raster_rows, no_overflow)
+        if show_cm:
+            with trace.span("raster.shade"):
+                fb = overlay_cross(fb, scene.cross)
+        fb = fb.view(torch.uint32)
     return (fb, overflow) if return_overflow else fb
+
+
+def _bins_or_oracle(scene: Scene, eye, tick, w: int, h: int, per_pixel: bool,
+                    shader_idx: int, bg_fb, backend: str, cap, spans,
+                    rows_cap, no_overflow):
+    """render_frame's Fill frame without a queue -> (fb int32, overflow):
+    the bins (kernel B2) or, on frames of partial tiles and with backend
+    "xla", the G-buffer oracle. In V mode the shader runs on the
+    world-space vertices before the bins' channels take its colours, so
+    such a frame opens raster.setup twice, around the shade."""
+    shader = sh.shader_fn(shader_idx)
+    tileable = h % rb.TILE_H == 0 and w % rb.TILE_W == 0
+    bins = backend == "pallas" or (backend in ("auto", "queue") and tileable)
+    with trace.span("raster.setup"):
+        with trace.span("raster.transform"):
+            vp, world, n_world = transform_vertices(scene, eye, w, h)
+        setup = setup_triangles(vp, scene.tris, w, h)
+        if bins and per_pixel:
+            chans = bins_attr_channels(scene, vp, world, n_world,
+                                       scene.colors, per_pixel=True)
+    colors = scene.colors
+    if not per_pixel:
+        with trace.span("raster.shade"):
+            colors = shader(world, n_world, scene.colors,
+                            _device_eye(eye, world.device), tick, scene.cm)
+        if bins:
+            with trace.span("raster.setup"):
+                chans = bins_attr_channels(scene, vp, world, n_world, colors,
+                                           per_pixel=False)
+    if bins:
+        return raster_and_shade_pallas(
+            scene, setup, *chans, eye, tick, w=w, h=h, per_pixel=per_pixel,
+            shader_idx=shader_idx, bg_fb=bg_fb, cap=cap, spans=spans,
+            rows_cap=rows_cap)
+    with trace.span("raster.kernel"):
+        gb = raster_gbuffer_xla(setup, h, w)
+    with trace.span("raster.shade"):
+        fb = shade_gbuffer(gb, scene, vp, world, n_world, colors, eye, tick,
+                           per_pixel=per_pixel, shader_idx=shader_idx,
+                           bg_fb=bg_fb)
+    return fb, no_overflow

@@ -21,6 +21,7 @@ import functools
 
 import torch
 
+from ..core import trace
 from ..core.colors import fast_unit_pow16_arith, trunc_i32
 from ..ops.ieee import sqrt_rn
 
@@ -102,7 +103,8 @@ def lookup_texel_powers(cm, powers: tuple, texel):
 @functools.cache
 def _const(values: tuple, device: torch.device) -> torch.Tensor:
     """An f32 constant vector on `device`, copied there once."""
-    return torch.tensor(values, dtype=torch.float32).to(device)
+    return trace.upload("const", torch.tensor(values, dtype=torch.float32),
+                        device)
 
 
 def fresnel_conductor(cosi, eta: float, k: float):

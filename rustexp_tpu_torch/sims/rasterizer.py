@@ -22,6 +22,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ..assets import cubemap, mesh
+from ..core import trace
 from ..core.timing import FrameTimes
 from ..core.trace import trace_info
 from ..raster import camera, pipeline as pp
@@ -109,24 +110,34 @@ class RasterizerExperiment:
         return kw
 
     def render(self, state: RasterState, w: int, h: int, tick: float = 0.0):
-        """One frame -> uint32 ABGR [h, w] on the experiment's device."""
-        eye = camera.camera_eye(mesh.mesh_camera(state.mesh_idx), tick)
-        scene, work = self._scene(state, w, h, eye)
-        t0 = time.perf_counter()
-        fb, stale = pp.render_frame(scene, eye, tick,
-                                    **self._frame_kwargs(state, work, w, h))
-        if bool(stale):
-            # The camera left the cached queue's coverage, or the static
-            # bins overflowed: rebuild at this viewpoint, re-render.
-            trace_info(f"raster structure stale at tick {tick:.2f}; "
-                       f"rebuilding")
-            work = self._build(scene, eye, w, h, work[0])
-            state._scene_cache = (state._scene_cache[0], scene, work)
+        """One frame -> uint32 ABGR [h, w] on the experiment's device.
+
+        The whole call is the span ``frame``; a stale frame's rebuild is
+        ``experiment.rebuild``, the read of its flag ``sync.read.stale``
+        and the closing synchronize ``experiment.sync``."""
+        with trace.span("frame"):
+            eye = camera.camera_eye(mesh.mesh_camera(state.mesh_idx), tick)
+            scene, work = self._scene(state, w, h, eye)
+            t0 = time.perf_counter()
             fb, stale = pp.render_frame(
                 scene, eye, tick, **self._frame_kwargs(state, work, w, h))
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        state.frame_times.push(time.perf_counter() - t0)
+            with trace.span("sync.read.stale"):
+                stale = bool(stale)
+            if stale:
+                # The camera left the cached queue's coverage, or the
+                # static bins overflowed: rebuild at this viewpoint,
+                # re-render.
+                trace_info(f"raster structure stale at tick {tick:.2f}; "
+                           f"rebuilding")
+                with trace.span("experiment.rebuild"):
+                    work = self._build(scene, eye, w, h, work[0])
+                state._scene_cache = (state._scene_cache[0], scene, work)
+                fb, stale = pp.render_frame(
+                    scene, eye, tick, **self._frame_kwargs(state, work, w, h))
+            if self.device.type == "cuda":
+                with trace.span("experiment.sync"):
+                    torch.cuda.synchronize(self.device)
+            state.frame_times.push(time.perf_counter() - t0)
         return fb
 
     def status(self, state: RasterState) -> str:
