@@ -5,7 +5,7 @@
 Drives rustexp_tpu_torch, the port, never the JAX package:
 
   1. requires a CUDA device and prints nvidia-smi's name and power limit;
-  2. builds the port's six CUDA libraries (eight kernels) from
+  2. builds the port's seven CUDA libraries (nine kernels) from
      rustexp_tpu_torch/csrc/, one nvcc per source, all started together;
   3. holds each kernel against its plain PyTorch version on the card, at
      the main paths' shapes: B1 (the flat-queue raster) on the procedural
@@ -39,9 +39,17 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      256 and random keys at 2^20, timed with the
      library call (stable torch.sort and gathers) by device time in the
      same run; B5 (all-pairs forces) at N = 16,384, 131,072 and 16,385
-     with both reciprocals, within B5_RTOL, its launches as planned;
+     with both reciprocals, within B5_RTOL, its launches as planned; S
+     (the shade and pack) on the call a bench frame makes of it on the
+     sphere (KillerooP: the queue's ray-world rows list) and on CubeP (the
+     bins' whole frame of 10 planes), with cube maps dim enough that no
+     channel reaches white, 0 differing words against its plain version
+     on the card and on the CPU, one grid a call, timed by all the card's
+     activity of a call and by its grid alone;
   4. runs each main path with the launch counters set to 0 just before it
-     and read just after, and fails if its kernel never ran: the queue path
+     and read just after, and fails if its kernel never ran, or if the
+     shade kernel S did not launch once for each raster render (B1, B2
+     or B7; none on the G-buffer paths): the queue path
      (RasterizerExperiment.render, KillerooV and KillerooP, a few ticks),
      the bins path (the same on Cube, mesh 9), and run_suite at bench.py's
      runs over its SCENES cut to KillerooP (B1) and CubeP (B2), after short
@@ -129,7 +137,7 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      kernel, B1 or B2; the launches of the whole run count on the main
      path and must include B1, B2, B4, B5 and B6), printing
      its line and wall time; then graft_entry.entry()'s flagship frame on
-     the card against the CPU's (0 px, B2 launched once).
+     the card against the CPU's (0 px, B2 and S launched once).
 
 Its last lines are nvidia-smi's name and power limit, a JSON object of the
 kernels (grid launches on the main paths, error, times and each one's
@@ -790,6 +798,185 @@ def stress_bins(device, seed: int = 0):
              counts=np.array(BINS_COUNTS, np.int32),
              overflow=np.array(False))
     return interop.bins_from_numpy(d, device), BINS_H, BINS_W
+
+
+def dim_cube_maps(gen) -> torch.Tensor:
+    """A [5, 6, 64, 64, 3] cube-map set drawn from `gen` whose powers
+    cos^0, 1, 8, 64, 512 stay below 0.3, 0.3, 0.06, 0.01 and 0.0012: the
+    shaders weight them 1, 1, 5, 33 and 257, so their channels stay below
+    white (shade_inputs)."""
+    return torch.rand(5, 6, 64, 64, 3, generator=gen) * torch.tensor(
+        [0.3, 0.3, 0.06, 0.01, 0.0012])[:, None, None, None, None]
+
+
+def shade_inputs(h: int, w: int, per_pixel: bool, ray_world: bool, device,
+                 seed: int = 0, block_w: int = 64, degenerate: bool = False):
+    """(mask, z, lin, bg, cm, rows): synthetic inputs of the shade
+    (raster/shade.py) on `device`. 1/w in [0.3, 1), colours in [0.1, 0.6)
+    times 1/w, world positions and normals in [-1, 1) times 1/w, z in
+    [-1, 1), 80% of the pixels covered, and a cube-map set whose powers
+    cos^0, 1, 8, 64, 512 stay below 0.3, 0.3, 0.06, 0.01 and 0.0012 (the
+    shaders weight them 1, 1, 5, 33 and 257): small enough that the
+    shaders' channels stay below white (but where CMDiffRim's Fresnel term
+    passes 1, on normals facing away), so the gamma pack tells shading
+    apart (the stand-in sky sends CMRefl past white). `rows`
+    lists two thirds of the block_w-wide blocks, ascending, then 5 pads.
+    `degenerate` puts 1/w 0, -0 and inf, a NaN and a negative colour, and
+    zero normals in a few covered pixels."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def u(*shape):
+        return torch.rand(*shape, generator=gen)
+
+    n_planes = 4 if not per_pixel else (7 if ray_world else 10)
+    iw = 0.3 + 0.7 * u(h, w)
+    lin = [iw] + [(0.1 + 0.5 * u(h, w)) * iw for _ in range(3)]
+    lin += [(2.0 * u(h, w) - 1.0) * iw for _ in range(n_planes - 4)]
+    mask = u(h, w) < 0.8
+    if degenerate:
+        lin[0][0, :3] = torch.tensor([0.0, -0.0, float("inf")])
+        lin[1][1, :2] = torch.tensor([float("nan"), -5.0])
+        for p_ in lin[4:]:
+            p_[2, :3] = 0.0
+        mask[:3, :3] = True
+    z = 2.0 * u(h, w) - 1.0
+    bg = torch.randint(0, 1 << 24, (h, w), generator=gen, dtype=torch.int32)
+    cm = dim_cube_maps(gen)
+    n_blk = h * (w // block_w)
+    listed = torch.randperm(n_blk, generator=gen)[:n_blk * 2 // 3].sort()[0]
+    rows = torch.cat([listed, torch.full((5,), n_blk)]).to(torch.int32)
+    return tuple(t.to(device) if isinstance(t, torch.Tensor)
+                 else [p_.to(device) for p_ in t]
+                 for t in (mask, z, lin, bg, cm, rows))
+
+
+S_SCENES = (("KillerooP", 0), ("CubeP", 9))  # the benchmark cells' scenes
+SECTOR = 32  # bytes: the least the card moves between HBM and L2
+
+
+def shade_call(bench, sd, mesh_idx: int, dev) -> tuple:
+    """(args, keywords) of the shade kernel's call in one frame of a bench
+    scene (scene_frame's frame(), per pixel): the shapes, rows list,
+    coverage and planes the main path hands it."""
+    frame = bench.scene_frame(mesh_idx, True, dev)[0]
+    frame()
+    calls, orig = [], sd.shade_pack_cuda
+
+    def record(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+
+    record.launches = orig.launches
+    sd.shade_pack_cuda = record
+    try:
+        frame()
+    finally:
+        orig.launches = record.launches
+        sd.shade_pack_cuda = orig
+    if len(calls) != 1:
+        raise RuntimeError(f"a frame of mesh {mesh_idx} called the shade "
+                           f"kernel {len(calls)} times")
+    return calls[0]
+
+
+def _sectors(words: torch.Tensor, per: int) -> int:
+    """SECTOR-byte sectors of a flat array that hold a needed element:
+    `words` flags them, `per` elements a sector."""
+    flat = words.reshape(-1)
+    pad = (-flat.numel()) % per
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return int(flat.reshape(-1, per).any(dim=1).sum())
+
+
+def s_bytes(mask, lin, bg, rows, block_w, rays: bool) -> tuple:
+    """(bytes, walked, covered, pad entries) of one shade call: the least
+    it moves to and from HBM, in whole sectors, and the flat flags of the
+    pixels it walks (every pixel, or a listed block's) and of those
+    covered. Counted: the rows list; the mask where a pixel is walked; the
+    planes, and z with rays, where a walked pixel is covered; the
+    background where a walked pixel is not covered, and the frame written
+    once; with a rows list, the background's copy into the frame (read
+    and write, every word) and the covered words written over it. The cube
+    map and the gamma curve (1.5 MB and 8 KB, the same every call) are
+    left out."""
+    h, w = bg.shape
+    walked = torch.ones(h * w, dtype=torch.bool, device=bg.device)
+    pads = nbytes = 0
+    if rows is not None:
+        n_blk = h * (w // block_w)
+        listed = rows[rows < n_blk].long()
+        pads = rows.shape[0] - listed.shape[0]
+        walked = torch.zeros(n_blk, dtype=torch.bool, device=bg.device)
+        walked[listed] = True
+        walked = walked[:, None].expand(n_blk, block_w).reshape(-1)
+        nbytes += _sectors(torch.ones_like(rows, dtype=torch.bool), 8)
+    covered = walked & mask.reshape(-1)
+    planes = len(lin) + (1 if rays else 0)
+    nbytes += _sectors(walked, SECTOR) + planes * _sectors(covered, 8)
+    if rows is None:
+        nbytes += _sectors(walked & ~covered, 8) + h * w * 4 // SECTOR
+    else:
+        nbytes += 2 * h * w * 4 // SECTOR + _sectors(covered, 8)
+    return nbytes * SECTOR, walked, covered, pads
+
+
+def s_vs_plain(dev, bench, sd) -> dict:
+    """The shade kernel (S) against its plain version on each S_SCENES
+    scene's call as the main path makes it (shade_call: the sphere's
+    ray-world rows list, CubeP's whole frame of 10 planes), with the cube
+    maps swapped for dim ones (dim_cube_maps) so that no channel reaches
+    white: 0 differing words against the plain chain on the card and on
+    the CPU. Timed by all the card's activity of a call (with a rows list
+    the background's copy and the grid), the grid alone, CUDA events
+    around back-to-back calls, and the plain chain on the card; the bound
+    is s_bytes over the memory rate. Returns {label: record}."""
+    out = {}
+    for label, mesh_idx in S_SCENES:
+        (mask, z, lin, bg, _, eye), kw = shade_call(bench, sd, mesh_idx, dev)
+        cm = dim_cube_maps(torch.Generator().manual_seed(mesh_idx)).to(dev)
+        args = (mask, z, lin, bg, cm, eye)
+        calls = sd.shade_pack_cuda.launches
+        got = sd.shade_pack_cuda(*args, **kw)
+        calls = sd.shade_pack_cuda.launches - calls
+        card = sd.shade_pack_plain(*args, bench.TICK, **kw)
+        cpu_kw = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                  for k, v in kw.items()}
+        cpu = sd.shade_pack_plain(
+            mask.cpu(), None if z is None else z.cpu(),
+            [p_.cpu() for p_ in lin], bg.cpu(), cm.cpu(), eye, bench.TICK,
+            **cpu_kw)
+        bad = int((got != card).sum()) + int((got.cpu() != cpu).sum())
+        rows = kw.get("rows")
+        rays = kw["per_pixel"] and kw["ray_world"]
+        nbytes, walked, covered, pads = s_bytes(
+            mask, lin, bg, rows, kw.get("block_w"), rays)
+        words = got.reshape(-1)[covered]
+        white = int(torch.stack([(words >> s_) & 0xFF == 255
+                                 for s_ in (0, 8, 16)]).any(dim=0).sum())
+        walked, covered = int(walked.sum()), int(covered.sum())
+        form = ("whole frame" if rows is None
+                else f"rows list of {rows.shape[0]}")
+        bms, by = time_bound(nbytes, 0)
+        run = lambda: sd.shade_pack_cuda(*args, **kw)
+        print(f"S {label}: {form}, {len(lin)} planes, rays {rays}: "
+              f"{covered} covered px of {walked} walked, {pads} pad "
+              f"entries, {white} covered px with a channel at 255; "
+              f"{calls} grid launches a call: {bad} words differ from the "
+              f"plain chain (card and CPU)", flush=True)
+        out[label] = dict(
+            err=float(bad), bad=bad, covered=covered,
+            ms=device_ms(run, 50, None, 1 if rows is None else 2),
+            kernel_ms=device_ms(run, 50, "shade_pack_kernel"),
+            call_ms=cuda_ms(run, 50),
+            plain_ms=cuda_ms(lambda: sd.shade_pack_plain(
+                *args, bench.TICK, **kw), 5),
+            bound_ms=bms, bound_by=by, launches_per_call=calls,
+            work=(f"{form}, {len(lin)} planes{' and z' if rays else ''}, "
+                  f"{walked} px walked, {covered} covered, {pads} pad "
+                  f"entries, {white} covered px with a channel at 255, "
+                  f"{nbytes} B"))
+    return out
 
 
 def b3_stress(dev, rb) -> int:
@@ -1544,6 +1731,9 @@ def gbuffer_paths(dev, card, pp, shard, meshes, cubemap, camera, exp_cls,
             raise RuntimeError(f"{label} launched a kernel: {got}")
         if kernel is not None and got[kernel] == 0:
             raise RuntimeError(f"{label} never launched kernel {kernel}")
+        msg = shade_per_render(label, got)
+        if msg:
+            raise RuntimeError(msg)
         for k in counters:
             launches[k] += got[k]
         return out
@@ -1788,8 +1978,8 @@ def sampling(dev, card, bench, counters, launches
             return f"run_suite never launched kernel {want_k}", {}
     want = {}
     for r in suite["rows"]:
-        want[kernel[r["scene"]]] = want.get(kernel[r["scene"]], 0) + (
-            1 + timed) * k
+        for c in (kernel[r["scene"]], "S"):
+            want[c] = want.get(c, 0) + (1 + timed) * k
     if _nonzero(got) != want or len(suite["scene_us"]) != len(cut):
         return (f"run_suite launched {_nonzero(got)} over "
                 f"{len(suite['scene_us'])} scenes, want {want} over "
@@ -1808,7 +1998,8 @@ def sampling(dev, card, bench, counters, launches
               f"{r['frames_per_run']} frames, a {k}-frame warm-up, CUDA "
               f"events): {_stats_text(r)}; checksum {r['checksum']:#010x} "
               f"(the CPU frame's {want_sum:#010x}) [{card}]", flush=True)
-        want_short = {kernel[label]: 1 + SHORT_RUNS * SHORT_FRAMES}
+        want_short = {kernel[label]: 1 + SHORT_RUNS * SHORT_FRAMES,
+                      "S": 1 + SHORT_RUNS * SHORT_FRAMES}
         if (r["scene"] != label or _nonzero(got_short) != want_short
                 or (r["n_runs"], r["frames_per_run"]) != (timed, k)):
             return (f"sampling {label}: run_suite's row {r['scene']} in "
@@ -1944,7 +2135,8 @@ def moving_paths(dev, card, pp, rq, bench, meshes, cubemap, counters,
               f"rendered) [{card}]", flush=True)
         if rec["queue_order"] != expect:
             return f"moving {label} resolved {rec['queue_order']}"
-        if got["B1"] != frames or sum(got.values()) != got["B1"]:
+        if got["B1"] != frames or got["S"] != frames or sum(
+                got.values()) != 2 * frames:
             return f"moving {label} launched {got} for {frames} frames"
         records[label] = rec
 
@@ -2111,6 +2303,18 @@ def _nonzero(got: dict) -> dict:
     return {k: v for k, v in got.items() if v}
 
 
+def shade_per_render(label: str, got: dict) -> str | None:
+    """A failure message unless the shade kernel (S) launched once for
+    each raster render of a counted path: each queue, bins or deferred
+    frame (B1, B2 or B7) shades once; the G-buffer frames shade in plain
+    ops."""
+    renders = got["B1"] + got["B2"] + got["B7"]
+    if got["S"] != renders:
+        return (f"{label}: the shade kernel launched {got['S']} times for "
+                f"{renders} raster renders")
+    return None
+
+
 def _zero(counters) -> None:
     for c in counters.values():
         c.launches = 0
@@ -2171,6 +2375,8 @@ def app_shell(dev, card, counters, launches, tmp: str) -> str | None:
     stale = _StaleCount(os.path.join(tmp, "trace.log"))
     tpf = 1.0 / 60.0  # the CLI's default ticks per frame
 
+    shade_faults = []
+
     def report(label, text, got, frames):
         kept = {k: v for k, v in got.items() if v}
         print(f"app {label}: {cli_ms(text):.3f} ms/frame wall (the CLI's "
@@ -2178,6 +2384,7 @@ def app_shell(dev, card, counters, launches, tmp: str) -> str | None:
               f"[{card}]", flush=True)
         for k in counters:
             launches[k] += got[k]
+        shade_faults.append(shade_per_render(f"app {label}", got))
 
     def raster_frames(exp_dev, keys, ticks):
         exp = RasterizerExperiment(exp_dev)
@@ -2334,6 +2541,8 @@ def app_shell(dev, card, counters, launches, tmp: str) -> str | None:
               flush=True)
         for k in counters:
             launches[k] += got[k]
+        shade_faults.append(shade_per_render(f"app viewer start {start}",
+                                             got))
         if n != APP_VIEWER_FRAMES or rec["frames"] != n:
             return f"app viewer start {start}: {n} frames"
         if kernel == "B1" and got["B1"] != n + stale.n:
@@ -2341,7 +2550,7 @@ def app_shell(dev, card, counters, launches, tmp: str) -> str | None:
         if kernel == "B4" and got["B4"] == 0:
             return "app viewer: GoL's worker never launched B4"
     stale.close()
-    return None
+    return next((m for m in shade_faults if m), None)
 
 
 SHARD_RANKS = 4          # gloo ranks sharing the one card
@@ -2811,7 +3020,7 @@ def sharded_paths(dev, card, launches, tmp: str) -> str | None:
               f"[{SHARD_ODD_RANKS} ranks sharing one {name} (power limit "
               f"{limit}) over gloo]", flush=True)
         for k in launches:
-            launches[k] += rr["launches"][k]
+            launches[k] += rr["launches"].get(k, 0)
         if got != {"B6": (1 + SHARD_ODD_RANKS) * SHARD_BH_STEPS * 24}:
             return f"sharded odd-even rank {r}: launches {got}"
     msg = bh_check(f"BH {SHARD_BH_ODD_N} odd-even sort",
@@ -2883,7 +3092,7 @@ def sharded_paths(dev, card, launches, tmp: str) -> str | None:
     if nccl["backend"] != "nccl" or len(nccl["steps"]) != 9:
         return f"sharded NCCL rank: {nccl['backend']}, {nccl['steps']}"
     for k in launches:
-        launches[k] += nccl["launches"][k]
+        launches[k] += nccl["launches"].get(k, 0)
     return None
 
 
@@ -2994,10 +3203,11 @@ def surfaces(dev, card, counters, launches) -> tuple[str | None, dict]:
           f"{diff} px differ from entry('cpu'); launches {got} [{card}]",
           flush=True)
     if fb.shape != (H, W) or fb.dtype != torch.uint32 or diff or got != {
-            "B2": 1}:
+            "B2": 1, "S": 1}:
         return (f"entry(): {diff} px differ from the CPU frame, launches "
                 f"{got}"), scenes
     launches["B2"] += 1
+    launches["S"] += 1
     return None, scenes
 
 
@@ -3031,7 +3241,7 @@ def main() -> int:
     from rustexp_tpu_torch.ops.raster_setup import setup_triangles
     from rustexp_tpu_torch.parallel import raster_shard
     from rustexp_tpu_torch.raster import camera, pipeline as pp
-    from rustexp_tpu_torch.raster import shaders as sh
+    from rustexp_tpu_torch.raster import shade as sd, shaders as sh
     from rustexp_tpu_torch.runtime import device, load_kernel_lib
     from rustexp_tpu_torch.sims.gol import GoLExperiment
     from rustexp_tpu_torch.sims.nbody import NBodyExperiment, stable_orbits
@@ -3053,8 +3263,8 @@ def main() -> int:
 
     # Phase 2: build every kernel, one nvcc per source, concurrently.
     t0 = time.perf_counter()
-    names = ("raster_queue", "raster_bins", "gol_swar", "gol_stencil",
-             "nbody_forces", "sort_radix")
+    names = ("raster_queue", "raster_bins", "raster_shade", "gol_swar",
+             "gol_stencil", "nbody_forces", "sort_radix")
     with ThreadPoolExecutor(len(names)) as ex:
         libs = list(ex.map(load_kernel_lib, names))
     for lib in libs:
@@ -3063,9 +3273,9 @@ def main() -> int:
     print(f"all kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"[{card}]", flush=True)
     for lib in libs:
-        # B1 and B7, B2 and B3, B4, B5, B8
-        if lib.name in ("raster_queue", "raster_bins", "gol_swar",
-                        "nbody_forces", "gol_stencil"):
+        # B1 and B7, B2 and B3, S, B4, B5, B8
+        if lib.name in ("raster_queue", "raster_bins", "raster_shade",
+                        "gol_swar", "nbody_forces", "gol_stencil"):
             for line in ptxas_summary(lib.ptxas):
                 print(f"ptxas {lib.name} {line}", flush=True)
 
@@ -3092,6 +3302,13 @@ def main() -> int:
     if stress_bad:
         return fail(f"B7 on the stress queue: {stress_bad} mismatching words")
     phase_done("B1, B2, B3, B7 against their plain versions")
+    cmpS = s_vs_plain(dev, bench, sd)
+    for label, r in cmpS.items():
+        if r["bad"] or r["covered"] == 0 or r["launches_per_call"] != 1:
+            return fail(f"S {label}: {r['bad']} mismatching words, "
+                        f"{r['covered']} covered pixels, "
+                        f"{r['launches_per_call']} grid launches a call")
+    phase_done("S against its plain version")
     msg, more1, more7 = kernels_on_orders(dev, card, pp, rq, bench, meshes,
                                           cubemap)
     if msg:
@@ -3126,7 +3343,8 @@ def main() -> int:
                 "B5": npl.forces_pallas_cuda,
                 "B6": sb.sort_kv_cuda,
                 "B7": rq.raster_zslot_queue_cuda,
-                "B8": gs.multi_step_pallas_cuda}
+                "B8": gs.multi_step_pallas_cuda,
+                "S": sd.shade_pack_cuda}
     path_kernels = {"Killeroo": ("B1",), "Cube": ("B2",)}
     launches = {k: 0 for k in counters}
     exp = RasterizerExperiment(dev)
@@ -3147,6 +3365,9 @@ def main() -> int:
         for k in path_kernels[name]:
             if got[k] == 0:
                 return fail(f"the {name} path never launched kernel {k}")
+        msg = shade_per_render(f"the {name} Experiment path", got)
+        if msg:
+            return fail(msg)
         for k in counters:
             launches[k] += got[k]
 
@@ -3260,6 +3481,14 @@ def main() -> int:
                   f"{r['call_ms']:.4f} ms and plain version "
                   f"{r['plain_ms']:.4f} ms (CUDA events), bound "
                   f"{r['bound_ms']:.5f} ms ({r['bound_by']}) [{card}]")
+    for label, r in cmpS.items():
+        print(f"time S {label} 512x512 ({r['work']}): all the call's "
+              f"activity {r['ms']:.4f} ms and the grid alone "
+              f"{r['kernel_ms']:.4f} ms (device, profiler), wrapper call "
+              f"{r['call_ms']:.4f} ms and plain version {r['plain_ms']:.4f} "
+              f"ms (CUDA events), bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms'] * 100:.1f}% of "
+              f"the call's activity [{card}]")
     for r in path_profiles(profiles):
         print(f"profile path {r['label']} ({PATH_FRAMES} frames): "
               f"wall {r['wall_ms']:.4f} ms/frame (CUDA events), device busy "
@@ -3381,6 +3610,9 @@ def main() -> int:
         entry("gol_stencil (B8)", "rustexp_tpu_torch/csrc/gol_stencil.cu",
               "rustexp_tpu/ops/gol_stencil.py:99", "B8", cmp8,
               GOL_EXPERIMENT_B8, "512x512 x20"),
+        entry("shade_pack (S)", "rustexp_tpu_torch/csrc/raster_shade.cu",
+              "no kernel: plain jnp (rustexp_tpu/raster/pipeline.py:661)",
+              "S", cmpS, "KillerooP", "CubeP"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

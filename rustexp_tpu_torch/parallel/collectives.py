@@ -22,10 +22,10 @@ import traceback
 import torch
 import torch.distributed as dist
 
-# The six kernel libraries of csrc/, built by the parent before it spawns
+# The seven kernel libraries of csrc/, built by the parent before it spawns
 # ranks (D children would otherwise run nvcc on the same sources at once)
-KERNEL_LIBS = ("raster_queue", "raster_bins", "gol_swar", "gol_stencil",
-               "nbody_forces", "sort_radix")
+KERNEL_LIBS = ("raster_queue", "raster_bins", "raster_shade", "gol_swar",
+               "gol_stencil", "nbody_forces", "sort_radix")
 
 
 def world(group) -> tuple[int, int]:

@@ -38,13 +38,13 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..core.colors import pack_abgr32_gamma_arith
 from ..ops.raster_bins import raster_gbuffer_pallas
 from ..ops.raster_queue import (TILE_H, build_queue, queue_stats,
                                 raster_attrs_queue, suggest_queue_config)
 from ..ops.raster_setup import setup_triangles, setup_triangles_planar
 from ..ops.raster_xla import raster_gbuffer_xla
 from ..raster import pipeline as pp
+from ..raster.shade import shade_pack
 from . import collectives as coll
 
 
@@ -270,9 +270,9 @@ def queue_band(scene: pp.Scene, queue, eye, tick, *, band: int, n_dev: int,
                                  block_w=queue.shade_w, ray_world=True,
                                  y0=y0, full_h=h, y_rows=y_rows)
     else:
-        wr = 1.0 / lin[0]
-        c = [q * wr for q in lin[1:4]]
-        fb = torch.where(mask, pack_abgr32_gamma_arith(c[0], c[1], c[2]), bg)
+        fb = shade_pack(mask, z, lin, bg, scene.cm, eye, tick,
+                        shader_idx=shader_idx, per_pixel=False,
+                        ray_world=False)
     return fb, stale
 
 

@@ -24,7 +24,9 @@ three raster backends:
   size) -> shade_gbuffer. The band renderer (parallel/raster_shard.py)
   shades the same G-buffer from kernel B3 (raster_gbuffer_pallas).
 
-All end in core.colors.pack_abgr32_gamma_arith. The 4x4 camera matrices
+All end in core.colors.pack_abgr32_gamma_arith; the queue and bins paths
+shade and pack through raster/shade.py's shade_pack (one kernel launch on
+the card, the plain chain on the CPU). The 4x4 camera matrices
 are computed on the host in float32 torch (one rounding per op, as the
 reference does) and copied to the frame's device, so a frame is
 bit-identical on the CPU and on the card. Point and line modes
@@ -51,6 +53,8 @@ from ..ops.raster_queue import (_I_CH, SHADE_W, _eval_pairs, build_queue,
 from ..ops.raster_setup import setup_triangles, setup_triangles_planar
 from ..ops.raster_xla import raster_gbuffer_xla
 from . import shaders as sh
+from .exact import _cross3_exact, _device_eye, _host_eye, _mm4_exact
+from .shade import _blocks, shade_pack
 
 MODE_POINT, MODE_LINE, MODE_FILL = 0, 1, 2
 MODE_NAMES = ("Point", "Line", "Fill")
@@ -124,20 +128,6 @@ def _dot3_exact(a, b):
     return a[0] * b[0] + a[1] * b[1] + a[2] * b[2]
 
 
-def _cross3_exact(a, b):
-    return torch.stack([a[1] * b[2] - a[2] * b[1],
-                        a[2] * b[0] - a[0] * b[2],
-                        a[0] * b[1] - a[1] * b[0]])
-
-
-def _mm4_exact(a, b):
-    """Fixed-order 4x4 @ 4x4: s = a[i,0]*b[0,j]; s += a[i,1]*b[1,j]; ..."""
-    s = a[:, 0:1] * b[0:1, :]
-    s = s + a[:, 1:2] * b[1:2, :]
-    s = s + a[:, 2:3] * b[2:3, :]
-    return s + a[:, 3:4] * b[3:4, :]
-
-
 def _mv4_exact(m4, v):
     """Fixed-order [4,4] x [4,T] -> [4,T]."""
     s = m4[:, 0:1] * v[0:1]
@@ -151,17 +141,6 @@ def _mv3_exact(m3, v):
     s = m3[:, 0:1] * v[0:1]
     s = s + m3[:, 1:2] * v[1:2]
     return s + m3[:, 2:3] * v[2:3]
-
-
-def _host_eye(eye) -> torch.Tensor:
-    if isinstance(eye, torch.Tensor):
-        return eye.detach().to("cpu", torch.float32)
-    return torch.as_tensor(np.asarray(eye, np.float32))
-
-
-def _device_eye(eye, device) -> torch.Tensor:
-    """The eye as f32 [3] on `device` (the span sync.upload.eye)."""
-    return trace.upload("eye", _host_eye(eye), device)
 
 
 def look_at(eye, at, up):
@@ -219,40 +198,6 @@ def _world_to_vp_exact(eye, w: int, h: int):
     return _mm4_exact(
         _mm4_exact(viewport_matrix(w, h), perspective(45.0, w / h, 0.1, 10.0)),
         look_at(eye, torch.zeros(3), torch.tensor([0.0, 1.0, 0.0])))
-
-
-def inv_world_to_vp(eye, w: int, h: int):
-    """Analytic inverse of the world->viewport chain, for ray unprojection
-    (rustexp_tpu/raster/pipeline.py:236). Host f32 [4, 4].
-
-    The JAX package composes it with ``@`` and ``jnp.cross``, which
-    XLA:CPU may contract into FMAs; here every product rounds on its own
-    and the products chain left to right, so CPU and card agree.
-    """
-    eye = _host_eye(eye)
-    zaxis = sh.normalize(eye)
-    xaxis = sh.normalize(_cross3_exact(torch.tensor([0.0, 1.0, 0.0]), zaxis))
-    yaxis = _cross3_exact(zaxis, xaxis)
-    R = torch.stack([xaxis, yaxis, zaxis])  # rows
-    inv_look = torch.cat([torch.cat([R.T, eye[:, None]], dim=1),
-                          torch.tensor([[0.0, 0.0, 0.0, 1.0]])])
-
-    # numpy-2 promotion of the JAX package's expressions, spelled out
-    f = np.float32
-    tan_half = np.tan(f(45.0) * f(0.0174532925) / f(2.0))
-    near, far = 0.1, 10.0
-    m00 = f(1.0) / (f(w / h) * tan_half)
-    m11 = f(1.0) / tan_half
-    m22 = -(far + near) / (far - near)
-    m23 = -(2.0 * far * near) / (far - near)
-    inv_persp = torch.tensor(
-        [[f(1.0) / m00, 0, 0, 0], [0, f(1.0) / m11, 0, 0],
-         [0, 0, 0, -1.0], [0, 0, 1.0 / m23, m22 / m23]], dtype=torch.float32)
-    wh, hh = w / 2.0, h / 2.0
-    inv_vpm = torch.tensor(
-        [[1.0 / wh, 0, 0, -1.0], [0, 1.0 / hh, 0, -1.0],
-         [0, 0, 1.0, 0], [0, 0, 0, 1.0]], dtype=torch.float32)
-    return _mm4_exact(_mm4_exact(inv_look, inv_persp), inv_vpm)
 
 
 def _transform_points(scene: Scene, positions, normals, eye, w: int,
@@ -405,12 +350,11 @@ def raster_and_shade_queue(scene: Scene, queue, colors, eye, tick, *,
             fb = _shade_compacted(queue.rows, scene, z, mask, lin, eye, tick,
                                   shader_idx, bg_fb, w, h,
                                   block_w=queue.shade_w, ray_world=ray_world)
-            return fb, stale
-
-        wr = 1.0 / lin[0]
-        c = [q * wr for q in lin[1:4]]
-        packed = pack_abgr32_gamma_arith(c[0], c[1], c[2])
-        return torch.where(mask, packed, bg_fb), stale
+        else:
+            fb = shade_pack(mask, z, lin, bg_fb, scene.cm, eye, tick,
+                            shader_idx=shader_idx, per_pixel=False,
+                            ray_world=False)
+        return fb, stale
 
 
 # ---------------------------------------------------------------------------
@@ -490,20 +434,10 @@ def raster_and_shade_pallas(scene: Scene, setup, extra, n2: int, n3: int,
                                   shader_idx, bg_fb, w, h, ray_world=False)
             return fb, overflow
 
-        wr = 1.0 / lin[0]
-
-        def ch_last(ps):
-            return torch.stack([q * wr for q in ps], dim=-1)
-
-        out = ch_last(lin[1:4])
-        if per_pixel:
-            out = sh.shader_fn(shader_idx)(ch_last(lin[4:7]),
-                                           ch_last(lin[7:10]), out,
-                                           _device_eye(eye, z.device), tick,
-                                           scene.cm)
-        packed = pack_abgr32_gamma_arith(out[..., 0], out[..., 1],
-                                         out[..., 2])
-        return torch.where(mask, packed, bg_fb), overflow
+        fb = shade_pack(mask, z, lin, bg_fb, scene.cm, eye, tick,
+                        shader_idx=shader_idx, per_pixel=per_pixel,
+                        ray_world=False)
+        return fb, overflow
 
 
 def shade_gbuffer(gb, scene: Scene, vp, world, n_world, colors, eye, tick,
@@ -547,73 +481,6 @@ def shade_gbuffer(gb, scene: Scene, vp, world, n_world, colors, eye, tick,
     return torch.where(mask, packed.reshape(h, w), bg_fb)
 
 
-def _blocks(rows, w: int, h: int, block_w: int):
-    """(rows_g, padr, comp) of a shade-block list: entries >= h*(w//block_w)
-    are padding (padr), rows_g points them at block 0, and comp(plane)
-    gathers a [h, w] plane's listed blocks to [Rc, block_w]."""
-    n_blk = h * (w // block_w)
-    padr = rows >= n_blk
-    rows_g = torch.where(padr, 0, rows).long()
-
-    def comp(plane):
-        return plane.reshape(n_blk, block_w)[rows_g]
-
-    return rows_g, padr, comp
-
-
-def _shade_blocks(rows, rows_g, padr, maskc, zc, linc, scene: Scene, eye,
-                  tick, shader_idx: int, bg_fb, w: int, h: int, block_w: int,
-                  per_pixel: bool, ray_world: bool, y0: int = 0,
-                  full_h: int | None = None, y_rows=None):
-    """Shade compacted blocks and scatter them over the background:
-    _shade_compacted's and _shade_deferred's common tail
-    (rustexp_tpu/raster/pipeline.py:661-687, 737-766).
-
-    maskc, zc and the planes linc are [Rc, block_w] over the blocks
-    `rows` lists (rows_g and padr from _blocks). V mode interpolates
-    colors only; per-pixel shades, with world positions unprojected from
-    each pixel's (x, y, z) and 1/w (ray_world) or interpolated (linc[4:7],
-    normals linc[7:10]). The rays of a band are unprojected at global
-    rows: local row y is y0 + y of a full_h-row frame, or y_rows[y].
-    """
-    ntx = w // block_w
-    n_blk = h * ntx
-    wrc = 1.0 / linc[0]
-    out = torch.stack([p_ * wrc for p_ in linc[1:4]], dim=-1)
-    if per_pixel:
-        if ray_world:
-            nc = torch.stack([p_ * wrc for p_ in linc[4:7]], dim=-1)
-            ly = torch.div(rows_g, ntx, rounding_mode="floor")
-            if y_rows is None:
-                yc = (ly + y0).to(torch.float32)[:, None]
-            else:
-                yc = trace.upload(
-                    "rows", torch.as_tensor(y_rows).to(torch.float32),
-                    zc.device)[ly][:, None]
-            xc = ((rows_g % ntx) * block_w).to(torch.float32)[:, None] \
-                + torch.arange(block_w, dtype=torch.float32,
-                               device=zc.device)[None, :]
-            M = inv_world_to_vp(eye, w, h if full_h is None
-                                else full_h).tolist()
-            pc = torch.stack(
-                [wrc * (M[i][0] * xc + M[i][1] * yc + M[i][2] * zc + M[i][3])
-                 for i in range(3)], dim=-1)
-        else:
-            pc = torch.stack([p_ * wrc for p_ in linc[4:7]], dim=-1)
-            nc = torch.stack([p_ * wrc for p_ in linc[7:10]], dim=-1)
-        out = sh.shader_fn(shader_idx)(pc, nc, out,
-                                       _device_eye(eye, wrc.device), tick,
-                                       scene.cm)
-    packed = pack_abgr32_gamma_arith(out[..., 0], out[..., 1], out[..., 2])
-
-    bgv = bg_fb.reshape(n_blk, block_w)
-    merged = torch.where(maskc, packed, bgv[rows_g])
-    # pads scatter into one extra row that is dropped; rows are unique
-    buf = torch.cat([bgv, bgv[:1]])
-    buf[torch.where(padr, n_blk, rows).long()] = merged
-    return buf[:n_blk].reshape(h, w)
-
-
 def _shade_compacted(rows, scene: Scene, z, mask, lin, eye, tick,
                      shader_idx: int, bg_fb, w: int, h: int,
                      block_w: int = SHADE_W, ray_world: bool = True,
@@ -637,12 +504,10 @@ def _shade_compacted(rows, scene: Scene, z, mask, lin, eye, tick,
     tile-row interleave). The planes themselves do not depend on where
     the band lies.
     """
-    rows_g, padr, comp = _blocks(rows, w, h, block_w)
-    return _shade_blocks(rows, rows_g, padr, comp(mask),
-                         comp(z) if ray_world else None,
-                         [comp(p_) for p_ in lin], scene, eye, tick,
-                         shader_idx, bg_fb, w, h, block_w, True, ray_world,
-                         y0=y0, full_h=full_h, y_rows=y_rows)
+    return shade_pack(mask, z, lin, bg_fb, scene.cm, eye, tick,
+                      shader_idx=shader_idx, per_pixel=True,
+                      ray_world=ray_world, rows=rows, block_w=block_w, y0=y0,
+                      full_h=full_h, y_rows=y_rows)
 
 
 def _shade_deferred(queue, scene: Scene, z, slot, rows_flat, n2: int,
@@ -660,7 +525,7 @@ def _shade_deferred(queue, scene: Scene, z, slot, rows_flat, n2: int,
     """
     block_w = queue.shade_w
     ntx = w // block_w
-    rows_g, padr, comp = _blocks(queue.rows, w, h, block_w)
+    rows_g, _, comp = _blocks(queue.rows, w, h, block_w)
     slotc = comp(slot)
     maskc = slotc >= 0
     sentinel = rows_flat.shape[0] - 1
@@ -673,9 +538,10 @@ def _shade_deferred(queue, scene: Scene, z, slot, rows_flat, n2: int,
         + torch.arange(block_w, dtype=torch.int32, device=z.device)[None, :]
     _, linc = _eval_pairs(ci, cf, xs, ys, n2, n3, planes=True)
     zc = comp(z) if per_pixel and ray_world else None
-    return _shade_blocks(queue.rows, rows_g, padr, maskc, zc, linc, scene,
-                         eye, tick, shader_idx, bg_fb, w, h, block_w,
-                         per_pixel, ray_world)
+    return shade_pack(maskc, zc, linc, bg_fb, scene.cm, eye, tick,
+                      shader_idx=shader_idx, per_pixel=per_pixel,
+                      ray_world=ray_world, rows=queue.rows, block_w=block_w,
+                      compact=True)
 
 
 # ---------------------------------------------------------------------------

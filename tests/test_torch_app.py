@@ -549,8 +549,9 @@ def test_prewarmer_mark_warm_and_the_viewer_libraries(monkeypatch):
     monkeypatch.setattr(viewer, "load_kernel_lib", built.append)
     pw = viewer.kernel_prewarmer()
     deadline = time.time() + 10
-    while len(built) < 6 and time.time() < deadline:
+    while len(built) < 7 and time.time() < deadline:
         time.sleep(0.02)
     pw.stop()
     assert sorted(built) == ["gol_stencil", "gol_swar", "nbody_forces",
-                             "raster_bins", "raster_queue", "sort_radix"]
+                             "raster_bins", "raster_queue", "raster_shade",
+                             "sort_radix"]

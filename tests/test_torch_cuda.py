@@ -1,6 +1,7 @@
-"""Kernels B1 to B8 on the card: each CUDA kernel against its plain
-PyTorch version (B1 and B3 also on hand-built inputs that stress their
-races, B1 and B7 on the moving camera's plane and direct queues), and
+"""Kernels B1 to B8 and the shade kernel on the card: each CUDA kernel
+against its plain PyTorch version (B1 and B3 also on hand-built inputs
+that stress their races, B1 and B7 on the moving camera's plane and
+direct queues, the shade in every shader and form), and
 whole frames on the card (queue, moving-camera, every shader, deferred
 queue, bins, G-buffer oracle and band paths, the GoL and N-body
 Experiments) against the same frames on the CPU; the seeded states
@@ -19,10 +20,10 @@ import torch
 
 from chip_smoke import (MOVING_EYE, SEEDED_GOL_N, moving_queue_args,
                         moving_scene, seeded_draws, seeded_kernels,
-                        stress_bins, stress_queue)
+                        shade_inputs, stress_bins, stress_queue)
 from rustexp_tpu_torch.app import benchmark as bench
 from rustexp_tpu_torch.assets import cubemap, mesh
-from rustexp_tpu_torch.core import prng
+from rustexp_tpu_torch.core import prng, trace
 from rustexp_tpu_torch.ops import gol_bits as gb
 from rustexp_tpu_torch.ops import gol_stencil as gs
 from rustexp_tpu_torch.ops import nbody_bh as bh
@@ -34,6 +35,7 @@ from rustexp_tpu_torch.ops.raster_setup import (setup_triangles,
 from rustexp_tpu_torch.ops import sort_bitonic as sb
 from rustexp_tpu_torch.parallel import raster_shard
 from rustexp_tpu_torch.raster import camera, pipeline as pp
+from rustexp_tpu_torch.raster import shade as sd
 from rustexp_tpu_torch.raster import shaders as sh
 from rustexp_tpu_torch.sims.gol import GoLExperiment
 from rustexp_tpu_torch.sims.nbody import NBodyExperiment, stable_orbits
@@ -260,6 +262,150 @@ def test_compacted_bins_frame_on_card_matches_cpu():
         assert not bool(overflow)
         frames.append(fb.cpu().view(torch.int32))
     assert int((frames[0] != frames[1]).sum()) <= 0.003 * W * H
+
+
+SHADE_H, SHADE_BW = 64, 64
+SHADE_EYES = (camera.camera_eye(mesh.mesh_camera(0), 0.0),
+              camera.camera_eye("orbit", 1.3))
+
+
+def _shade_forms(inputs, forms=("dense", "rows", "compact")):
+    """(form, (mask, z, lin), keywords) of shade_inputs over the whole
+    frame, a rows list and the same list compacted."""
+    mask, z, lin, bg, _, rows = inputs
+    h, w = bg.shape
+    n_blk = h * (w // SHADE_BW)
+    rows_g = torch.where(rows >= n_blk, 0, rows).long()
+
+    def take(p_):
+        return p_.reshape(n_blk, SHADE_BW)[rows_g].contiguous()
+
+    for form in forms:
+        if form == "dense":
+            yield form, (mask, z, lin), {}
+        elif form == "rows":
+            yield form, (mask, z, lin), dict(rows=rows, block_w=SHADE_BW)
+        else:
+            yield form, (take(mask), take(z), [take(p_) for p_ in lin]), \
+                dict(rows=rows, block_w=SHADE_BW, compact=True)
+
+
+def _shade_on_card_and_cpu(planes, bg, cm, eye, **kw):
+    """(kernel frame, plain frame on the card, plain frame on the CPU),
+    the kernel launched once."""
+    launches = sd.shade_pack_cuda.launches
+    got = sd.shade_pack(*planes, bg, cm, eye, 0.0, **kw)
+    assert sd.shade_pack_cuda.launches == launches + 1
+    card = sd.shade_pack_plain(*planes, bg, cm, eye, 0.0, **kw)
+    cpu_kw = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+              for k, v in kw.items()}
+    cpu = sd.shade_pack_plain(*([p_.cpu() for p_ in t] if isinstance(t, list)
+                                else t.cpu() for t in planes),
+                              bg.cpu(), cm.cpu(), eye, 0.0, **cpu_kw)
+    return got.cpu(), card.cpu(), cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shader_idx", range(sh.NUM_SHADERS))
+def test_shade_kernel_matches_plain_on_card(shader_idx):
+    """The shade kernel against the plain chain, 0 differing bits, on the
+    card and against the CPU: per_pixel and ray_world each True and False,
+    over the whole frame, a rows list (pads skipped, the rest background)
+    and the list compacted, at two eyes, on synthetic planes whose
+    shading stays below white (chip_smoke.shade_inputs); one launch a
+    call."""
+    dev = _card()
+    for per_pixel in (False, True):
+        for ray_world in (False, True):
+            inputs = shade_inputs(SHADE_H, W, per_pixel, ray_world, dev,
+                                  seed=shader_idx, block_w=SHADE_BW)
+            bg, cm = inputs[3], inputs[4]
+            for form, planes, kw in _shade_forms(inputs):
+                for e, eye in enumerate(SHADE_EYES):
+                    got, card, cpu = _shade_on_card_and_cpu(
+                        planes, bg, cm, eye, shader_idx=shader_idx,
+                        per_pixel=per_pixel, ray_world=ray_world, **kw)
+                    where = (per_pixel, ray_world, form, e)
+                    assert torch.equal(got, card), where
+                    assert torch.equal(got, cpu), where
+            covered = got[inputs[0].cpu()]
+            assert len(torch.unique(covered)) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_pixel,ray_world", [(True, True), (True, False),
+                                                 (False, False)])
+def test_shade_kernel_matches_cpu_on_degenerate_pixels(per_pixel, ray_world):
+    """Covered pixels whose 1/w is 0, -0 or inf, with a NaN and a negative
+    colour and zero normals: the kernel's words equal the CPU's plain
+    chain (NaN to 0 in the pack, clamps that pass NaN), every form."""
+    dev = _card()
+    inputs = shade_inputs(SHADE_H, W, per_pixel, ray_world, dev, seed=99,
+                          block_w=SHADE_BW, degenerate=True)
+    for form, planes, kw in _shade_forms(inputs):
+        for shader_idx in (5, 6, 3, 15):
+            got, _, cpu = _shade_on_card_and_cpu(
+                planes, inputs[3], inputs[4], SHADE_EYES[1],
+                shader_idx=shader_idx, per_pixel=per_pixel,
+                ray_world=ray_world, **kw)
+            assert torch.equal(got, cpu), (form, shader_idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("band", [dict(y0=64, full_h=256),
+                                  dict(y_rows=[(y // 16 * 4 + 1) * 16 + y % 16
+                                               for y in range(SHADE_H)])])
+def test_shade_kernel_matches_plain_on_band_rows(band):
+    """A band of a taller frame unprojects its rays at global rows (y0 and
+    full_h, or the cyclic interleave's y_rows): the kernel against the
+    plain chain on the card and the CPU, whole band and rows list."""
+    dev = _card()
+    inputs = shade_inputs(SHADE_H, W, True, True, dev, seed=7,
+                          block_w=SHADE_BW)
+    for form, planes, kw in _shade_forms(inputs, ("dense", "rows")):
+        for shader_idx in (5, 13):
+            got, card, cpu = _shade_on_card_and_cpu(
+                planes, inputs[3], inputs[4], SHADE_EYES[0],
+                shader_idx=shader_idx, per_pixel=True, ray_world=True,
+                **kw, **band)
+            assert torch.equal(got, card) and torch.equal(got, cpu), form
+
+
+def _shade_counts():
+    """(shade launches, raster launches B1 + B2, eye uploads so far)."""
+    return (sd.shade_pack_cuda.launches,
+            rq.raster_attrs_queue_cuda.launches
+            + rb.raster_attrs_bins_cuda.launches,
+            trace.span_totals().get("sync.upload.eye", (0, 0))[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_idx", [0, 9])
+def test_shade_kernel_one_launch_per_render(mesh_idx):
+    """The benchmark cells' paths, KillerooP (the queue, its compacted
+    ray-world shade) and CubeP (the bins, the full-frame shade):
+    scene_frame's frame() at the fixed eye and the Experiment's render on
+    the orbit each launch the shade kernel once per render, as often as
+    the raster kernel, and open no sync.upload.eye span."""
+    from rustexp_tpu_torch.sims.rasterizer import RasterizerExperiment
+
+    dev = _card()
+    frame = bench.scene_frame(mesh_idx, True, dev)[0]
+    frame()  # first use: the library loads, the gamma curve uploads
+    shade0, raster0, eye0 = _shade_counts()
+    for _ in range(3):
+        frame()
+    shade1, raster1, eye1 = _shade_counts()
+    assert shade1 - shade0 == raster1 - raster0 == 3
+    exp = RasterizerExperiment(dev)
+    st = exp.init(mesh_idx=mesh_idx, per_pixel=True)
+    exp.render(st, W, H, 0.0)
+    shade1, raster1, _ = _shade_counts()
+    for i in range(1, 5):
+        exp.render(st, W, H, i / 60)
+    shade2, raster2, eye2 = _shade_counts()
+    assert shade2 - shade1 == raster2 - raster1 >= 4
+    assert eye2 == eye1 == eye0
 
 
 def _lone_triangle_queue(dev):
