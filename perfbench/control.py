@@ -1,9 +1,9 @@
-"""The control of the check: the plain reference in the program's place.
+"""The raster check's control: the plain reference in the program's place.
 
     python3 -m perfbench.control --workload <cell> --seeds 1 2 3
                                  [--seconds 2]
 
-runs the cell's window with the reference renderer, computed in the
+runs a raster cell's window with the reference renderer, computed in the
 nearest precision below the configuration's (bfloat16 for float32), as
 the system under test, and prints each seed's result line: its
 comparison numbers are the control's readings, the upper ends the

@@ -1,12 +1,21 @@
 """What the entries share: the set-up check that the program loaded the
 benchmark's own inputs, and the hooks of an entry that never re-renders.
 
-An entry has `show_cm` (whether its frames carry the cube-map cross),
-`frame(tick) -> (uint32 [h, w] frame, a stale flag on the device or
-None)`, `start_counting()` / `stop_counting() -> re-renders or None`
-around a traced run's counted frames, `close()`, and may have
-`raster_launches() -> int`, the raster kernels launched so far, which the
-check holds at one or more in every frame."""
+An entry is `Entry(cfg, traffic, device, seed=...)`, built in set-up from
+the configuration, the traffic and the run's seed. It has
+`frame(tick) -> (output, a stale flag on the device or None)`,
+`start_counting()` / `stop_counting() -> re-renders or None` around a
+traced run's counted frames, `close()`, and may have `launches() -> int`,
+the kernels that do the cell's work launched so far. The output is the
+configuration's: the harness hands it, unread, to the sample that the
+configuration's check (perfbench/checks/<check>.py) compares, and views
+it as int32 only to checksum it where the traffic sets
+`identical_frames`. A raster entry's output is the uint32 [h, w] frame,
+and it also has `show_cm`, whether its frames carry the cube-map cross;
+the raster check holds its `launches` at one or more in every frame. A
+simulation's would be the step's state before and after, which its check
+compares with one reference step; the entry hands over tensors that
+later steps do not overwrite."""
 
 from __future__ import annotations
 

@@ -16,9 +16,10 @@ STALE_LINE = "raster structure stale"
 
 class Entry:
     show_cm = True  # the Experiment overlays the cross for cube-map shaders
-    raster_launches = staticmethod(raster_launches)
+    launches = staticmethod(raster_launches)
 
-    def __init__(self, cfg: dict, traffic: dict, device):
+    def __init__(self, cfg: dict, traffic: dict, device, seed: int = 0):
+        # the scene is the configuration's, whatever the seed
         from rustexp_tpu_torch.assets import cubemap, mesh
         from rustexp_tpu_torch.sims.rasterizer import RasterizerExperiment
 

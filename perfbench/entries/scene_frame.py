@@ -9,9 +9,10 @@ from perfbench.entries.common import NoRerenders, check_inputs, raster_launches
 
 class Entry(NoRerenders):
     show_cm = False  # scene_frame renders without the cube-map cross
-    raster_launches = staticmethod(raster_launches)
+    launches = staticmethod(raster_launches)
 
-    def __init__(self, cfg: dict, traffic: dict, device):
+    def __init__(self, cfg: dict, traffic: dict, device, seed: int = 0):
+        # the scene is the configuration's, whatever the seed
         from rustexp_tpu_torch.app import benchmark as bm
 
         if traffic["frame_step"] or traffic["start_frames"]:

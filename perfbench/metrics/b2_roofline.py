@@ -4,6 +4,8 @@ eyes) over kernel B2's device ms per launch (torch.profiler, the
 activities named below). None where B2 did not run. Layer: kernel B2.
 Moves frame_ms."""
 
+from perfbench import roofline
+
 KERNELS = ("bins_raster_kernel",)
 
 
@@ -11,4 +13,6 @@ def read(t):
     seconds, calls = t.session.kernel_s(KERNELS)
     if not calls or seconds <= 0:
         return None
-    return 100.0 * t.raster_bound_ms() / (seconds * 1e3 / calls)
+    bound = roofline.raster_bound_ms(t.cell.config, t.profiled_ticks,
+                                     t.device)
+    return 100.0 * bound / (seconds * 1e3 / calls)

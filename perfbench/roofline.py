@@ -24,6 +24,8 @@ launch plan, so it reads the same whatever implements the frame:
 
 from __future__ import annotations
 
+from .reference import assets, raster
+
 HBM_BYTES_PER_S = 3.35e12
 SM_CLOCKS_PER_S = 132 * 1.98e9
 FP32_NON_FMA_OPS_PER_S = 128 * SM_CLOCKS_PER_S
@@ -48,3 +50,16 @@ def raster_bound_s(n_tris: int, tests: int, won: int, h: int, w: int
                 (tests * CVT_PER_TEST + won) / CONVERT_OPS_PER_S)
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
+
+
+def raster_bound_ms(cfg: dict, ticks, device) -> float:
+    """Mean least ms of one raster call of the configuration `cfg` over
+    its camera's eyes at `ticks`, from the plain reference's own set-up."""
+    mesh = assets.MESHES[cfg["mesh"]]()
+    got = []
+    for tick in ticks:
+        r = raster.rasterize(mesh, assets.eye(cfg["camera"], tick),
+                             cfg["width"], cfg["height"], device)
+        got.append(raster_bound_s(r["n_tris"], r["tests"], r["won"],
+                                  cfg["height"], cfg["width"])[0])
+    return sum(got) / len(got) * 1e3

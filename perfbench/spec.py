@@ -1,11 +1,13 @@
 """BENCHMARK.json and the files it names, found by name.
 
 A cell (an entry of ``workloads``) names a configuration and a traffic
-mix. The configuration's file is the ``file`` of its ``configs`` entry;
-the traffic mix is ``perfbench/traffic/<traffic>.json``, whose ``entry``
-names the entry ``perfbench/entries/<entry>.py``; a per-layer metric is
-read by ``perfbench/metrics/<name>.py``. Adding a cell, a configuration,
-a traffic mix or a metric adds files and entries and edits none.
+mix. The configuration's file is the ``file`` of its ``configs`` entry,
+whose ``check`` names the comparison that decides ``correct``,
+``perfbench/checks/<check>.py``; the traffic mix is
+``perfbench/traffic/<traffic>.json``, whose ``entry`` names the entry
+``perfbench/entries/<entry>.py``; a per-layer metric is read by
+``perfbench/metrics/<name>.py``. Adding a cell, a configuration, its
+check, a traffic mix or a metric adds files and entries and edits none.
 """
 
 from __future__ import annotations
@@ -71,6 +73,12 @@ class Cell:
         cfg_entry = _by_name(bench["configs"], self.workload["config"],
                              "config")
         self.config = json.loads((root / cfg_entry["file"]).read_text())
+        if not name_ok(self.config.get("check")):
+            raise ValueError(
+                f"configuration {cfg_entry['file']}: its \"check\" is "
+                f"{self.config.get('check')!r}; it has to name "
+                f"perfbench/checks/<check>.py, the module that decides "
+                f"`correct` for it")
         self.traffic = json.loads(
             (root / "perfbench" / "traffic"
              / f"{self.workload['traffic']}.json").read_text())
@@ -86,6 +94,13 @@ class Cell:
         """The traffic's entry module, perfbench/entries/<entry>.py."""
         return load_module(self.root / "perfbench" / "entries"
                            / f"{self.traffic['entry']}.py")
+
+    def check(self):
+        """The configuration's check module, perfbench/checks/<check>.py:
+        check(cell, window, device) -> ({name: (value, limit)}, failed,
+        lines for stderr)."""
+        return load_module(self.root / "perfbench" / "checks"
+                           / f"{self.config['check']}.py")
 
     def metric_reader(self, name: str):
         """perfbench/metrics/<name>.py's read(trace) function."""

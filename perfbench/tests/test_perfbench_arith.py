@@ -106,6 +106,7 @@ def test_benchmark_json_shape():
     for w in bench["workloads"]:
         cell = spec.Cell(bench, w["name"])
         assert cell.entry().Entry
+        assert callable(cell.check().check)
         for m in cell.per_layer:
             assert callable(cell.metric_reader(m["name"]))
             assert m["moves"] == "frame_ms"

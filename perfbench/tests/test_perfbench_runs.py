@@ -44,8 +44,8 @@ class Broken:
         self.inner = cell.entry().Entry(cell.config, cell.traffic, device)
         self.show_cm, self.how, self.first = self.inner.show_cm, how, None
 
-    def raster_launches(self):
-        return self.inner.raster_launches()
+    def launches(self):
+        return self.inner.launches()
 
     def frame(self, tick):
         from rustexp_tpu_torch.raster import pipeline as pp
@@ -81,6 +81,37 @@ def test_sound_run_is_correct(cell):
     assert list(line)[-1] == "checks"
     assert set(line["metrics"]) == {"frame_ms", "frame_p95_ms", "setup_s"}
     assert err.strip().splitlines()[-1].startswith("check ")
+
+
+# The checks a raster cell's line carries, in order: a fixed eye adds the
+# checksum and flag counts to the pixels and the launch count.
+CHECKS = {
+    "rast512.sphere_p.bench": ["px_off", "frames_unlike_sample",
+                               "stale_frames", "frames_not_rendered"],
+    "rast512.sphere_p.orbit": ["px_off", "frames_not_rendered"],
+    "rast512.cube_p.bench": ["px_off", "frames_unlike_sample",
+                             "stale_frames", "frames_not_rendered"],
+    "rast512.cube_p.orbit": ["px_off", "frames_not_rendered"],
+}
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_raster_check_lines(cell):
+    """The raster check's numbers, names and limits, on a fixed seed, and
+    its stderr: the sampled frames, then each number beside its limit."""
+    rc, line, err = run(cell, seed=2**31 + 3)
+    assert rc == 0 and line["correct"] and line["failed"] == 0, err
+    assert list(line["checks"]) == CHECKS[cell]
+    limits = spec.Cell(spec.load_benchmark(), cell).config["correct_limits"]
+    for name, got in line["checks"].items():
+        assert got == {"value": 0, "limit": limits[name]}, (name, err)
+    tail = err.strip().splitlines()[-1 - len(CHECKS[cell]):]
+    assert tail[0].startswith("sampled frames [")
+    kept = min(line["attempted"], spec.Cell(
+        spec.load_benchmark(), cell).traffic["sample_frames"])
+    assert tail[0].endswith(f"pixels off the reference {[0] * kept}")
+    assert tail[1:] == [f"check {k} 0 limit {limits[k]}"
+                        for k in CHECKS[cell]]
 
 
 # A fixed eye renders one frame over and over, so a frozen frame is the
