@@ -5,7 +5,7 @@
 Drives rustexp_tpu_torch, the port, never the JAX package:
 
   1. requires a CUDA device and prints nvidia-smi's name and power limit;
-  2. builds the port's seven CUDA libraries (nine kernels) from
+  2. builds the port's seven CUDA libraries (ten kernels) from
      rustexp_tpu_torch/csrc/, one nvcc per source, all started together;
   3. holds each kernel against its plain PyTorch version on the card, at
      the main paths' shapes: B1 (the flat-queue raster) on the procedural
@@ -45,7 +45,12 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      bins' whole frame of 10 planes), with cube maps dim enough that no
      channel reaches white, 0 differing words against its plain version
      on the card and on the CPU, one grid a call, timed by all the card's
-     activity of a call and by its grid alone;
+     activity of a call and by its grid alone; N (the Barnes-Hut near
+     field) on the Morton-sorted disk at the nbody.bh131k cell's shape
+     (131,072 bodies, blocks of 256, K 27), the viewer's (10,000, 200, 27)
+     and (4,096, 128, 6), within NEAR_RTOL of its plain chain, the same
+     bits from two calls, one grid a call, timed by the card's activity
+     of a call beside its bound and the plain chain's time;
   4. runs each main path with the launch counters set to 0 just before it
      and read just after, and fails if its kernel never ran, or if the
      shade kernel S did not launch once for each raster render (B1, B2
@@ -71,8 +76,9 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      and the 16 shader functions against the CPU; the GoL Experiment at
      256^2
      (auto -> B4, pallas -> B8); the N-body Experiment at N = 131,072
-     (theta 0.85 -> block BH, its Morton sort B6; theta 0 -> brute force,
-     B5) and at N = 10,000 (BH, argsort); bench_gol (256^2, 2048^2) and
+     (theta 0.85 -> block BH, its Morton sort B6 and N once a step;
+     theta 0 -> brute force, B5) and at N = 10,000 (BH, argsort, N once
+     a step); bench_gol (256^2, 2048^2) and
      bench_nbody (brute and BH at 131,072); the seeded states
      (seeded_states below): jax.random's known answers (KAT_*) drawn on
      the card, the GoL R grid at 2048^2, stable orbits at 131,072 and the
@@ -232,6 +238,12 @@ OPS_2MAD, OPS_3W = 4, 5
 # by side, so the bound is the larger time.
 OPS_SWAR = 18
 OPS_PAIR = 11
+# N, the Barnes-Hut near field: (bodies, block, K) of the nbody.bh131k
+# cell, of the viewer's SimWorker and of a small disk; the first is timed.
+# Its tolerance is B5's: the largest |dF| over the largest |F|, the sums
+# in another order and the pair fused.
+NEAR_CASES = ((131072, 256, 27), (10_000, 200, 27), (4096, 128, 6))
+NEAR_RTOL = 1e-5
 
 # (cells, generations, form): None is the plan's
 B4_CASES = (((256, 256), 100, None), ((256, 256), 100, "tiled"),
@@ -1432,6 +1444,50 @@ def b5_vs_plain(dev, npl, stable_orbits) -> dict:
     return out
 
 
+def near_vs_plain(dev, bh, stable_orbits) -> dict:
+    """N against its plain chain at NEAR_CASES on the Morton-sorted
+    stable-orbit disk, as forces_bh_sorted calls it: within NEAR_RTOL,
+    the same bits from two calls, one launch a call; timed at each case
+    by all the card's activity of a call, beside its bound (one
+    reciprocal a one-sided pair; `half_ms` counts a mutual pair's two
+    sides once, as perfbench/roofline_nbody.py does)."""
+    from rustexp_tpu_torch.core import prng
+
+    out = {}
+    for n, block, k in NEAR_CASES:
+        px, py, _, _, m = stable_orbits(prng.key(n), n, device=dev)
+        px, py, m = bh.morton_sort(px, py, m)
+        xb, yb, mb = (a.reshape(n // block, block) for a in (px, py, m))
+        idx = bh.near_block_indices(xb.amin(1), xb.amax(1), yb.amin(1),
+                                    yb.amax(1), k)
+        run = lambda: bh.near_field_cuda(xb, yb, xb, yb, mb, idx)
+        calls = bh.near_field_cuda.launches
+        got, again = run(), run()
+        calls = (bh.near_field_cuda.launches - calls) / 2
+        torch.cuda.synchronize(dev)
+        same = all(not _bits_differ(a, b) for a, b in zip(got, again))
+        rel, med, err = force_errors(got, bh.near_field_plain(
+            xb, yb, xb, yb, mb, idx))
+        pairs = n * k * block
+        bms, by = time_bound(5 * n * 4, pairs * OPS_PAIR, sfu_ops=pairs)
+        hms, _ = time_bound(5 * n * 4, pairs / 2 * OPS_PAIR,
+                            sfu_ops=pairs / 2)
+        label = f"N {n} block {block} K {k}"
+        out[label] = dict(
+            err=err, rel=rel, median_rel=med, calls=calls,
+            bad=int(rel > NEAR_RTOL) + int(not same) + int(calls != 1),
+            ms=device_ms(run, 20, None, 1), call_ms=cuda_ms(run, 20),
+            plain_ms=cuda_ms(lambda: bh.near_field_plain(
+                xb, yb, xb, yb, mb, idx), 2),
+            bound_ms=bms, bound_by=by, half_ms=hms,
+            work=f"{label}, {pairs:.3e} one-sided pairs, 1 launch")
+        print(f"N at {label}: max |dF| / max |F| {rel:.3e} (tolerance "
+              f"{NEAR_RTOL:.0e}), median per-particle {med:.3e}, max abs "
+              f"error {err:.3e}; two calls give the same bits: {same}; "
+              f"{calls:g} launches a call", flush=True)
+    return out
+
+
 def gol_paths(dev, card, gol_exp, counters, launches, per_step: dict
               ) -> str | None:
     """The GoL Experiment at 256^2, auto (B4) then pallas (B8), 8
@@ -1474,9 +1530,9 @@ def gol_paths(dev, card, gol_exp, counters, launches, per_step: dict
 def nbody_paths(dev, card, nb_exp, counters, launches, b5_per_step: int
                 ) -> str | None:
     """The N-body Experiment on the card at N = 131,072 (theta 0.85: block
-    BH, its Morton sort B6; theta 0: brute force, B5, `b5_per_step`
-    launches a step) and N = 10,000 (BH, argsort), counted. Returns a
-    failure message or None."""
+    BH, its Morton sort B6 and N once a step; theta 0: brute force, B5,
+    `b5_per_step` launches a step, no N) and N = 10,000 (BH, argsort, N
+    once a step), counted. Returns a failure message or None."""
     for n, theta, kernel in ((NBODY_N, 0.85, "B6"), (NBODY_N, 0.0, "B5"),
                              (10_000, 0.85, None)):
         exp = nb_exp(dev)
@@ -1498,6 +1554,10 @@ def nbody_paths(dev, card, nb_exp, counters, launches, b5_per_step: int
         if kernel == "B5" and got[kernel] != NBODY_STEPS * b5_per_step:
             return (f"the brute N-body path launched B5 {got[kernel]} "
                     f"times, not {NBODY_STEPS * b5_per_step}")
+        near = NBODY_STEPS if theta > 0 else 0
+        if got["N"] != near:
+            return (f"the N-body N={n} theta={theta} path launched N "
+                    f"{got['N']} times, not {near}")
         if not finite or drawn < 1000:
             return f"N-body N={n}: finite={finite}, {drawn} px drawn"
         for k in counters:
@@ -2358,10 +2418,10 @@ def app_shell(dev, card, counters, launches, tmp: str) -> str | None:
     APP_NBODY_LOADED, sine, and the viewer with each experiment as its
     start. Each run's launches are counted on their own: B1 once a frame
     rendered, B2 on the Cube, B4 once a GoL step (256^2, resident), B6 12
-    times a BH step of a power-of-two N, and no kernel for points, lines
-    and sine. The PNGs equal the card's frames, the point, line and sine
-    frames the CPU's at 0 px, the resumed GoL the uninterrupted one bit
-    for bit. Returns a failure message or None."""
+    times a BH step of a power-of-two N, kernel N once a BH step, and no
+    kernel for points, lines and sine. The PNGs equal the card's frames,
+    the point, line and sine frames the CPU's at 0 px, the resumed GoL the
+    uninterrupted one bit for bit. Returns a failure message or None."""
     from rustexp_tpu_torch.app import cli, viewer
     from rustexp_tpu_torch.core import framebuffer as fbm
     from rustexp_tpu_torch.core.checkpoint import load_state, save_state
@@ -2505,8 +2565,9 @@ def app_shell(dev, card, counters, launches, tmp: str) -> str | None:
                                      "--size", str(W), *argv], counters,
                                stale)
         report(label, text, got, APP_FRAMES)
-        if got["B6"] != b6:
-            return f"app {label}: B6 launched {got['B6']} times, not {b6}"
+        if got["B6"] != b6 or got["N"] != APP_FRAMES:
+            return (f"app {label}: B6 launched {got['B6']} times, not {b6}"
+                    f"; N {got['N']} times, not {APP_FRAMES}")
 
     # 7. sine: no kernel; the card's PNGs = the CPU's frames
     out = os.path.join(tmp, "s")
@@ -3273,7 +3334,7 @@ def main() -> int:
     print(f"all kernels built and loaded in {time.perf_counter() - t0:.2f} s "
           f"[{card}]", flush=True)
     for lib in libs:
-        # B1 and B7, B2 and B3, S, B4, B5, B8
+        # B1 and B7, B2 and B3, S, B4, B5 and N, B8
         if lib.name in ("raster_queue", "raster_bins", "raster_shade",
                         "gol_swar", "nbody_forces", "gol_stencil"):
             for line in ptxas_summary(lib.ptxas):
@@ -3326,14 +3387,15 @@ def main() -> int:
     cmp8 = b8_vs_plain(dev, gs)
     cmp6 = b6_vs_plain(dev, sb, bh, stable_orbits)
     cmp5 = b5_vs_plain(dev, npl, stable_orbits)
+    cmpN = near_vs_plain(dev, bh, stable_orbits)
     for kernel, cmp in (("B4", cmp4), ("B8", cmp8), ("B6", cmp6),
-                        ("B5", cmp5)):
+                        ("B5", cmp5), ("N", cmpN)):
         for label, r in cmp.items():
             if r["bad"]:
                 return fail(f"{kernel} {label}: disagrees with its plain "
                             f"version ({r['bad']})")
 
-    phase_done("B4, B8, B6, B5 against their plain versions")
+    phase_done("B4, B8, B6, B5, N against their plain versions")
 
     # Phase 4: the main paths, each counted on its own.
     counters = {"B1": rq.raster_attrs_queue_cuda,
@@ -3344,7 +3406,8 @@ def main() -> int:
                 "B6": sb.sort_kv_cuda,
                 "B7": rq.raster_zslot_queue_cuda,
                 "B8": gs.multi_step_pallas_cuda,
-                "S": sd.shade_pack_cuda}
+                "S": sd.shade_pack_cuda,
+                "N": bh.near_field_cuda}
     path_kernels = {"Killeroo": ("B1",), "Cube": ("B2",)}
     launches = {k: 0 for k in counters}
     exp = RasterizerExperiment(dev)
@@ -3497,7 +3560,7 @@ def main() -> int:
               f"kernel {r['kernel_ms']:.4f} ms/frame; idle share "
               f"{r['idle'] * 100:.1f}% [{card}]")
     for kernel, cmp in (("B4", cmp4), ("B8", cmp8), ("B6", cmp6),
-                        ("B5", cmp5)):
+                        ("B5", cmp5), ("N", cmpN)):
         for label, r in cmp.items():
             if "ms" not in r:
                 continue  # compared, not timed
@@ -3510,6 +3573,10 @@ def main() -> int:
                        f"kernel by launch "
                        + ", ".join(f"{k} {v:.4f}" for k, v in
                                    sorted(r["parts"].items())) + " ms")
+            if "half_ms" in r:
+                lib = (f", {r['bound_ms'] / r['ms'] * 100:.1f}% of its "
+                       f"bound; {r['half_ms']:.5f} ms with a mutual pair "
+                       f"counted once")
             print(f"time {kernel} {r['work']}: kernel {r['ms']:.4f} ms "
                   f"(device, profiler), wrapper call {r['call_ms']:.4f} ms "
                   f"and plain version {r['plain_ms']:.4f} ms (CUDA "
@@ -3613,6 +3680,9 @@ def main() -> int:
         entry("shade_pack (S)", "rustexp_tpu_torch/csrc/raster_shade.cu",
               "no kernel: plain jnp (rustexp_tpu/raster/pipeline.py:661)",
               "S", cmpS, "KillerooP", "CubeP"),
+        entry("near_field (N)", "rustexp_tpu_torch/csrc/nbody_forces.cu",
+              "no kernel: plain XLA (rustexp_tpu/ops/nbody_bh.py:210)", "N",
+              cmpN, "N 131072 block 256 K 27", "N 10000 block 200 K 27"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,8 +15,11 @@ nbody.rs:186-480, on a flat structure):
 K(theta) = ceil(19 / theta^2), cross-calibrated in the JAX package
 against the reference quadtree (its module docstring). The JAX package
 wrote steps 2-4 as XLA ops outside any Pallas kernel; here they are torch
-ops. theta == 0 is the brute-force route (the caller's choice). The step
-returns the particles in Morton order.
+ops, but for the near field on the card: CUDA tensors launch the
+hand-written kernel N (csrc/nbody_forces.cu, near_field_cuda), CPU tensors
+take its plain version, near_field_plain. theta == 0 is the brute-force
+route (the caller's choice). The step returns the particles in Morton
+order.
 
 Spans of step_bh (core/trace.py), every device op of the step in one:
 ``nbody.sort`` (step 1), ``nbody.blocks`` (step 2 and the near-set
@@ -27,9 +30,13 @@ ranking), ``nbody.near`` (the exact pairs of step 3), ``nbody.far`` (step
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from ..core.trace import span
+from ..runtime import load_kernel_lib, ptr, stream_ptr
 from .nbody_forces import EPS, euler, kill_runaway
 from .sort_bitonic import sort_kv
 
@@ -117,11 +124,12 @@ def block_aggregates(xb, yb, mb):
     return msum, (xb * mb).sum(dim=1) * inv, (yb * mb).sum(dim=1) * inv
 
 
-def near_field(xt, yt, xb, yb, mb, idx):
-    """Exact pair forces per unit target mass on target blocks xt, yt
-    [nt, block] from the source blocks idx [nt, K] names among xb, yb, mb
-    [B, block] -> (fx, fy) [nt, block], one gathered source block at a
-    time; the self pairs of the diagonal block add exactly zero (d = 0)."""
+def near_field_plain(xt, yt, xb, yb, mb, idx):
+    """Plain PyTorch version of kernel N: exact pair forces per unit
+    target mass on target blocks xt, yt [nt, block] from the source blocks
+    idx [nt, K] names among xb, yb, mb [B, block] -> (fx, fy) [nt, block],
+    one gathered source block at a time; the self pairs of the diagonal
+    block add exactly zero (d = 0)."""
     fx = torch.zeros_like(xt)
     fy = torch.zeros_like(yt)
     for k in range(idx.shape[1]):
@@ -132,6 +140,90 @@ def near_field(xt, yt, xb, yb, mb, idx):
         fx = fx + (r * dx).sum(dim=2)
         fy = fy + (r * dy).sum(dim=2)
     return fx, fy
+
+
+NEAR_MAX_BLOCK = 256  # the kernel's largest block (csrc/nbody_forces.cu)
+
+
+@functools.cache
+def _near_kernel():
+    lib = load_kernel_lib("nbody_forces")
+    fn = lib.lib.nb_near_field
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    return lib, fn
+
+
+def near_field_cuda(xt, yt, xb, yb, mb, idx):
+    """Launch kernel N (csrc/nbody_forces.cu) -> (fx, fy) [nt, block], the
+    near field of near_field_plain, for contiguous f32 xt, yt [nt, block]
+    and xb, yb, mb [nb, block] CUDA tensors and int64 idx [nt, K], K <= nb,
+    whose rows may be strided (as ``argsort(...)[:, :K]`` gives them) but
+    whose entries are not. idx's values are not read on the host, which
+    would wait for the card: the kernel gives NaN forces to a target block
+    whose row names a block outside [0, nb).
+
+    ``near_field_cuda.launches`` counts the grid launches: 1 a call (none
+    for nt = 0).
+    """
+    f32 = {"xt": xt, "yt": yt, "xb": xb, "yb": yb, "mb": mb}
+    every = (*f32.items(), ("idx", idx))
+    for name, t in every:
+        dtype = torch.int64 if name == "idx" else torch.float32
+        if t.dtype != dtype or t.dim() != 2:
+            raise ValueError(f"{name}: need a 2-D {dtype} tensor, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    nt, block = xt.shape
+    nb, k = xb.shape[0], idx.shape[1]
+    for name, t, shape in (("yt", yt, (nt, block)), ("xb", xb, (nb, block)),
+                           ("yb", yb, (nb, block)), ("mb", mb, (nb, block)),
+                           ("idx", idx, (nt, k))):
+        if t.shape != shape:
+            raise ValueError(f"{name}: need shape {shape} beside xt "
+                             f"{tuple(xt.shape)}, got {tuple(t.shape)}")
+    if not 1 <= block <= NEAR_MAX_BLOCK or not 1 <= k <= nb:
+        raise ValueError(f"block {block}, K {k}, {nb} source blocks: need "
+                         f"1 <= block <= {NEAR_MAX_BLOCK} and 1 <= K <= "
+                         f"{nb}")
+    for name, t in f32.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous tensor")
+    if (k > 1 and idx.stride(1) != 1) or (nt > 1 and idx.stride(0) < k):
+        raise ValueError(f"idx: need unit-stride rows, got strides "
+                         f"{idx.stride()}")
+    dev = xt.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel N runs on CUDA tensors, got {dev}")
+    for name, t in every:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, xt on {dev}")
+    lib, fn = _near_kernel()
+    fx = torch.empty_like(xt)
+    fy = torch.empty_like(yt)
+    launched = ctypes.c_int(0)
+    rc = fn(ptr(xt), ptr(yt), ptr(xb), ptr(yb), ptr(mb), ptr(idx), ptr(fx),
+            ptr(fy), nt, nb, block, k, idx.stride(0) if nt > 1 else k,
+            stream_ptr(dev), ctypes.byref(launched))
+    near_field_cuda.launches += launched.value
+    lib.check(rc, "kernel N (nb_near_field)")
+    return fx, fy
+
+
+near_field_cuda.launches = 0
+
+
+def near_field(xt, yt, xb, yb, mb, idx):
+    """Exact pair forces per unit target mass on target blocks xt, yt
+    [nt, block] from the source blocks idx [nt, K] names among xb, yb, mb
+    [B, block] -> (fx, fy) [nt, block]. CUDA tensors launch kernel N,
+    CPU tensors take its plain version."""
+    dev = xt.device
+    if dev.type == "cuda":
+        return near_field_cuda(xt, yt, xb, yb, mb, idx)
+    if dev.type == "cpu":
+        return near_field_plain(xt, yt, xb, yb, mb, idx)
+    raise ValueError(f"no near field for device {dev}")
 
 
 def far_field(xt, yt, msum, cx, cy, idx):
