@@ -16,8 +16,8 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      (stress_queue below) in all three forms, slot on every word and the
      clear elsewhere; B2 (the binned raster) on CubeV and CubeP at
      suggest_binning's cap and spans (the suite's shapes) and on
-     TorusKnotP and KillerooP at render_frame(backend="pallas")'s
-     default bins, and B3 (its G-buffer form) on Killeroo and Cube at
+     TorusKnotP and KillerooP at render_frame's default (dense)
+     bins, and B3 (its G-buffer form) on Killeroo and Cube at
      raster_gbuffer_pallas's default bins, on four 128-row bands of
      Killeroo, 512x512, and on the stress bins (stress_bins below), bit
      for bit (0 mismatching words); B7 (B1's depth race alone, the same
@@ -65,7 +65,7 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      the G-buffer band path (render_frame_sharded(group=None,
      backend="pallas") and four bands one after another -> B3), the
      deferred queue frame (raster_and_shade_queue(defer=True), P and V ->
-     B7), and render_frame(backend="xla") and the Experiment at a 500x500
+     B7), and render_frame's oracle and the Experiment at a 500x500
      window, which must launch no kernel; the moving camera,
      bench_scene_moving on KillerooP (plane), TorusKnotP (plane) and
      CubeP (direct) and bench_scene_moving_amortized on KillerooP, each
@@ -506,12 +506,14 @@ def queue_args(pp, rq, scene, queue, eye, per_pixel: bool,
 
 def queue_inputs(dev, pp, rq, meshes, cubemap, camera, mesh_idx, per_pixel,
                  ray_world=True):
-    """queue_args on the scene's build_scene_queue queue at 512x512,
+    """queue_args on the scene's queue (structure.build) at 512x512,
     tick 0."""
+    from rustexp_tpu_torch.raster import structure as rs
+
     scene = pp.make_scene(meshes.get_mesh(mesh_idx), cubemap.get_cm_set(0),
                           dev)
     eye = camera.camera_eye(meshes.mesh_camera(mesh_idx), 0.0)
-    queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
+    queue = rs.build(scene, rs.QUEUE, eye, W, H, per_pixel=per_pixel).data
     return queue_args(pp, rq, scene, queue, eye, per_pixel, ray_world)
 
 
@@ -1012,6 +1014,8 @@ def b3_stress(dev, rb) -> int:
 def b2_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera):
     """B2 against its plain version at the main path's shapes.
     Returns {label: record}."""
+    from rustexp_tpu_torch.raster import structure as rs
+
     out = {}
     for label, mesh_idx, per_pixel, binning in B2_SCENES:
         scene = pp.make_scene(meshes.get_mesh(mesh_idx),
@@ -1019,7 +1023,7 @@ def b2_vs_plain(dev, pp, rb, setup_triangles, meshes, cubemap, camera):
         eye = camera.camera_eye(meshes.mesh_camera(mesh_idx), 0.0)
         cap = spans = None
         if binning == "suite":
-            cap, spans, _ = pp.suggest_binning(scene, eye, W, H)
+            cap, spans, _ = rs.suggest_binning(scene, eye, W, H)
         vp, world, n_world = pp.transform_vertices(scene, eye, W, H)
         colors = scene.colors if per_pixel else pp.vertex_colors(
             scene, eye, 0.0, W, H, 5)
@@ -1766,14 +1770,16 @@ def gbuffer_paths(dev, card, pp, shard, meshes, cubemap, camera, exp_cls,
                   counters, launches):
     """The G-buffer and deferred paths on KillerooP at 512x512, TICKS, each
     counted on its own: render_frame_sharded(group=None, backend="pallas")
-    and four 128-row bands one after another (B3), render_frame(
-    backend="xla") and the Experiment at a 500x500 window (no kernel),
+    and four 128-row bands one after another (B3), render_frame through
+    the oracle and the Experiment at a 500x500 window (no kernel),
     raster_and_shade_queue(defer=True) P and V (B7). The xla, pallas (B2)
     and band (B3) frames must equal each other and defer the planes
     frames (B1) at 0 px, and card frames the port's CPU frames within
     GOLDEN_FRAC.
     Returns (failure message or None, [(label, frame fn, kernel name)] for
     the profiles)."""
+    from rustexp_tpu_torch.raster import structure as rs
+
     cpu = torch.device("cpu")
     scenes = {d: pp.make_scene(meshes.get_mesh(0), cubemap.get_cm_set(0), d)
               for d in (dev, cpu)}
@@ -1807,16 +1813,16 @@ def gbuffer_paths(dev, card, pp, shard, meshes, cubemap, camera, exp_cls,
             scenes[d], eyes[t], t, band=b, n_bands=4, backend="pallas",
             **kw)[0] for b in range(4)]).view(torch.uint32)
 
-    def oracle(d, t, backend="xla"):
-        return pp.render_frame(scenes[d], eyes[t], t, backend=backend,
-                               show_cm=False, **kw)
+    def oracle(d, t, kind=rs.ORACLE):
+        return pp.render_frame(scenes[d], eyes[t], t, show_cm=False,
+                               structure=rs.Structure(kind), **kw)
 
     got = {"band path": counted(
                "render_frame_sharded(group=None, backend='pallas')",
                lambda: [sharded(dev, t) for t in TICKS], "B3"),
            "4 bands": counted("4 bands one after another",
                               lambda: [bands(dev, t) for t in TICKS], "B3"),
-           "xla": counted("render_frame(backend='xla')",
+           "xla": counted("render_frame through the oracle",
                           lambda: [oracle(dev, t) for t in TICKS], None)}
     empty = pp.background(0, W, H, "cpu")
     for i, t in enumerate(TICKS):
@@ -1826,7 +1832,7 @@ def gbuffer_paths(dev, card, pp, shard, meshes, cubemap, camera, exp_cls,
         diffs = {k: int((v[i].cpu().view(torch.int32) != ref).sum())
                  for k, v in got.items()}
         diffs["pallas (B2)"] = int(
-            (oracle(dev, t, "pallas").cpu().view(torch.int32) != ref).sum())
+            (oracle(dev, t, rs.BINS).cpu().view(torch.int32) != ref).sum())
         diffs["xla CPU"] = int((ref != cpu_ref).sum())
         if i == 0:
             diffs["band path CPU (plain B3)"] = int(
@@ -1866,8 +1872,8 @@ def gbuffer_paths(dev, card, pp, shard, meshes, cubemap, camera, exp_cls,
          lambda: exp.render(st, n, n, 0.0), None)]
     for per_pixel in (True, False):
         tag = "P" if per_pixel else "V"
-        queues = {(d, t): pp.build_scene_queue(scenes[d], eyes[t], W, H,
-                                               per_pixel=per_pixel)
+        queues = {(d, t): rs.build(scenes[d], rs.QUEUE, eyes[t], W, H,
+                                   per_pixel=per_pixel).data
                   for d in (dev, cpu) for t in TICKS if d == dev or t == 0}
 
         def queue_frame(d, t, defer, per_pixel=per_pixel, queues=queues):
@@ -2087,7 +2093,9 @@ def moving_queue_args(pp, rq, scene, eye, caps: dict, order: str,
                       per_pixel: bool, ray_world: bool = True):
     """(queue, B1's arguments) of one moving frame: the queue build_queue
     makes at `caps` in `order`, and queue_args on it."""
-    queue = rq.build_queue(pp._queue_setup(scene, eye, W, H), H, W,
+    from rustexp_tpu_torch.raster import structure as rs
+
+    queue = rq.build_queue(rs.queue_setup(scene, eye, W, H), H, W,
                            **{**caps, "order": order})
     return queue, queue_args(pp, rq, scene, queue, eye, per_pixel, ray_world)
 
@@ -2167,6 +2175,8 @@ def moving_paths(dev, card, pp, rq, bench, meshes, cubemap, counters,
     port's CPU frames, the plane queue's frame against the tri queue's of
     the same eye (both 0 px), and one profiled moving frame per scene.
     Returns a failure message or None."""
+    from rustexp_tpu_torch.raster import structure as rs
+
     frames = (1 + MOVING_RUNS) * MOVING_K
     print(f"moving camera at 512x512: k = {MOVING_K} frames a pass, "
           f"{MOVING_RUNS} timed passes after a warm-up pass, {frames} "
@@ -2220,12 +2230,12 @@ def moving_paths(dev, card, pp, rq, bench, meshes, cubemap, counters,
                 return f"moving {label} eye {i}: {diff} px vs the CPU"
         eye = eyes[MOVING_EYE]
         if expect == "plane":
-            tri = rq.build_queue(pp._queue_setup(scene, eye, W, H), H, W,
+            tri = rq.build_queue(rs.queue_setup(scene, eye, W, H), H, W,
                                  **{**caps, "order": "tri"})
             fb_tri = pp.render_frame(
                 scene, eye, bench.TICK, w=W, h=H, per_pixel=True,
                 shader_idx=bench.SHADER, bg_idx=0, show_cm=False,
-                backend="queue", raster_queue=tri)
+                structure=rs.Structure(rs.QUEUE, tri))
             diff = int((bench.moving_frame(scene, eye, caps, True)[0]
                         != fb_tri).sum())
             print(f"moving {label} eye {MOVING_EYE}: the plane queue's frame "
@@ -2263,6 +2273,8 @@ def shader_configs(dev, card, pp, sh, meshes, cubemap, camera) -> str | None:
     all 32 shader x mode frames of the Killeroo stand-in at 512x512
     through the queue route (differing px, printed; the run fails above
     GOLDEN_FRAC). Returns a failure message or None."""
+    from rustexp_tpu_torch.raster import structure as rs
+
     cpu = torch.device("cpu")
     g = torch.Generator().manual_seed(0)
     n = SHADER_FRAGMENTS
@@ -2284,15 +2296,15 @@ def shader_configs(dev, card, pp, sh, meshes, cubemap, camera) -> str | None:
     eye = camera.camera_eye(meshes.mesh_camera(0), 0.0)
     worst = 0
     for per_pixel in (False, True):
-        queues = {d: pp.build_scene_queue(scenes[d], eye, W, H,
-                                          per_pixel=per_pixel)
+        queues = {d: rs.build(scenes[d], rs.QUEUE, eye, W, H,
+                              per_pixel=per_pixel)
                   for d in scenes}
         diffs = {}
         for i in range(sh.NUM_SHADERS):
             fbs = {d: pp.render_frame(
                        scenes[d], eye, 0.0, w=W, h=H, per_pixel=per_pixel,
-                       shader_idx=i, backend="queue",
-                       raster_queue=queues[d]).cpu().view(torch.int32)
+                       shader_idx=i,
+                       structure=queues[d]).cpu().view(torch.int32)
                    for d in scenes}
             drawn = int((fbs[cpu] != pp.background(0, W, H, cpu)).sum())
             if drawn < W * H // 100:
@@ -2937,6 +2949,7 @@ def sharded_paths(dev, card, launches, tmp: str) -> str | None:
     from rustexp_tpu_torch.parallel import collectives as coll
     from rustexp_tpu_torch.parallel import raster_shard
     from rustexp_tpu_torch.raster import camera, pipeline as pp
+    from rustexp_tpu_torch.raster import structure as rs
     from rustexp_tpu_torch.sims.gol import GoLExperiment, gol_render
     from rustexp_tpu_torch.sims.nbody import nbody_render, stable_orbits
     from rustexp_tpu_torch.sims.sine import sine_frame
@@ -3001,10 +3014,9 @@ def sharded_paths(dev, card, launches, tmp: str) -> str | None:
 
     def one_rank(t, per_pixel=True):
         eye = camera.camera_eye(cam, t)
-        q = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
+        q = rs.build(scene, rs.QUEUE, eye, W, H, per_pixel=per_pixel)
         return pp.render_frame(scene, eye, t, w=W, h=H, per_pixel=per_pixel,
-                               shader_idx=5, backend="queue",
-                               raster_queue=q, show_cm=False)
+                               shader_idx=5, structure=q, show_cm=False)
 
     refs = {f"Killeroo{'P' if p else 'V'} {lay}": one_rank(0.0, p)
             for p in (True, False) for lay in raster_shard.LAYOUTS}
@@ -3194,6 +3206,7 @@ def surfaces(dev, card, counters, launches) -> tuple[str | None, dict]:
     from rustexp_tpu_torch import graft_entry
     from rustexp_tpu_torch.app import benchmark as bench
     from rustexp_tpu_torch.assets import mesh as meshes
+    from rustexp_tpu_torch.raster import structure as rs
 
     t0 = time.perf_counter()
     out = subprocess.run(
@@ -3238,8 +3251,8 @@ def surfaces(dev, card, counters, launches) -> tuple[str | None, dict]:
     steps = {m.group(1): json.loads(m.group(2)) for m in re.finditer(
         r"^# launches scene:(\w+): (\{.*\})$", out.stderr, re.M)}
     for label, mesh_idx, _, _ in bench.SCENES:
-        kernel = "B1" if meshes.get_mesh(mesh_idx).num_tris >= (
-            bench.QUEUE_MIN_TRIS) else "B2"
+        kernel = "B1" if rs.route(meshes.get_mesh(mesh_idx).num_tris,
+                                  bench.W, bench.H) == rs.QUEUE else "B2"
         want = {kernel: (1 + timed) * bench.FRAMES_PER_DISPATCH}
         if steps.get(label) != want:
             return (f"the bench's scene:{label} launched "

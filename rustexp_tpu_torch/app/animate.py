@@ -10,8 +10,8 @@ renders frame by frame, so its chunking, tail padding and compile-excluded
 first chunk have no counterpart. The static queue caps follow JAX's rule:
 the largest queue_stats over every (n / 8)-th eye, choose_shade_w for a
 rebuild every frame, suggest_queue_config's margins
-(benchmark.moving_caps). Frames of partial 16x128 tiles take
-render_frame's auto backend, as in JAX.
+(benchmark.moving_caps). Frames the queue's tiles do not fit take the
+G-buffer oracle (raster/structure.py), as in JAX.
 
 Reported times include reading every frame back to the host.
 
@@ -30,8 +30,7 @@ from ..assets import cubemap, mesh
 from ..core.font import draw_text
 from ..core.framebuffer import to_rgb8_topleft, write_png
 from ..core.gif import write_gif
-from ..ops.raster_queue import TILE_H, TILE_W, build_queue
-from ..raster import camera, pipeline as pp
+from ..raster import camera, pipeline as pp, structure as rs
 from ..runtime import device as pick_device
 from .benchmark import moving_caps
 
@@ -57,17 +56,17 @@ def render_turntable(mesh_idx: int = 0, shader_idx: int = 5, env_idx: int = 0,
     ticks = tick0 + np.arange(n_frames, dtype=np.float64) / fps
     eyes = np.stack([camera.camera_eye(cam, t) for t in ticks]).astype(
         np.float32)
-    tileable = h % TILE_H == 0 and w % TILE_W == 0
-    caps = moving_caps(scene, eyes, per_pixel, w=w, h=h) if tileable else None
+    queued = rs.accepts(rs.QUEUE, w, h)
+    caps = moving_caps(scene, eyes, per_pixel, w=w, h=h) if queued else None
 
     def frame(i: int):
-        kw = dict(w=w, h=h, mode=pp.MODE_FILL, per_pixel=per_pixel,
-                  shader_idx=shader_idx, bg_idx=bg_idx, return_overflow=True)
-        if tileable:
-            kw.update(backend="queue", raster_queue=build_queue(
-                pp._queue_setup(scene, eyes[i], w, h), h, w, **caps))
+        structure = (rs.queue_at(scene, eyes[i], w, h, caps) if queued
+                     else rs.Structure(rs.ORACLE))
         return pp.render_frame(scene, eyes[i], float(np.float32(ticks[i])),
-                               **kw)
+                               w=w, h=h, mode=pp.MODE_FILL,
+                               per_pixel=per_pixel, shader_idx=shader_idx,
+                               bg_idx=bg_idx, structure=structure,
+                               return_overflow=True)
 
     frame(0)  # warm-up
     times, gif_frames = [], []

@@ -1,7 +1,7 @@
 """The benchmarks on the card: the 12-scene rasterizer suite, GoL and N-body.
 
 Port of rustexp_tpu/app/benchmark.py (SCENES, the scene constants,
-FRAMES_PER_DISPATCH, QUEUE_MIN_TRIS, _run_stats, bench_scene, run_suite,
+FRAMES_PER_DISPATCH, _run_stats, bench_scene, run_suite,
 the moving-camera benches bench_scene_moving and
 bench_scene_moving_amortized, bench_gol and bench_nbody). The scene
 matches the reference's rast_benchmark (rasterizer.rs:1781-1884):
@@ -24,11 +24,10 @@ from ..assets import cubemap, mesh
 from ..core import prng, trace
 from ..ops import gol_bits, gol_stencil, nbody_bh, nbody_forces, nbody_pallas
 from ..ops.raster_queue import (SHADE_W, TILE_H, TILE_W, build_queue,
-                                choose_shade_w, read_queue_stats,
-                                resolve_order, suggest_queue_config)
+                                read_queue_stats, resolve_order)
 from ..ops.raster_setup import (dilate_setup_planar, setup_triangles_planar,
                                 signed_area2)
-from ..raster import camera, pipeline as pp
+from ..raster import camera, pipeline as pp, structure as rs
 from ..runtime import device as pick_device
 
 # (label, mesh_idx, per_pixel, reference_us) — rasterizer.rs:1791-1804
@@ -53,16 +52,9 @@ ENV = 0     # Grace
 TICK = 0.0
 REF_TOTAL_US = 27286  # rasterizer.rs:1829-1834
 
-# Meshes below this triangle count take the [nT, cap] bins (kernel B2);
-# at or above it, the flat queue (kernel B1).
-QUEUE_MIN_TRIS = 1000
-
 # bench_scene's frames a run, back to back between one pair of CUDA events
 # (JAX's frames a dispatch, rustexp_tpu/app/benchmark.py:55)
 FRAMES_PER_DISPATCH = 1024
-
-# bench_scene's backends, as the JAX bench takes them
-BACKENDS = ("auto", "queue", "pallas", "xla")
 
 
 def _run_stats(run, runs: int, per: float) -> dict:
@@ -98,47 +90,34 @@ def scene_frame(mesh_idx: int, per_pixel: bool, device: torch.device,
                 backend: str = "auto", shade_w: int | None = None):
     """One bench scene on `device` -> (frame, structure, mesh, envmap).
 
-    `backend` is the JAX bench's (rustexp_tpu/app/benchmark.py:114-121):
-    "auto" takes the flat queue for meshes of >= QUEUE_MIN_TRIS triangles,
-    else the bins; "queue" builds a flat queue (compacted-shade width
-    `shade_w`, else choose_shade_w's), "pallas" a suggest_binning config
-    for the bins, "xla" no structure (the G-buffer oracle, no kernel). The
-    structure is built once and reused, as the renderer does for a
-    temporally coherent camera. frame() renders one frame, the span
-    ``frame``, and returns (fb, stale), the flag a device tensor (the
-    cached queue went stale or the bins overflowed); each frame pays
-    transform, setup, binning or row gather, the raster kernel (B1 or
-    B2), shading and pack. `structure` names the backend and its
-    structure (queue order and shade_w, or cap, spans and rows_cap).
+    `backend` is the JAX bench's (rustexp_tpu/app/benchmark.py:114-121),
+    one of raster/structure.py's BACKENDS: route() resolves it and build()
+    builds its structure (a queue's compacted-shade width `shade_w`, else
+    choose_shade_w's) once at the fixed eye, reused as the renderer does
+    for a temporally coherent camera. frame()
+    renders one frame, the span ``frame``, and returns (fb, stale), the
+    flag a device tensor (the cached queue went stale or the bins
+    overflowed); each frame pays transform, setup, binning or row
+    gather, the raster kernel (B1 or B2), shading and pack. `structure`
+    names the backend and its structure (queue order and shade_w, or
+    cap, spans and rows_cap).
     """
-    if backend not in BACKENDS:
-        raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
     m = mesh.get_mesh(mesh_idx)
+    kind = rs.route(m.num_tris, W, H, backend)
     cm = cubemap.get_cm_set(ENV)
     scene = pp.make_scene(m, cm, device)
     eye = camera.camera_eye(mesh.mesh_camera(mesh_idx), TICK)
-    if backend == "auto":
-        backend = "queue" if m.num_tris >= QUEUE_MIN_TRIS else "pallas"
-    kw = dict(backend=backend)
-    structure = {"backend": backend}
-    if backend == "queue":
-        queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel,
-                                     shade_w=shade_w)
-        kw.update(raster_queue=queue)
-        structure.update(queue_order=queue.order, shade_w=queue.shade_w)
-    elif backend == "pallas":
-        cap, spans, rows_cap = pp.suggest_binning(scene, eye, W, H)
-        kw.update(raster_cap=cap, raster_spans=spans, raster_rows=rows_cap)
-        structure.update(cap=cap, spans=list(spans), rows_cap=rows_cap)
+    structure = rs.build(scene, kind, eye, W, H, per_pixel=per_pixel,
+                         shade_w=shade_w)
 
     def frame() -> tuple[torch.Tensor, torch.Tensor]:
         with trace.span("frame"):
             return pp.render_frame(
                 scene, eye, TICK, w=W, h=H, mode=pp.MODE_FILL,
                 per_pixel=per_pixel, shader_idx=SHADER, bg_idx=0,
-                show_cm=False, return_overflow=True, **kw)
+                show_cm=False, structure=structure, return_overflow=True)
 
-    return frame, structure, m, cm
+    return frame, structure.describe(), m, cm
 
 
 def frame_sum(fb: torch.Tensor, stale: torch.Tensor) -> torch.Tensor:
@@ -311,35 +290,27 @@ def path_eyes(mesh_idx: int, k: int, fps: float = 60.0) -> np.ndarray:
 
 def moving_caps(scene: pp.Scene, eyes, per_pixel: bool,
                 shade_w: int | None = None, w: int = W, h: int = H) -> dict:
-    """build_queue's static caps for a camera path: the largest
-    queue_stats over 8 of its eyes with suggest_queue_config's margins,
-    and the shade width choose_shade_w picks for a rebuild every frame
-    (or `shade_w`). The pre-pass reads the card once per eye sampled.
+    """build_queue's static caps for a camera path: queue_caps over the
+    queue_stats of 8 of its eyes, for a rebuild every frame (or at
+    `shade_w`). The pre-pass reads the card once per eye sampled.
     Returns {s_cap, m_y, m_x, t_cap, shade_w}."""
     k = len(eyes)
-    stats = [pp.scene_queue_stats(scene, eyes[i], w, h)
+    stats = [read_queue_stats(rs.queue_setup(scene, eyes[i], w, h), h, w)
              for i in range(0, k, max(1, k // 8))]
-    agg = tuple(max(st[j] for st in stats) for j in range(5))
-    if shade_w is None:
-        shade_w = choose_shade_w(agg[3], agg[4], rebuild_per_frame=True,
-                                 per_pixel=per_pixel)
-    occ = agg[3] if shade_w == SHADE_W else agg[4]
-    s_cap, m_y, m_x, t_cap = suggest_queue_config(agg[:3] + (occ,))
-    return dict(s_cap=s_cap, m_y=m_y, m_x=m_x, t_cap=t_cap, shade_w=shade_w)
+    return rs.queue_caps(stats, per_pixel=per_pixel, shade_w=shade_w,
+                         rebuild_per_frame=True)
 
 
 def moving_frame(scene: pp.Scene, eye, caps: dict, per_pixel: bool,
                  w: int = W, h: int = H):
-    """One frame of the moving camera -> (fb, overflow): transform ->
-    setup_triangles_planar -> build_queue (order "auto", the path's
-    caps) -> render_frame(backend="queue"). `overflow` is a device flag:
-    the caps were exceeded."""
-    with trace.span("structure.queue"):
-        queue = build_queue(pp._queue_setup(scene, eye, w, h), h, w, **caps)
+    """One frame of the moving camera -> (fb, overflow): the flat queue
+    built at this eye with the path's caps (structure.queue_at), then
+    render_frame through it. `overflow` is a device flag: the caps were
+    exceeded."""
     return pp.render_frame(
         scene, eye, TICK, w=w, h=h, mode=pp.MODE_FILL, per_pixel=per_pixel,
-        shader_idx=SHADER, bg_idx=0, show_cm=False, backend="queue",
-        raster_queue=queue, return_overflow=True)
+        shader_idx=SHADER, bg_idx=0, show_cm=False,
+        structure=rs.queue_at(scene, eye, w, h, caps), return_overflow=True)
 
 
 def _order(scene: pp.Scene, caps: dict, w: int = W, h: int = H) -> str:
@@ -427,14 +398,10 @@ def amortized_caps(scene: pp.Scene, eyes, dilate: int, area_margin: int,
     8 sampled eyes (rustexp_tpu/app/benchmark.py:345-358): the rows list
     at the fine SHADE_W, as the JAX bench builds it."""
     k = len(eyes)
-    stats = []
-    for i in range(0, k, max(1, k // 8)):
-        s = dilate_setup_planar(pp._queue_setup(scene, eyes[i], w, h),
-                                dilate, w, h, area_margin)
-        stats.append(read_queue_stats(s, h, w)[:4])
-    agg = tuple(max(st[j] for st in stats) for j in range(4))
-    s_cap, m_y, m_x, t_cap = suggest_queue_config(agg)
-    return dict(s_cap=s_cap, m_y=m_y, m_x=m_x, t_cap=t_cap, shade_w=SHADE_W)
+    stats = [read_queue_stats(dilate_setup_planar(
+        rs.queue_setup(scene, eyes[i], w, h), dilate, w, h, area_margin),
+        h, w) for i in range(0, k, max(1, k // 8))]
+    return rs.queue_caps(stats, shade_w=SHADE_W)
 
 
 def amortized_frames(scene: pp.Scene, eyes, caps: dict, dilate: int,
@@ -446,15 +413,14 @@ def amortized_frames(scene: pp.Scene, eyes, caps: dict, dilate: int,
     it (rustexp_tpu/app/benchmark.py:362-381). `stale` is a device flag:
     the structure did not cover the frame."""
     for c in range(0, len(eyes), rebuild_every):
-        s0 = dilate_setup_planar(pp._queue_setup(scene, eyes[c], w, h),
+        s0 = dilate_setup_planar(rs.queue_setup(scene, eyes[c], w, h),
                                  dilate, w, h, area_margin)
-        queue = build_queue(s0, h, w, **caps)
+        queue = rs.Structure(rs.QUEUE, build_queue(s0, h, w, **caps))
         for e in eyes[c:c + rebuild_every]:
             yield pp.render_frame(
                 scene, e, TICK, w=w, h=h, mode=pp.MODE_FILL,
                 per_pixel=per_pixel, shader_idx=SHADER, bg_idx=0,
-                show_cm=False, backend="queue", raster_queue=queue,
-                return_overflow=True)
+                show_cm=False, structure=queue, return_overflow=True)
 
 
 def bench_scene_moving_amortized(mesh_idx: int = 0, per_pixel: bool = True,

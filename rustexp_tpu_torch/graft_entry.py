@@ -4,7 +4,7 @@ Port of the root __graft_entry__.py. ``entry()`` returns (fn,
 example_args) for the rasterizer's full frame pipeline (vertex
 transform, binned tile rasterization through kernel B2, deferred CMRefl
 shading, gamma pack): Cube (mesh 9), 512x512, Fill, per-pixel, shader 5,
-render_frame's "auto" backend.
+render_frame without a structure (the dense bins).
 
     from rustexp_tpu_torch import graft_entry
     fn, args = graft_entry.entry()        # the card; entry("cpu") on the CPU

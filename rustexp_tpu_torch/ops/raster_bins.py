@@ -7,7 +7,7 @@ tiles; every front-facing triangle is binned, in submission order, to the
 tiles its pixel AABB overlaps, and the raster walks each tile's bin in
 slot order with a strict z < depth race, so an earlier triangle keeps a
 tie. This is the main path for meshes under 1,000 triangles and for
-``render_frame(backend="pallas"/"auto")`` without a queue.
+``render_frame`` without a structure (raster/structure.py).
 
 Kernel B2 (``csrc/raster_bins.cu``, replacing ``_attr_tile_kernel``) runs
 for CUDA tensors; ``raster_attrs_bins_plain`` is its plain PyTorch

@@ -39,11 +39,11 @@ import torch
 import torch.distributed as dist
 
 from ..ops.raster_bins import raster_gbuffer_pallas
-from ..ops.raster_queue import (TILE_H, build_queue, queue_stats,
-                                raster_attrs_queue, suggest_queue_config)
+from ..ops.raster_queue import (SHADE_W, TILE_H, build_queue, queue_stats,
+                                raster_attrs_queue)
 from ..ops.raster_setup import setup_triangles, setup_triangles_planar
 from ..ops.raster_xla import raster_gbuffer_xla
-from ..raster import pipeline as pp
+from ..raster import pipeline as pp, structure as rs
 from ..raster.shade import shade_pack
 from . import collectives as coll
 
@@ -185,12 +185,13 @@ def _band_stats(setup, *, w: int, h: int, n_dev: int, band: int,
 
 
 def band_queue_caps(scene: pp.Scene, eyes, *, w: int, h: int, n_dev: int,
-                    layout: str = "bands", group=None) -> tuple:
-    """One set of static queue caps (s_cap, m_y, m_x, t_cap) for every
-    (eye, band) pair (:151): suggest_queue_config of the maximum of each
-    queue_stats entry. group=None measures all n_dev bands in this
-    process; with a group each rank measures its own band and the maxima
-    are all-reduced, the same numbers. One read back to the host."""
+                    layout: str = "bands", group=None) -> dict:
+    """One set of static queue caps for every (eye, band) pair (:151):
+    raster/structure.py queue_caps of the maximum of each queue_stats
+    entry, at build_queue's fine shade width. group=None measures all
+    n_dev bands in this process; with a group each rank measures its own
+    band and the maxima are all-reduced, the same numbers. One read back
+    to the host. -> {s_cap, m_y, m_x, t_cap, shade_w}"""
     n, rank = coll.world(group)
     if group is not None and n != n_dev:
         raise ValueError(f"{n_dev} bands over a group of {n} ranks")
@@ -200,22 +201,18 @@ def band_queue_caps(scene: pp.Scene, eyes, *, w: int, h: int, n_dev: int,
                                 layout=layout),
                     w=w, h=h, n_dev=n_dev, band=d, layout=layout)
         for e in eyes for d in bands]).amax(dim=0)
-    agg = coll.pmax(st, group).tolist()
-    return suggest_queue_config(tuple(agg[:4]))
+    return rs.queue_caps([coll.pmax(st, group).tolist()], shade_w=SHADE_W)
 
 
 def _queue_of_setup(setup, caps, *, w: int, h: int, n_dev: int, band: int,
                     layout: str):
     """Band `band`'s queue from its setup (_band_setup's) at `caps`: the
     translated band's build ("bands") or the interleaved build of the
-    whole frame ("cyclic"), at build_queue's default order and shade
-    width."""
-    s_cap, m_y, m_x, t_cap = caps
+    whole frame ("cyclic"), at build_queue's default order."""
     if layout == "cyclic":
-        return build_queue(setup, h, w, s_cap=s_cap, m_y=m_y, m_x=m_x,
-                           t_cap=t_cap, row_stride=n_dev, row_offset=band)
-    return build_queue(setup, h // n_dev, w, s_cap=s_cap, m_y=m_y, m_x=m_x,
-                       t_cap=t_cap)
+        return build_queue(setup, h, w, row_stride=n_dev, row_offset=band,
+                           **caps)
+    return build_queue(setup, h // n_dev, w, **caps)
 
 
 def build_band_queue(scene: pp.Scene, eye, caps, *, w: int, h: int,

@@ -1,28 +1,26 @@
 """The frame pipeline: vertex transform -> raster -> deferred shade -> pack.
 
 Port of rustexp_tpu/raster/pipeline.py for the Fill frame, with its
-three raster backends:
+three raster structures (raster/structure.py routes a frame to one and
+builds it; render_frame dispatches on its kind):
 
-* the flat queue (``backend="queue"`` with a prebuilt queue; the
-  benchmark's path for meshes of >= 1,000 triangles):
-  transform_corners_planar (fixed-order per-op f32 matrix products on
-  corner-major [3, 4, T] planes, reference rasterizer.rs:1181-1231) ->
-  setup_triangles_planar -> build_queue (cached across frames by the
-  callers, or built every frame by the moving camera,
-  app.benchmark.moving_frame) -> raster_attrs_queue (kernel B1 on the
-  card) ->
+* the flat queue (the benchmark's path for meshes of >= 1,000
+  triangles): transform_corners_planar (fixed-order per-op f32 matrix
+  products on corner-major [3, 4, T] planes, reference
+  rasterizer.rs:1181-1231) -> setup_triangles_planar -> build_queue
+  (cached across frames by the callers, or built every frame by the
+  moving camera) -> raster_attrs_queue (kernel B1 on the card) ->
   _shade_compacted over the queue's shade blocks; or, with defer=True,
   raster_zslot_queue (kernel B7, the depth race alone) ->
   _shade_deferred, which re-evaluates each pixel's winning pair;
-* the bins (``backend="pallas"``, and ``"auto"``/``"queue"`` on tileable
-  frames without a queue; smaller meshes): transform_vertices ->
-  setup_triangles -> bin_triangles/bin_pairs -> raster_attrs_bins
-  (kernel B2 on the card) -> a full-frame shade, or _shade_compacted over
-  the occupied blocks when ``raster_rows`` is given;
-* the G-buffer oracle (``backend="xla"``, and every frame of partial
-  32x128 tiles): setup_triangles -> raster_gbuffer_xla (plain torch, any
-  size) -> shade_gbuffer. The band renderer (parallel/raster_shard.py)
-  shades the same G-buffer from kernel B3 (raster_gbuffer_pallas).
+* the bins (smaller meshes): transform_vertices -> setup_triangles ->
+  bin_triangles/bin_pairs -> raster_attrs_bins (kernel B2 on the card)
+  -> a full-frame shade, or _shade_compacted over the occupied blocks
+  when the bins carry a rows_cap;
+* the G-buffer oracle (any frame size): setup_triangles ->
+  raster_gbuffer_xla (plain torch) -> shade_gbuffer. The band renderer
+  (parallel/raster_shard.py) shades the same G-buffer from kernel B3
+  (raster_gbuffer_pallas).
 
 All end in core.colors.pack_abgr32_gamma_arith; the queue and bins paths
 shade and pack through raster/shade.py's shade_pack (one kernel launch on
@@ -46,13 +44,12 @@ from ..core import trace
 from ..core.colors import pack_abgr32, pack_abgr32_gamma_arith, trunc_i32
 from ..ops import raster_bins as rb
 from ..ops.ieee import lerp_2mad, lerp_3w
-from ..ops.raster_queue import (_I_CH, SHADE_W, _eval_pairs, build_queue,
-                                choose_shade_w, raster_attrs_queue,
-                                raster_zslot_queue, read_queue_stats,
-                                suggest_queue_config)
+from ..ops.raster_queue import (_I_CH, SHADE_W, _eval_pairs,
+                                raster_attrs_queue, raster_zslot_queue)
 from ..ops.raster_setup import setup_triangles, setup_triangles_planar
 from ..ops.raster_xla import raster_gbuffer_xla
 from . import shaders as sh
+from . import structure as rs
 from .exact import _cross3_exact, _device_eye, _host_eye, _mm4_exact
 from .shade import _blocks, shade_pack
 
@@ -413,8 +410,8 @@ def raster_and_shade_pallas(scene: Scene, setup, extra, n2: int, n3: int,
     planes (bins_attr_channels' `extra`, n2, n3) interpolate inside kernel
     B2, then the shade.
 
-    The name is the JAX package's, as ``render_frame(backend="pallas")``
-    is public API. With per_pixel and ``rows_cap``, the shade runs only on
+    The name is the JAX package's (the bins' backend name is "pallas").
+    With per_pixel and ``rows_cap``, the shade runs only on
     the SHADE_W-wide blocks the coverage mask occupies (at most rows_cap
     of them; more raises ``overflow``); otherwise over the whole frame.
     Returns (fb int32 [h, w], overflow): overflow means the static bin
@@ -643,129 +640,29 @@ def draw_lines(fb, vp, tris, w: int, h: int, max_steps: int | None = None):
 # ---------------------------------------------------------------------------
 
 
-def _queue_setup(scene: Scene, eye, w: int, h: int):
-    xs, ys, zs, _, _, _ = transform_corners_planar(scene, eye, w, h)
-    return setup_triangles_planar(xs, ys, zs, w, h)
-
-
-def scene_queue_stats(scene: Scene, eye, w: int, h: int) -> tuple:
-    """queue_stats of this scene at `eye` on the frame's planar setup, as
-    five Python ints read back at once (rustexp_tpu/raster/pipeline.py:921
-    _queue_stats_jit): the chunk count, the largest tile spans and the
-    occupied fine and tile-wide shade blocks."""
-    return read_queue_stats(_queue_setup(scene, eye, w, h), h, w)
-
-
-def build_scene_queue(scene: Scene, eye, w: int, h: int,
-                      margin: float = 1.3, per_pixel: bool = True,
-                      shade_w: int | None = None):
-    """Measure + build the flat raster queue for this scene/viewpoint
-    (rustexp_tpu/raster/pipeline.py:948): one read of queue_stats for
-    the static caps (`margin` on the chunk count), then build_queue
-    with its "auto" order. The compacted-shade width is choose_shade_w's
-    unless `shade_w` is given. The build uses the same planar setup as
-    the frame, so no triangle can snap into a tile the structure never
-    enumerated. The span structure.queue holds it all."""
-    with trace.span("structure.queue"):
-        setup = _queue_setup(scene, eye, w, h)
-        stats = read_queue_stats(setup, h, w)
-        if shade_w is None:
-            shade_w = choose_shade_w(stats[3], stats[4], per_pixel=per_pixel)
-        occ = stats[3] if shade_w == SHADE_W else stats[4]
-        s_cap, m_y, m_x, t_cap = suggest_queue_config(stats[:3] + (occ,),
-                                                      margin=margin)
-        return build_queue(setup, h, w, s_cap=s_cap, m_y=m_y, m_x=m_x,
-                           t_cap=t_cap, shade_w=shade_w)
-
-
-def _bins_setup(scene: Scene, eye, w: int, h: int):
-    vp, _, _ = transform_vertices(scene, eye, w, h)
-    return setup_triangles(vp, scene.tris, w, h)
-
-
-def _bin_stats(scene: Scene, eye, w: int, h: int):
-    """(largest bin, max span_x, max span_y, occupied SHADE_W blocks) as
-    0-d tensors (rustexp_tpu/raster/pipeline.py:872).
-
-    A block (y, bx) can hold coverage only if some valid triangle's
-    clipped AABB meets it: one [h, T] x [T, ntx] product of 0/1 matrices.
-    Its sums are exact in float32 (and in TF32, were it switched on), so
-    the > 0 test does not depend on the matmul precision.
-    """
-    setup = _bins_setup(scene, eye, w, h)
-    sx, sy = rb.max_spans(setup, h, w)
-    ntx = -(-w // SHADE_W)
-    i32 = dict(dtype=torch.int32, device=setup.valid.device)
-    ys = torch.arange(h, **i32)
-    occ_y = ((ys[:, None] >= setup.min_y[None, :])
-             & (ys[:, None] < setup.max_y[None, :]))           # [h, T]
-    tx0 = torch.arange(ntx, **i32) * SHADE_W
-    occ_x = ((tx0[None, :] < setup.max_x[:, None])
-             & (tx0[None, :] + SHADE_W > setup.min_x[:, None])
-             & setup.valid[:, None])                           # [T, ntx]
-    occ = torch.matmul(occ_y.to(torch.float32), occ_x.to(torch.float32)) > 0
-    return rb.max_bin_count(setup, h, w), sx, sy, occ.sum(dtype=torch.int32)
-
-
-def suggest_binning(scene: Scene, eye, w: int, h: int, margin: float = 1.3):
-    """(cap, (m_x, m_y), rows_cap) for the bins backend, one host read
-    (rustexp_tpu/raster/pipeline.py:895).
-
-    The span margin (+1 tile each way) absorbs camera motion; bin_pairs
-    still reports ``overflow`` if a frame exceeds it. rows_cap bounds
-    the occupied shade blocks (render_frame's raster_rows) with the same
-    margin, or is None when >= 75% of the frame's blocks can be occupied
-    (compaction then costs more than the shade it skips). The span
-    structure.bins holds the device work and its read.
-    """
-    with trace.span("structure.bins"):
-        stats = torch.stack(_bin_stats(scene, eye, w, h))
-        with trace.span("sync.read.bin_stats"):
-            mc, sx, sy, rc = stats.tolist()
-    need = max(512, int(mc * margin))
-    cap = (need + 511) // 512 * 512
-    ntx = -(-w // SHADE_W)
-    rows_cap = min(h * ntx, max(64, (int(rc * margin) + 63) // 64 * 64))
-    if rows_cap >= (h * ntx * 3) // 4:
-        rows_cap = None
-    return cap, (sx + 1, sy + 1), rows_cap
-
-
-def suggest_cap(scene: Scene, eye, w: int, h: int, margin: float = 1.3) -> int:
-    """A bin capacity for this scene and viewpoint: the largest bin with a
-    margin, rounded up to 512 (rustexp_tpu/raster/pipeline.py:976)."""
-    m = rb.max_bin_count(_bins_setup(scene, eye, w, h), h, w)
-    with trace.span("sync.read.bin_cap"):
-        m = int(m)
-    need = max(512, int(m * margin))
-    return (need + 511) // 512 * 512
-
-
 def render_frame(scene: Scene, eye, tick, *, w: int, h: int,
                  mode: int = MODE_FILL, per_pixel: bool = False,
                  shader_idx: int = 5, bg_idx: int = 0,
-                 show_cm: bool | None = None, backend: str = "auto",
-                 raster_cap: int | None = None,
-                 raster_spans: tuple | None = None,
-                 raster_rows: int | None = None,
-                 raster_queue=None, return_overflow: bool = False):
+                 show_cm: bool | None = None,
+                 structure: rs.Structure | None = None,
+                 return_overflow: bool = False):
     """Render one frame -> uint32 ABGR [h, w], bottom-left origin
     (rustexp_tpu/raster/pipeline.py:997).
 
-    The dispatch is the JAX package's: ``backend="queue"`` with a
-    prebuilt `raster_queue` (build_scene_queue) takes the flat queue;
-    ``"pallas"``, and ``"auto"``/``"queue"`` on a frame of whole 32x128
-    tiles, take the bins with ``raster_cap``/``raster_spans``/
-    ``raster_rows`` (suggest_binning; None bins by the dense coverage
-    matrix with capacity T); ``"xla"``, and every other frame, the
-    G-buffer oracle (raster_gbuffer_xla + shade_gbuffer, any size, no
-    kernel). ``mode`` MODE_POINT or MODE_LINE draws the vertices or the
-    edges over the background instead (draw_points, draw_lines: no
+    `structure` (raster/structure.py) picks the path: a QUEUE takes the
+    flat queue, BINS the bins at its (cap, spans, rows_cap) (None bins by
+    the dense coverage matrix with capacity T), ORACLE the G-buffer
+    oracle (raster_gbuffer_xla + shade_gbuffer, any size, no kernel).
+    Without one, the dense bins where their tiles fit the frame, else
+    the oracle. ``mode`` MODE_POINT or MODE_LINE draws the vertices or
+    the edges over the background instead (draw_points, draw_lines: no
     shader, no raster kernel, no structure read). With
     return_overflow=True returns (fb, overflow): the cached queue went
     stale, or the static bins overflowed (always False for points and
     lines); rebuild and render again.
     """
+    if structure is None:
+        structure = rs.Structure(rs.route(len(scene.tris), w, h, rs.BINS))
     with trace.span("raster.frame"):
         if show_cm is None:
             show_cm = sh.shader_uses_cm(shader_idx)
@@ -775,7 +672,7 @@ def render_frame(scene: Scene, eye, tick, *, w: int, h: int,
             vp, _, _ = transform_vertices(scene, eye, w, h)
             draw = draw_points if mode == MODE_POINT else draw_lines
             fb, overflow = draw(fb, vp, scene.tris, w, h), no_overflow
-        elif backend == "queue" and raster_queue is not None:
+        elif structure.kind == rs.QUEUE:
             sh.shader_fn(shader_idx)  # a bad index raises before any work
             colors = None
             if not per_pixel:
@@ -783,12 +680,12 @@ def render_frame(scene: Scene, eye, tick, *, w: int, h: int,
                     colors = vertex_colors(scene, eye, tick, w, h,
                                            shader_idx)
             fb, overflow = raster_and_shade_queue(
-                scene, raster_queue, colors, eye, tick, w=w, h=h,
+                scene, structure.data, colors, eye, tick, w=w, h=h,
                 per_pixel=per_pixel, shader_idx=shader_idx, bg_fb=fb)
         else:
             fb, overflow = _bins_or_oracle(
-                scene, eye, tick, w, h, per_pixel, shader_idx, fb, backend,
-                raster_cap, raster_spans, raster_rows, no_overflow)
+                scene, eye, tick, w, h, per_pixel, shader_idx, fb, structure,
+                no_overflow)
         if show_cm:
             with trace.span("raster.shade"):
                 fb = overlay_cross(fb, scene.cross)
@@ -797,16 +694,13 @@ def render_frame(scene: Scene, eye, tick, *, w: int, h: int,
 
 
 def _bins_or_oracle(scene: Scene, eye, tick, w: int, h: int, per_pixel: bool,
-                    shader_idx: int, bg_fb, backend: str, cap, spans,
-                    rows_cap, no_overflow):
-    """render_frame's Fill frame without a queue -> (fb int32, overflow):
-    the bins (kernel B2) or, on frames of partial tiles and with backend
-    "xla", the G-buffer oracle. In V mode the shader runs on the
-    world-space vertices before the bins' channels take its colours, so
-    such a frame opens raster.setup twice, around the shade."""
+                    shader_idx: int, bg_fb, structure, no_overflow):
+    """render_frame's Fill frame through the bins (kernel B2) or the
+    G-buffer oracle -> (fb int32, overflow). In V mode the shader runs on
+    the world-space vertices before the bins' channels take its colours,
+    so such a frame opens raster.setup twice, around the shade."""
     shader = sh.shader_fn(shader_idx)
-    tileable = h % rb.TILE_H == 0 and w % rb.TILE_W == 0
-    bins = backend == "pallas" or (backend in ("auto", "queue") and tileable)
+    bins = structure.kind == rs.BINS
     with trace.span("raster.setup"):
         with trace.span("raster.transform"):
             vp, world, n_world = transform_vertices(scene, eye, w, h)
@@ -824,6 +718,7 @@ def _bins_or_oracle(scene: Scene, eye, tick, w: int, h: int, per_pixel: bool,
                 chans = bins_attr_channels(scene, vp, world, n_world, colors,
                                            per_pixel=False)
     if bins:
+        cap, spans, rows_cap = structure.data or (None, None, None)
         return raster_and_shade_pallas(
             scene, setup, *chans, eye, tick, w=w, h=h, per_pixel=per_pixel,
             shader_idx=shader_idx, bg_fb=bg_fb, cap=cap, spans=spans,

@@ -3,11 +3,11 @@
 Port of rustexp_tpu/sims/rasterizer.py (init/step/render/status,
 :78-210) with the same state defaults (per-vertex shading, Fill, mesh 0
 Killeroo, shader 5 CMRefl, envmap 0, bg 0; reference
-RustRasterizerExperiment.hs:68-75) and the same QUEUE_MIN_TRIS routing:
-meshes of >= 1,000 triangles render through a cached flat queue (kernel
-B1), smaller ones through the bins at a cached suggest_binning config
-(kernel B2), and windows that are not whole 128-px columns and 8-row
-strips through the G-buffer oracle (backend "xla"). handle_key is JAX's
+RustRasterizerExperiment.hs:68-75). raster/structure.py routes each
+window (the cached flat queue, kernel B1, for meshes of >= 1,000
+triangles; the bins at a cached suggest_binning config, kernel B2, for
+smaller ones; the G-buffer oracle for windows whose tiles do not fit)
+and builds the structure. handle_key is JAX's
 wrapping selection keys (reference RustRasterizerExperiment.hs:127-143).
 Keys apply at once: eager PyTorch compiles nothing per configuration, so
 the JAX package's pending switch has no counterpart (the viewer's
@@ -25,7 +25,7 @@ from ..assets import cubemap, mesh
 from ..core import trace
 from ..core.timing import FrameTimes
 from ..core.trace import trace_info
-from ..raster import camera, pipeline as pp
+from ..raster import camera, pipeline as pp, structure as rs
 from ..runtime import device as pick_device
 
 
@@ -39,8 +39,7 @@ class RasterState:
     bg_idx: int = 0
     backend: str = "auto"
     frame_times: FrameTimes = field(default_factory=FrameTimes)
-    # (key, Scene, work): work is ("queue", Queue) or
-    # ("pallas", (cap, spans, rows_cap))
+    # (key, Scene, raster/structure.py Structure)
     _scene_cache: tuple | None = None
 
 
@@ -53,61 +52,25 @@ class RasterizerExperiment:
     def init(self, **config) -> RasterState:
         return RasterState(**config)
 
-    @staticmethod
-    def _build(scene, eye, w: int, h: int, kind: str):
-        if kind == "queue":
-            return "queue", pp.build_scene_queue(scene, eye, w, h)
-        if kind == "pallas":
-            return "pallas", pp.suggest_binning(scene, eye, w, h)
-        return "xla", None  # the G-buffer oracle needs no structure
-
     def _scene(self, state: RasterState, w: int, h: int, eye):
-        """Scene + cached raster work structure (rebuilt when stale).
+        """Scene + cached raster structure (rebuilt when stale).
 
-        Big meshes use the flat work queue; small ones the [nT, cap] bins
-        (rustexp_tpu/sims/rasterizer.py:136, app/benchmark.py
-        QUEUE_MIN_TRIS). A window that renders through the G-buffer
-        oracle builds neither: the queue's tiles do not fit it. The key
-        holds the resolved route, so a change of ``state.backend`` builds
+        raster/structure.py routes the window (rustexp_tpu/sims/
+        rasterizer.py:136) and builds its structure; the key holds the
+        route, so a change of ``state.backend`` or of the window builds
         the structure that route needs.
         """
-        from ..app.benchmark import QUEUE_MIN_TRIS
-
         m = mesh.get_mesh(state.mesh_idx)
-        kind = "queue" if m.num_tris >= QUEUE_MIN_TRIS else "pallas"
-        if self._backend(state.backend, kind, w, h) == "xla":
-            kind = "xla"
+        kind = rs.route(m.num_tris, w, h, state.backend)
         key = (state.mesh_idx, state.env_idx, w, h, kind)
         if state._scene_cache is None or state._scene_cache[0] != key:
             scene = pp.make_scene(m, cubemap.get_cm_set(state.env_idx),
                                   self.device)
-            state._scene_cache = (key, scene,
-                                  self._build(scene, eye, w, h, kind))
+            state._scene_cache = (key, scene, rs.build(scene, kind, eye, w, h))
         return state._scene_cache[1], state._scene_cache[2]
 
     def step(self, state: RasterState) -> RasterState:
         return state  # all per-frame work happens in render (like the reference)
-
-    @staticmethod
-    def _backend(backend: str, kind: str, w: int, h: int) -> str:
-        """"auto" -> the structure's kind on windows of whole 128-px
-        columns and 8-row strips, else "xla" (rustexp_tpu/sims/
-        rasterizer.py:162-164)."""
-        if backend == "auto":
-            return kind if (w % 128 == 0 and h % 8 == 0) else "xla"
-        return backend
-
-    def _frame_kwargs(self, state: RasterState, work, w: int, h: int):
-        kind, data = work
-        backend = self._backend(state.backend, kind, w, h)
-        kw = dict(w=w, h=h, mode=state.mode, per_pixel=state.per_pixel,
-                  shader_idx=state.shader_idx, bg_idx=state.bg_idx,
-                  return_overflow=True, backend=backend)
-        if backend == "queue" and kind == "queue":
-            kw["raster_queue"] = data
-        elif backend == "pallas" and kind == "pallas":
-            kw["raster_cap"], kw["raster_spans"], kw["raster_rows"] = data
-        return kw
 
     def render(self, state: RasterState, w: int, h: int, tick: float = 0.0):
         """One frame -> uint32 ABGR [h, w] on the experiment's device.
@@ -117,10 +80,13 @@ class RasterizerExperiment:
         and the closing synchronize ``experiment.sync``."""
         with trace.span("frame"):
             eye = camera.camera_eye(mesh.mesh_camera(state.mesh_idx), tick)
-            scene, work = self._scene(state, w, h, eye)
+            scene, structure = self._scene(state, w, h, eye)
+            kw = dict(w=w, h=h, mode=state.mode, per_pixel=state.per_pixel,
+                      shader_idx=state.shader_idx, bg_idx=state.bg_idx,
+                      return_overflow=True)
             t0 = time.perf_counter()
-            fb, stale = pp.render_frame(
-                scene, eye, tick, **self._frame_kwargs(state, work, w, h))
+            fb, stale = pp.render_frame(scene, eye, tick, structure=structure,
+                                        **kw)
             with trace.span("sync.read.stale"):
                 stale = bool(stale)
             if stale:
@@ -130,10 +96,10 @@ class RasterizerExperiment:
                 trace_info(f"raster structure stale at tick {tick:.2f}; "
                            f"rebuilding")
                 with trace.span("experiment.rebuild"):
-                    work = self._build(scene, eye, w, h, work[0])
-                state._scene_cache = (state._scene_cache[0], scene, work)
-                fb, stale = pp.render_frame(
-                    scene, eye, tick, **self._frame_kwargs(state, work, w, h))
+                    structure = rs.build(scene, structure.kind, eye, w, h)
+                state._scene_cache = (state._scene_cache[0], scene, structure)
+                fb, stale = pp.render_frame(scene, eye, tick,
+                                            structure=structure, **kw)
             if self.device.type == "cuda":
                 with trace.span("experiment.sync"):
                     torch.cuda.synchronize(self.device)

@@ -7,6 +7,8 @@ comparison here is exact (the port rounds each op once, as the JAX
 package's sealed CPU chains do — ops/ieee.py in both packages).
 """
 
+import ast
+import pathlib
 import subprocess
 import sys
 
@@ -30,6 +32,7 @@ from rustexp_tpu_torch.core import colors as tcolors
 from rustexp_tpu_torch.raster import camera as tcamera
 from rustexp_tpu_torch.raster import pipeline as tpp
 from rustexp_tpu_torch.raster import shaders as tsh
+from rustexp_tpu_torch.raster import structure as tstruct
 
 CPU = torch.device("cpu")
 
@@ -164,6 +167,47 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "clean"
 
 
+def _route_leaks(tree) -> list:
+    """The route's pieces in a module's syntax tree: the names
+    QUEUE_MIN_TRIS and _queue_setup, and a tileability test (a `%` by a
+    tile width: TILE_W or 128)."""
+    out = []
+    for node in ast.walk(tree):
+        name = getattr(node, "id", None) or getattr(node, "attr", None)
+        if name in ("QUEUE_MIN_TRIS", "_queue_setup"):
+            out.append(f"{name} at line {node.lineno}")
+        mod = isinstance(node, ast.BinOp) and isinstance(node.op, ast.Mod)
+        if mod and any(getattr(n, "id", None) == "TILE_W"
+                       or getattr(n, "attr", None) == "TILE_W"
+                       or getattr(n, "value", None) == 128
+                       for n in ast.walk(node.right)):
+            out.append(f"a tileability test at line {node.lineno}")
+    return out
+
+
+def test_route_has_one_owner():
+    """raster/structure.py owns the raster route: importing it (in a
+    fresh interpreter) loads nothing of app/ or sims/, and no module
+    outside raster/, ops/ and parallel/ (chip_smoke.py included) names
+    QUEUE_MIN_TRIS or _queue_setup or tests a frame's tileability. The
+    band renderer's own band checks (row counts by TILE_H) stay."""
+    code = ("import sys, rustexp_tpu_torch.raster.structure\n"
+            "print(sorted(m for m in sys.modules if m.startswith(\n"
+            "    ('rustexp_tpu_torch.app', 'rustexp_tpu_torch.sims'))))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+    root = pathlib.Path(tstruct.__file__).parents[2]
+    files = [p for p in (root / "rustexp_tpu_torch").rglob("*.py")
+             if p.parent.name not in ("raster", "ops", "parallel")]
+    leaks = {str(p.relative_to(root)): _route_leaks(ast.parse(p.read_text()))
+             for p in files + [root / "chip_smoke.py"]}
+    assert len(files) > 20
+    assert not {k: v for k, v in leaks.items() if v}
+    assert _route_leaks(ast.parse("ok = w % 128 == 0 and h % rq.TILE_W"))
+
+
 def test_device_means_the_card(monkeypatch):
     """runtime.device() with no argument is the card and raises without
     one; the CPU is used only when asked for, and so are the new
@@ -279,22 +323,24 @@ def test_camera_eye_matches_jax(name):
 def test_unported_shaders_and_modes_raise():
     """Nothing of the shaders and modes is refused any more: every shader
     resolves (A5), shader 0 renders through the oracle, and the point and
-    line modes (A10) render on every backend, the G-buffer oracle's
-    (backend="xla", and "auto" on a frame of partial 32x128 tiles)
-    included, with no shader called. What still raises is a shader index
-    past the table on a Fill frame."""
+    line modes (A10) render through every structure, the G-buffer
+    oracle's (asked for, and render_frame's default on a frame of partial
+    32x128 tiles) included, with no shader called. What still raises is a
+    shader index past the table on a Fill frame."""
     for i in range(tsh.NUM_SHADERS):
         assert callable(tsh.shader_fn(i)), tsh.shader_name(i)
     scene = tpp.make_scene(tmesh.make_sphere(4, 8),
                            tcubemap.make_procedural_set(), CPU)
     eye = np.array([0, 0, 2], np.float32)
-    assert tpp.render_frame(scene, eye, 0.0, w=128, h=128, backend="xla",
+    oracle = tstruct.Structure(tstruct.ORACLE)
+    assert tpp.render_frame(scene, eye, 0.0, w=128, h=128, structure=oracle,
                             shader_idx=0).shape == (128, 128)
-    for kw in (dict(backend="auto", w=96, mode=tpp.MODE_POINT),
-               dict(backend="pallas", mode=tpp.MODE_LINE)):
+    for kw in (dict(w=96, mode=tpp.MODE_POINT),
+               dict(structure=tstruct.Structure(tstruct.BINS),
+                    mode=tpp.MODE_LINE)):
         fb = tpp.render_frame(scene, eye, 0.0, **{"w": 128, "h": 128, **kw})
         assert fb.shape == (128, kw["w"] if "w" in kw else 128)
         assert int((fb.view(torch.int32) == 0x00FFFFFF).sum()) > 0
     with pytest.raises(IndexError):
-        tpp.render_frame(scene, eye, 0.0, w=128, h=128, backend="xla",
+        tpp.render_frame(scene, eye, 0.0, w=128, h=128, structure=oracle,
                          shader_idx=tsh.NUM_SHADERS, show_cm=False)

@@ -37,6 +37,7 @@ from rustexp_tpu_torch import bench as tb
 from rustexp_tpu_torch import graft_entry
 from rustexp_tpu_torch import runtime
 from rustexp_tpu_torch.app import benchmark as tbench
+from rustexp_tpu_torch.raster import structure as tstruct
 from rustexp_tpu_torch.app import multidev
 from rustexp_tpu_torch.ops import raster_queue
 
@@ -409,7 +410,7 @@ def _port_frame(mesh_idx, per_pixel, backend, shade_w):
 SCENE_FRAMES = [("KillerooP", 0, True, None), ("CubeV", 9, False, None)]
 
 
-@pytest.mark.parametrize("backend", tbench.BACKENDS)
+@pytest.mark.parametrize("backend", tstruct.BACKENDS)
 @pytest.mark.parametrize("label,mesh_idx,per_pixel,shade_w", SCENE_FRAMES)
 def test_scene_frame_backends_match_jax(label, mesh_idx, per_pixel, shade_w,
                                         backend):
@@ -452,7 +453,7 @@ def _port_checksum(fb: torch.Tensor, stale: bool) -> int:
     return int(tbench.wrap32(tbench.frame_sum(fb, torch.tensor(stale))))
 
 
-@pytest.mark.parametrize("backend", tbench.BACKENDS)
+@pytest.mark.parametrize("backend", tstruct.BACKENDS)
 @pytest.mark.parametrize("label,mesh_idx,per_pixel,shade_w", SCENE_FRAMES)
 def test_frame_checksum_matches_jax(label, mesh_idx, per_pixel, shade_w,
                                     backend):

@@ -29,6 +29,7 @@ from rustexp_tpu_torch.assets import cubemap as tcubemap
 from rustexp_tpu_torch.ops import raster_bins as trb
 from rustexp_tpu_torch.ops import raster_setup as trs
 from rustexp_tpu_torch.raster import pipeline as tpp
+from rustexp_tpu_torch.raster import structure as tstruct
 from rustexp_tpu_torch.sims.rasterizer import RasterizerExperiment
 
 W = H = 128
@@ -94,7 +95,7 @@ def test_setup_triangles_matches_jax(scenes, eye_i):
     sj, st = scenes
     setj, sett = _setups(sj, st, EYES[eye_i])
     _assert_tuple_equal(setj, sett, "TriSetup")
-    planar = tpp._queue_setup(st, EYES[eye_i], W, H).to_trisetup()
+    planar = tstruct.queue_setup(st, EYES[eye_i], W, H).to_trisetup()
     _assert_tuple_equal(sett, planar, "to_trisetup")
     assert bool(sett.valid.any())
 
@@ -135,10 +136,8 @@ def test_bin_stats_match_jax(scenes):
         assert tuple(map(int, trb.max_spans(sett, H, W))) == tuple(
             map(int, jrp.max_spans(setj, H, W)))
         for w, h in ((W, H), (256, 128)):
-            assert tpp.suggest_binning(st, eye, w, h) == \
+            assert tstruct.suggest_binning(st, eye, w, h) == \
                 jpp.suggest_binning(sj, eye, w, h)
-            assert tpp.suggest_cap(st, eye, w, h) == \
-                jpp.suggest_cap(sj, eye, w, h)
 
 
 def _attr_inputs(sj, st, eye, per_pixel):
@@ -228,12 +227,14 @@ def test_render_frame_pallas_matches_jax(sphere, per_pixel, rows):
     every block of the frame, 96 is too few and raises overflow in both."""
     sj, st = sphere
     eye = EYES[0]
-    cap, spans, _ = tpp.suggest_binning(st, eye, W, H)
-    kw = dict(w=W, h=H, per_pixel=per_pixel, shader_idx=5, backend="pallas",
-              raster_cap=cap, raster_spans=spans, raster_rows=rows,
+    cap, spans, _ = tstruct.suggest_binning(st, eye, W, H)
+    kw = dict(w=W, h=H, per_pixel=per_pixel, shader_idx=5,
               return_overflow=True)
-    want, oj = jpp.render_frame(sj, jnp.asarray(eye), 0.7, **kw)
-    got, ot = tpp.render_frame(st, eye, 0.7, **kw)
+    want, oj = jpp.render_frame(sj, jnp.asarray(eye), 0.7, backend="pallas",
+                                raster_cap=cap, raster_spans=spans,
+                                raster_rows=rows, **kw)
+    got, ot = tpp.render_frame(st, eye, 0.7, structure=tstruct.Structure(
+        tstruct.BINS, (cap, spans, rows)), **kw)
     assert _diff(want, got) <= GOLDEN_FRAC * W * H
     assert bool(ot) == bool(oj) == (per_pixel and rows == 96)
     bg = np.asarray(jpp.background(0, W, H))
@@ -242,16 +243,17 @@ def test_render_frame_pallas_matches_jax(sphere, per_pixel, rows):
 
 @pytest.mark.parametrize("backend", ["auto", "queue"])
 def test_auto_takes_the_bins_on_tileable_frames(sphere, backend):
-    """Without a prebuilt queue, "auto" and "queue" take the bins with the
-    default (dense, capacity T) binning, as in the JAX package."""
+    """Without a prebuilt queue, JAX's "auto" and "queue" take the bins
+    with the default (dense, capacity T) binning, and so does the port's
+    render_frame without a structure."""
     sj, st = sphere
     eye = EYES[2]
     kw = dict(w=W, h=H, per_pixel=True, shader_idx=5)
     want = jpp.render_frame(sj, jnp.asarray(eye), 0.2, backend=backend, **kw)
-    got = tpp.render_frame(st, eye, 0.2, backend=backend, **kw)
+    got = tpp.render_frame(st, eye, 0.2, **kw)
     assert _diff(want, got) <= GOLDEN_FRAC * W * H
-    assert torch.equal(got, tpp.render_frame(st, eye, 0.2, backend="pallas",
-                                             **kw))
+    assert torch.equal(got, tpp.render_frame(
+        st, eye, 0.2, structure=tstruct.Structure(tstruct.BINS), **kw))
 
 
 def test_golden_raster_sphere_cmrefl_p(sphere):
@@ -260,7 +262,8 @@ def test_golden_raster_sphere_cmrefl_p(sphere):
     _, st = sphere
     fb = tpp.render_frame(st, camera.cam_orbit(0.5), 0.5, w=W, h=H,
                           per_pixel=True, shader_idx=5, bg_idx=1,
-                          show_cm=True, backend="pallas")
+                          show_cm=True,
+                          structure=tstruct.Structure(tstruct.BINS))
     want = np.load("tests/goldens/raster_sphere_cmrefl_p.npz")["fb"]
     assert _diff(want, fb) <= GOLDEN_FRAC * W * H
 

@@ -35,6 +35,7 @@ from rustexp_tpu_torch.ops.raster_setup import (setup_triangles,
 from rustexp_tpu_torch.ops import sort_bitonic as sb
 from rustexp_tpu_torch.parallel import raster_shard
 from rustexp_tpu_torch.raster import camera, pipeline as pp
+from rustexp_tpu_torch.raster import structure as rs
 from rustexp_tpu_torch.raster import shade as sd
 from rustexp_tpu_torch.raster import shaders as sh
 from rustexp_tpu_torch.sims.gol import GoLExperiment
@@ -60,7 +61,7 @@ def test_b1_kernel_matches_plain_on_card(mesh_idx, per_pixel, ray_world):
     dev = _card()
     scene = pp.make_scene(mesh.get_mesh(mesh_idx), cubemap.get_cm_set(0), dev)
     eye = camera.camera_eye(mesh.mesh_camera(mesh_idx), 0.0)
-    queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
+    queue = rs.build(scene, rs.QUEUE, eye, W, H, per_pixel=per_pixel).data
     colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0, W, H, 5)
     setup, extra, n2, n3 = pp.queue_attr_channels(
         scene, colors, eye, W, H, per_pixel=per_pixel, ray_world=ray_world)
@@ -169,12 +170,11 @@ def test_shader_frames_on_card_match_cpu(per_pixel):
     eye = camera.camera_eye(mesh.mesh_camera(0), 0.0)
     scenes = {d: pp.make_scene(mesh.get_mesh(0), cubemap.get_cm_set(0), d)
               for d in (dev, torch.device("cpu"))}
-    queues = {d: pp.build_scene_queue(s_, eye, W, H, per_pixel=per_pixel)
+    queues = {d: rs.build(s_, rs.QUEUE, eye, W, H, per_pixel=per_pixel)
               for d, s_ in scenes.items()}
     for i in range(sh.NUM_SHADERS):
         fbs = [pp.render_frame(s_, eye, 0.0, w=W, h=H, per_pixel=per_pixel,
-                               shader_idx=i, backend="queue",
-                               raster_queue=queues[d]).cpu()
+                               shader_idx=i, structure=queues[d]).cpu()
                for d, s_ in scenes.items()]
         assert torch.equal(*fbs), sh.shader_name(i)
 
@@ -187,10 +187,10 @@ def test_frame_on_card_matches_cpu(per_pixel):
     for d in (dev, torch.device("cpu")):
         scene = pp.make_scene(mesh.get_mesh(0), cubemap.get_cm_set(0), d)
         eye = camera.camera_eye(mesh.mesh_camera(0), 0.0)
-        queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
+        queue = rs.build(scene, rs.QUEUE, eye, W, H, per_pixel=per_pixel)
         frames.append(pp.render_frame(
-            scene, eye, 0.0, w=W, h=H, per_pixel=per_pixel, backend="queue",
-            raster_queue=queue).cpu().view(torch.int32))
+            scene, eye, 0.0, w=W, h=H, per_pixel=per_pixel,
+            structure=queue).cpu().view(torch.int32))
     assert int((frames[0] != frames[1]).sum()) <= 0.003 * W * H
 
 
@@ -201,13 +201,13 @@ def test_frame_on_card_matches_cpu(per_pixel):
 def test_b2_kernel_matches_plain_on_card(mesh_idx, per_pixel, binning):
     """Bit-equal z, slot and planes over the whole frame at 512x512: the
     Cube at suggest_binning's cap and spans (the suite's shapes), the
-    procedural TorusKnot at backend="pallas"'s default bins."""
+    procedural TorusKnot at the default (dense) bins."""
     dev = _card()
     scene = pp.make_scene(mesh.get_mesh(mesh_idx), cubemap.get_cm_set(0), dev)
     eye = camera.camera_eye(mesh.mesh_camera(mesh_idx), 0.0)
     cap = spans = None
     if binning == "suite":
-        cap, spans, _ = pp.suggest_binning(scene, eye, W, H)
+        cap, spans, _ = rs.suggest_binning(scene, eye, W, H)
     vp, world, n_world = pp.transform_vertices(scene, eye, W, H)
     colors = scene.colors if per_pixel else pp.vertex_colors(scene, eye, 0.0,
                                                              W, H, 5)
@@ -245,7 +245,7 @@ def test_bins_frame_on_card_matches_cpu(per_pixel):
 
 @pytest.mark.cuda
 def test_compacted_bins_frame_on_card_matches_cpu():
-    """TorusKnotP through backend="pallas" at suggest_binning's config,
+    """TorusKnotP through the bins at suggest_binning's config,
     whose rows_cap takes the compacted shade (the static-size nonzero of
     the occupied blocks), card vs CPU."""
     dev = _card()
@@ -253,11 +253,10 @@ def test_compacted_bins_frame_on_card_matches_cpu():
     for d in (dev, torch.device("cpu")):
         scene = pp.make_scene(mesh.get_mesh(6), cubemap.get_cm_set(0), d)
         eye = camera.camera_eye(mesh.mesh_camera(6), 0.0)
-        cap, spans, rows = pp.suggest_binning(scene, eye, W, H)
-        assert rows is not None
+        bins = rs.build(scene, rs.BINS, eye, W, H)
+        assert bins.data[2] is not None
         fb, overflow = pp.render_frame(
-            scene, eye, 0.0, w=W, h=H, per_pixel=True, backend="pallas",
-            raster_cap=cap, raster_spans=spans, raster_rows=rows,
+            scene, eye, 0.0, w=W, h=H, per_pixel=True, structure=bins,
             return_overflow=True)
         assert not bool(overflow)
         frames.append(fb.cpu().view(torch.int32))
@@ -440,8 +439,8 @@ def test_b7_kernel_matches_plain_on_card(mesh_idx, per_pixel, size):
         scene = pp.make_scene(mesh.get_mesh(mesh_idx), cubemap.get_cm_set(0),
                               dev)
         eye = camera.camera_eye(mesh.mesh_camera(mesh_idx), 0.0)
-        queue = pp.build_scene_queue(scene, eye, size, size,
-                                     per_pixel=per_pixel)
+        queue = rs.build(scene, rs.QUEUE, eye, size, size,
+                         per_pixel=per_pixel).data
         colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0,
                                                          size, size, 5)
         setup, extra, _, _ = pp.queue_attr_channels(
@@ -532,7 +531,8 @@ def test_defer_frame_on_card(per_pixel):
     for d in (dev, torch.device("cpu")):
         scene = pp.make_scene(mesh.get_mesh(0), cubemap.get_cm_set(0), d)
         eye = camera.camera_eye(mesh.mesh_camera(0), 0.0)
-        queue = pp.build_scene_queue(scene, eye, W, H, per_pixel=per_pixel)
+        queue = rs.build(scene, rs.QUEUE, eye, W, H,
+                         per_pixel=per_pixel).data
         colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0, W,
                                                          H, 5)
         kw = dict(w=W, h=H, per_pixel=per_pixel, shader_idx=5,
@@ -549,25 +549,27 @@ def test_defer_frame_on_card(per_pixel):
 
 @pytest.mark.cuda
 def test_gbuffer_frames_on_card():
-    """render_frame(backend="xla") at 512x512 equals backend="pallas" on
-    the card and the CPU's xla frame; the band renderer's four 128-row
+    """render_frame through the oracle at 512x512 equals the dense bins on
+    the card and the CPU's oracle frame; the band renderer's four 128-row
     bands through B3, stitched, and render_frame_sharded(group=None,
-    backend="pallas") equal the card's xla frame; the Experiment at a
+    backend="pallas") equal the card's oracle frame; the Experiment at a
     500x500 window renders through the oracle like the CPU's."""
     from rustexp_tpu_torch.sims.rasterizer import RasterizerExperiment
 
     dev = _card()
     eye = camera.camera_eye(mesh.mesh_camera(0), 0.0)
     kw = dict(w=W, h=H, per_pixel=True, shader_idx=5)
+    oracle = rs.Structure(rs.ORACLE)
     frames = []
     for d in (dev, torch.device("cpu")):
         scene = pp.make_scene(mesh.get_mesh(0), cubemap.get_cm_set(0), d)
-        frames.append(pp.render_frame(scene, eye, 0.0, backend="xla", **kw))
+        frames.append(pp.render_frame(scene, eye, 0.0, structure=oracle,
+                                      **kw))
     assert int((frames[0].cpu() != frames[1]).sum()) <= 0.003 * W * H
     scene = pp.make_scene(mesh.get_mesh(0), cubemap.get_cm_set(0), dev)
-    assert torch.equal(frames[0], pp.render_frame(scene, eye, 0.0,
-                                                  backend="pallas", **kw))
-    plain = pp.render_frame(scene, eye, 0.0, backend="xla", show_cm=False,
+    assert torch.equal(frames[0], pp.render_frame(
+        scene, eye, 0.0, structure=rs.Structure(rs.BINS), **kw))
+    plain = pp.render_frame(scene, eye, 0.0, structure=oracle, show_cm=False,
                             **kw)
     launches = rb.raster_gbuffer_bins_cuda.launches
     bands = torch.cat([raster_shard.render_band(

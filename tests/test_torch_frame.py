@@ -25,6 +25,7 @@ from rustexp_tpu_torch.core import trace
 from rustexp_tpu_torch.ops import raster_bins as trb
 from rustexp_tpu_torch.ops import raster_queue as trq
 from rustexp_tpu_torch.raster import pipeline as tpp
+from rustexp_tpu_torch.raster import structure as tstruct
 from rustexp_tpu_torch.sims.rasterizer import RasterizerExperiment
 
 W = H = 128
@@ -51,18 +52,20 @@ def test_render_frame_matches_jax(sphere, per_pixel):
     and renders; then the port renders the JAX queue (interop)."""
     sj, st = sphere
     eye = camera.cam_orbit(0.7)
-    kw = dict(w=W, h=H, per_pixel=per_pixel, shader_idx=5, backend="queue")
+    kw = dict(w=W, h=H, per_pixel=per_pixel, shader_idx=5)
     qj = jpp.build_scene_queue(sj, eye, W, H, per_pixel=per_pixel)
-    want = jpp.render_frame(sj, eye, 0.7, raster_queue=qj, **kw)
-    qt = tpp.build_scene_queue(st, eye, W, H, per_pixel=per_pixel)
-    got, stale = tpp.render_frame(st, eye, 0.7, raster_queue=qt,
+    want = jpp.render_frame(sj, eye, 0.7, backend="queue", raster_queue=qj,
+                            **kw)
+    qt = tstruct.build(st, tstruct.QUEUE, eye, W, H, per_pixel=per_pixel)
+    got, stale = tpp.render_frame(st, eye, 0.7, structure=qt,
                                   return_overflow=True, **kw)
     assert not bool(stale)
     assert _diff(want, got) <= GOLDEN_FRAC * W * H
     carried = interop.queue_from_numpy(
         {f: np.asarray(getattr(qj, f)) for f in qj._fields}, CPU)
-    assert _diff(want, tpp.render_frame(st, eye, 0.7, raster_queue=carried,
-                                        **kw)) <= GOLDEN_FRAC * W * H
+    assert _diff(want, tpp.render_frame(
+        st, eye, 0.7, structure=tstruct.Structure(tstruct.QUEUE, carried),
+        **kw)) <= GOLDEN_FRAC * W * H
     bg = np.asarray(jpp.background(0, W, H))
     assert (np.asarray(want) != bg).sum() > W * H // 10  # the sphere is drawn
 
@@ -135,7 +138,7 @@ def test_bins_path_and_cpu_timing_refused():
     assert st._scene_cache[2] == ("xla", None)
     assert torch.equal(fb, tpp.render_frame(
         st._scene_cache[1], camera.camera_eye(jmesh.mesh_camera(9), 0.0),
-        0.0, w=120, h=H, backend="xla"))
+        0.0, w=120, h=H, structure=tstruct.Structure(tstruct.ORACLE)))
     for mesh_idx in (0, 9):
         with pytest.raises(ValueError, match="times the card"):
             tbench.bench_scene(mesh_idx, True, 1, device=CPU)
@@ -162,3 +165,52 @@ def test_bins_path_and_cpu_timing_refused():
             torch.zeros((1, 5), dtype=torch.int32),
             torch.zeros((1, 12, trq.CHUNK), dtype=torch.int32),
             torch.zeros((1, 10, trq.CHUNK)), 16, W)
+
+
+SPHERE, CUBE = 2304, 12  # the stand-ins' triangle counts (meshes 0 and 9)
+
+
+@pytest.mark.parametrize("n_tris,w,h,backend,kind", [
+    (SPHERE, 512, 512, "auto", "queue"),
+    (CUBE, 512, 512, "auto", "pallas"),
+    (SPHERE, 192, 192, "auto", "xla"),
+    (CUBE, 192, 192, "auto", "xla"),
+    (SPHERE, 256, 136, "auto", "xla"),
+    (CUBE, 256, 136, "auto", "xla"),
+    (SPHERE, 256, 144, "auto", "queue"),
+    (CUBE, 256, 144, "auto", "xla"),
+    (SPHERE, 1280, 720, "auto", "queue"),
+    (CUBE, 1280, 720, "auto", "xla"),
+    (tstruct.QUEUE_MIN_TRIS - 1, 512, 512, "auto", "pallas"),
+    (tstruct.QUEUE_MIN_TRIS, 512, 512, "auto", "queue"),
+    (CUBE, 512, 512, "queue", "queue"),
+    (SPHERE, 512, 512, "pallas", "pallas"),
+    (SPHERE, 512, 512, "xla", "xla"),
+    (SPHERE, 96, 80, "queue", "xla"),
+    (CUBE, 256, 144, "pallas", "xla"),
+])
+def test_route_table(n_tris, w, h, backend, kind):
+    """One rule picks the structure: "auto" by triangle count, then the
+    oracle wherever that structure's tiles (16x128 queue, 32x128 bins)
+    do not divide the frame. 512^2 sphere -> queue, 512^2 Cube -> bins
+    and the viewer's 192^2 -> oracle, as before; 256x136, 256x144 and
+    1280x720 crashed the Experiment before (ROADMAP C7)."""
+    assert tstruct.route(n_tris, w, h, backend) == kind
+
+
+@pytest.mark.parametrize("mesh_idx,w,h", [(0, 256, 136), (9, 256, 144)])
+def test_experiment_renders_windows_its_structure_rejects(mesh_idx, w, h):
+    """Windows whose rows the auto structure's tiles do not divide (the
+    queue's 16 for mesh 0 at 136 rows, the bins' 32 for the Cube at 144)
+    raised before (ROADMAP C7); they now render through the oracle, bit
+    for bit render_frame's oracle frame at the same eye, in V and P."""
+    te = RasterizerExperiment(CPU)
+    eye = camera.camera_eye(jmesh.mesh_camera(mesh_idx), 0.0)
+    for per_pixel in (False, True):
+        ts = te.init(mesh_idx=mesh_idx, per_pixel=per_pixel)
+        got = te.render(ts, w, h, 0.0)
+        assert ts._scene_cache[2] == (tstruct.ORACLE, None)
+        want = tpp.render_frame(ts._scene_cache[1], eye, 0.0, w=w, h=h,
+                                per_pixel=per_pixel,
+                                structure=tstruct.Structure(tstruct.ORACLE))
+        assert torch.equal(got, want)

@@ -3,8 +3,8 @@
 The XLA oracle (raster_gbuffer_xla), the plain version of kernel B3
 against the Pallas _tile_kernel in interpret mode (also on the stress
 bins of chip_smoke.stress_bins), raster_gbuffer_pallas,
-shade_gbuffer, render_frame(backend="xla") and the "auto" route on frames
-of partial tiles, the Experiment at untileable windows, triangle setup
+shade_gbuffer, render_frame through the oracle and the routes to it on
+frames of partial tiles, the Experiment at untileable windows, triangle setup
 with the band translation y_shift, the banded background, and the band
 renderer (render_band, render_frame_sharded) against JAX's sharded render
 on a 4-device mesh, in this process over gloo and across two spawned
@@ -50,6 +50,7 @@ from rustexp_tpu_torch.ops import raster_setup as trs
 from rustexp_tpu_torch.ops.raster_xla import raster_gbuffer_xla
 from rustexp_tpu_torch.parallel import raster_shard as tshard
 from rustexp_tpu_torch.raster import pipeline as tpp
+from rustexp_tpu_torch.raster import structure as tstruct
 from rustexp_tpu_torch.sims.rasterizer import RasterizerExperiment
 
 from test_raster_fuzz import random_soup
@@ -266,21 +267,26 @@ def test_banded_background_matches_jax(bg_idx):
 @pytest.mark.parametrize("w,h,backend", [(W, H, "xla"), (96, 80, "auto"),
                                          (96, 80, "queue")])
 def test_render_frame_xla_matches_jax(per_pixel, w, h, backend):
-    """backend="xla", and "auto"/"queue" without a queue on a frame of
-    partial tiles, take the oracle; at 128x128 its frame equals the bins'
-    (backend="pallas"), as JAX pins (tests/test_raster.py:215)."""
+    """backend="xla", and "auto"/"queue" on a frame of partial tiles,
+    route to the oracle; at 128x128 its frame equals the bins', as JAX
+    pins (tests/test_raster.py:215)."""
     sj, st = _scenes("sphere")
-    kw = dict(w=w, h=h, per_pixel=per_pixel, shader_idx=5, backend=backend,
+    kw = dict(w=w, h=h, per_pixel=per_pixel, shader_idx=5,
               return_overflow=True)
-    want, oj = jpp.render_frame(sj, jnp.asarray(EYE), 0.7, **kw)
-    got, ot = tpp.render_frame(st, EYE, 0.7, **kw)
+    want, oj = jpp.render_frame(sj, jnp.asarray(EYE), 0.7, backend=backend,
+                                **kw)
+    kind = tstruct.route(st.tris.shape[0], w, h, backend)
+    assert kind == tstruct.ORACLE
+    got, ot = tpp.render_frame(st, EYE, 0.7,
+                               structure=tstruct.Structure(kind), **kw)
     assert _diff(want, got) <= GOLDEN_FRAC * w * h
     assert bool(ot) == bool(oj) is False
     assert (np.asarray(want) != np.asarray(jpp.background(0, w, h))).sum() \
         > w * h // 10
     if w % trb.TILE_W == 0 and h % trb.TILE_H == 0:
         assert torch.equal(got, tpp.render_frame(
-            st, EYE, 0.7, **{**kw, "backend": "pallas"})[0])
+            st, EYE, 0.7, structure=tstruct.Structure(tstruct.BINS),
+            **kw)[0])
 
 
 @pytest.mark.parametrize("mesh_idx,w,h", [(9, 96, 80), (0, 160, 100),
@@ -322,7 +328,8 @@ def test_render_band_matches_jax_sharded(name, per_pixel, shader_idx):
     kw = dict(w=W, h=H, per_pixel=per_pixel, shader_idx=shader_idx)
     mesh = Mesh(np.array(jax.devices()[:4]), axis_names=("rows",))
     want = jshard.render_frame_sharded(sj, jnp.asarray(eye), 0.5, mesh, **kw)
-    full = tpp.render_frame(st, eye, 0.5, backend="xla", show_cm=False, **kw)
+    full = tpp.render_frame(st, eye, 0.5, show_cm=False,
+                            structure=tstruct.Structure(tstruct.ORACLE), **kw)
     for backend in ("xla", "pallas"):
         bands = [tshard.render_band(st, eye, 0.5, band=b, n_bands=4,
                                     backend=backend, **kw) for b in range(4)]
@@ -340,7 +347,8 @@ def test_render_frame_sharded_gloo_one_rank():
     kw = dict(w=W, h=H, per_pixel=True, backend="pallas")
     alone = tshard.render_frame_sharded(st, EYE, 0.7, None, **kw)
     assert torch.equal(alone, tpp.render_frame(
-        st, EYE, 0.7, w=W, h=H, per_pixel=True, backend="xla",
+        st, EYE, 0.7, w=W, h=H, per_pixel=True,
+        structure=tstruct.Structure(tstruct.ORACLE),
         show_cm=False))
     dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
                             world_size=1)

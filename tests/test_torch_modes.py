@@ -22,6 +22,7 @@ from rustexp_tpu.sims.rasterizer import RasterizerExperiment as JaxExperiment
 from rustexp_tpu_torch.assets import cubemap as tcubemap
 from rustexp_tpu_torch.assets import mesh as tmesh
 from rustexp_tpu_torch.raster import pipeline as tpp
+from rustexp_tpu_torch.raster import structure as tstruct
 from rustexp_tpu_torch.raster import shaders as tsh
 from rustexp_tpu_torch.sims import rasterizer as trast
 
@@ -60,16 +61,19 @@ def test_sphere_modes_match_jax(sphere, mode, eye_fn, tick):
 @pytest.mark.parametrize("mode", [jpp.MODE_POINT, jpp.MODE_LINE])
 @pytest.mark.parametrize("per_pixel", [False, True])
 def test_killeroo_modes_match_jax(mode, per_pixel):
-    """Procedural Killeroo at 128x96 with shader 5's cubemap cross, every
-    backend name: the modes take no structure and no shader."""
+    """Procedural Killeroo at 128x96 with shader 5's cubemap cross, the
+    structure of every backend name: the modes read no structure and run
+    no shader."""
     m = jmesh.get_mesh(0)
     sj = jpp.make_scene(m, jcubemap.get_cm_set(0))
     st = tpp.make_scene(tmesh.get_mesh(0), tcubemap.get_cm_set(0), CPU)
     eye = camera.camera_eye(jmesh.mesh_camera(0), 0.4)
     kw = dict(w=128, h=96, mode=mode, per_pixel=per_pixel, shader_idx=5)
     want = np.asarray(jpp.render_frame(sj, jnp.asarray(eye), 0.4, **kw))
-    for backend in ("auto", "xla", "pallas", "queue"):
-        got = tpp.render_frame(st, eye, 0.4, backend=backend, **kw)
+    for backend in tstruct.BACKENDS:
+        kind = tstruct.route(m.num_tris, 128, 96, backend)
+        got = tpp.render_frame(st, eye, 0.4,
+                               structure=tstruct.Structure(kind), **kw)
         assert np.array_equal(got.view(torch.int32).numpy().view(np.uint32),
                               want), backend
 

@@ -25,6 +25,7 @@ from rustexp_tpu_torch.assets import cubemap as tcubemap
 from rustexp_tpu_torch.ops import raster_queue as trq
 from rustexp_tpu_torch.ops import raster_setup as trs
 from rustexp_tpu_torch.raster import pipeline as tpp
+from rustexp_tpu_torch.raster import structure as tstruct
 
 W = H = 128
 CPU = torch.device("cpu")
@@ -57,7 +58,7 @@ def _setups(scene_pair, eye):
     sj, st = scene_pair
     xs, ys, zs, *_ = jpp.transform_corners_planar(sj, jnp.asarray(eye), W, H)
     return (jrs.setup_triangles_planar(xs, ys, zs, W, H),
-            tpp._queue_setup(st, eye, W, H))
+            tstruct.queue_setup(st, eye, W, H))
 
 
 @pytest.mark.parametrize("mesh", ["tiny", "dense", "plane"])
@@ -218,8 +219,8 @@ def test_plane_queue_frame_equals_tri_queue_frame(scenes):
     a tri queue of one eye render the same frame."""
     _, st = scenes["plane"]
     eye = camera.cam_orbit(1.4)
-    setup = tpp._queue_setup(st, eye, W, H)
-    cfg = trq.suggest_queue_config(tpp.scene_queue_stats(st, eye, W, H))
+    setup = tstruct.queue_setup(st, eye, W, H)
+    cfg = trq.suggest_queue_config(trq.read_queue_stats(setup, H, W))
     frames, ids = {}, {}
     for order in ("plane", "tri", "direct"):
         q = trq.build_queue(setup, H, W, s_cap=cfg[0], m_y=cfg[1],
@@ -227,8 +228,8 @@ def test_plane_queue_frame_equals_tri_queue_frame(scenes):
         assert q.order == order
         ids[order] = q.ids
         frames[order] = tpp.render_frame(
-            st, eye, 1.4, w=W, h=H, per_pixel=True, backend="queue",
-            raster_queue=q)
+            st, eye, 1.4, w=W, h=H, per_pixel=True,
+            structure=tstruct.Structure(tstruct.QUEUE, q))
     assert not torch.equal(ids["plane"], ids["tri"])
     assert torch.equal(ids["direct"], ids["tri"])
     assert torch.equal(frames["plane"], frames["tri"])
@@ -244,24 +245,24 @@ def test_moving_amortized_bit_exact(scenes):
     K, n = 4, 8
     ticks = [0.9 + i / 60.0 for i in range(n)]
     eyes = [camera.cam_orbit(t) for t in ticks]
-    dil = trs.dilate_setup_planar(tpp._queue_setup(st, eyes[0], W, H), 24,
-                                  W, H, 4096)
+    dil = trs.dilate_setup_planar(tstruct.queue_setup(st, eyes[0], W, H),
+                                  24, W, H, 4096)
     s_cap, m_y, m_x, t_cap = trq.suggest_queue_config(
         tuple(int(x) for x in trq.queue_stats(dil, H, W)))
     kw = dict(w=W, h=H, shader_idx=5, show_cm=False, per_pixel=True,
-              return_overflow=True, backend="queue")
+              return_overflow=True)
     for c0 in range(0, n, K):
-        dil = trs.dilate_setup_planar(tpp._queue_setup(st, eyes[c0], W, H),
-                                      24, W, H, 4096)
-        q = trq.build_queue(dil, H, W, s_cap=s_cap, m_y=m_y, m_x=m_x,
-                            t_cap=t_cap)
+        dil = trs.dilate_setup_planar(
+            tstruct.queue_setup(st, eyes[c0], W, H), 24, W, H, 4096)
+        q = tstruct.Structure(tstruct.QUEUE, trq.build_queue(
+            dil, H, W, s_cap=s_cap, m_y=m_y, m_x=m_x, t_cap=t_cap))
         for i in range(c0, c0 + K):
             fb_am, stale = tpp.render_frame(st, eyes[i], ticks[i],
-                                            raster_queue=q, **kw)
+                                            structure=q, **kw)
             assert not bool(stale), f"stale fired at frame {i}"
-            fresh = tpp.build_scene_queue(st, eyes[i], W, H)
+            fresh = tstruct.build(st, tstruct.QUEUE, eyes[i], W, H)
             fb_fresh, st2 = tpp.render_frame(st, eyes[i], ticks[i],
-                                             raster_queue=fresh, **kw)
+                                             structure=fresh, **kw)
             assert not bool(st2)
             assert torch.equal(fb_am, fb_fresh), f"frame {i}"
 

@@ -26,6 +26,7 @@ from rustexp_tpu_torch.assets import cubemap, mesh as meshes
 from rustexp_tpu_torch.core import framebuffer as fbm, prng
 from rustexp_tpu_torch.ops import gol_stencil, nbody_bh
 from rustexp_tpu_torch.raster import camera, pipeline as pp
+from rustexp_tpu_torch.raster import structure as rs
 from rustexp_tpu_torch.sims.gol import GoLExperiment, gol_render
 from rustexp_tpu_torch.sims.nbody import nbody_render, stable_orbits
 from rustexp_tpu_torch.sims.sine import sine_frame
@@ -62,10 +63,9 @@ def _raster_frames(n_dev):
     for i in range(FRAMES):
         tick = i / 60.0
         eye = camera.camera_eye(meshes.mesh_camera(0), tick)
-        q = pp.build_scene_queue(scene, eye, SIZE, SIZE)
+        q = rs.build(scene, rs.QUEUE, eye, SIZE, SIZE)
         out.append(pp.render_frame(scene, eye, tick, w=SIZE, h=SIZE,
-                                   backend="queue", raster_queue=q,
-                                   show_cm=False))
+                                   structure=q, show_cm=False))
     return out
 
 

@@ -28,6 +28,7 @@ from rustexp_tpu_torch import interop
 from rustexp_tpu_torch.assets import cubemap as tcubemap
 from rustexp_tpu_torch.ops import raster_queue as trq
 from rustexp_tpu_torch.raster import pipeline as tpp
+from rustexp_tpu_torch.raster import structure as tstruct
 
 W = H = 128
 CPU = torch.device("cpu")
@@ -60,7 +61,7 @@ def _assert_tuple_equal(a, b, what):
 def _setups(scenes, eye):
     sj, st = scenes
     xj = _jit_corners(sj, jnp.asarray(eye), W, H)
-    return _jit_setup(*xj[:3], W, H), tpp._queue_setup(st, eye, W, H)
+    return _jit_setup(*xj[:3], W, H), tstruct.queue_setup(st, eye, W, H)
 
 
 @pytest.mark.parametrize("eye_i", range(len(EYES)))
@@ -430,7 +431,8 @@ def test_b7_plain_equals_b1_plain_race(scenes, case):
         _, st = scenes
         eye = camera.cam_orbit(0.7)
         per_pixel = case == "P"
-        q = tpp.build_scene_queue(st, eye, W, H, per_pixel=per_pixel)
+        q = tstruct.build(st, tstruct.QUEUE, eye, W, H,
+                          per_pixel=per_pixel).data
         colors = None if per_pixel else tpp.vertex_colors(st, eye, 0.0, W, H,
                                                           5)
         sett, extra, n2, n3 = tpp.queue_attr_channels(st, colors, eye, W, H,
@@ -507,7 +509,7 @@ def _queue_frames(scenes, eye, per_pixel, **kw):
                                        jnp.float32(0.7), sj.cm)
         colors_t = tpp.vertex_colors(st, eye, 0.7, W, H, 5)
     qj = jpp.build_scene_queue(sj, ej, W, H, per_pixel=per_pixel)
-    qt = tpp.build_scene_queue(st, eye, W, H, per_pixel=per_pixel)
+    qt = tstruct.build(st, tstruct.QUEUE, eye, W, H, per_pixel=per_pixel).data
     fj, sj_ = jpp.raster_and_shade_queue(
         sj, qj, colors_j, ej, jnp.float32(0.7), w=W, h=H,
         per_pixel=per_pixel, shader_idx=5, bg_fb=jpp.background(0, W, H),

@@ -14,7 +14,7 @@ in a subprocess without the simplifier (XLA_FLAGS
 --xla_disable_hlo_passes=algsimp) and with the shaders' constant arrays
 made run-time values (plus a zero argument). The frames compare with the
 JAX package as it is; the differences stay below the 11-bit gamma pack.
-They take the G-buffer oracle (backend="xla"), which runs no Pallas
+They take the G-buffer oracle (JAX's backend "xla"), which runs no Pallas
 kernel in either package, on a 1,024-triangle sphere at 128x128:
 per-vertex (V) shades the vertices and interpolates, per-pixel (P)
 shades every covered pixel. Aim and measure: 0 differing pixels.
@@ -37,6 +37,7 @@ from rustexp_tpu.raster import pipeline as jpp
 from rustexp_tpu.raster import shaders as jsh
 from rustexp_tpu_torch.assets import cubemap as tcubemap
 from rustexp_tpu_torch.raster import pipeline as tpp
+from rustexp_tpu_torch.raster import structure as tstruct
 from rustexp_tpu_torch.raster import shaders as tsh
 
 W = H = 128
@@ -156,12 +157,14 @@ def test_shader_configs_render_as_jax(sphere, per_pixel):
     """All 16 shaders in one mode, as whole frames: 0 differing pixels."""
     sj, st = sphere
     eye = camera.cam_orbit_front(1.1)
-    kw = dict(w=W, h=H, per_pixel=per_pixel, backend="xla", show_cm=False)
+    kw = dict(w=W, h=H, per_pixel=per_pixel, show_cm=False)
     bg = tpp.background(0, W, H, CPU)
     for idx in range(tsh.NUM_SHADERS):
         want = jpp.render_frame(sj, jnp.asarray(eye), 1.1, shader_idx=idx,
-                                **kw)
-        got = tpp.render_frame(st, eye, 1.1, shader_idx=idx, **kw)
+                                backend="xla", **kw)
+        got = tpp.render_frame(st, eye, 1.1, shader_idx=idx,
+                               structure=tstruct.Structure(tstruct.ORACLE),
+                               **kw)
         assert _diff(want, got) == 0, tsh.shader_name(idx)
         assert int((got.view(torch.int32) != bg).sum()) > W * H // 10
 
@@ -174,6 +177,7 @@ def test_golden_raster_sphere_plastic_v():
                         tcubemap.make_procedural_set(), CPU)
     fb = tpp.render_frame(st, camera.cam_orbit_front(1.3), 1.3, w=W, h=H,
                           per_pixel=False, shader_idx=3, bg_idx=0,
-                          show_cm=False, backend="pallas")
+                          show_cm=False,
+                          structure=tstruct.Structure(tstruct.BINS))
     want = np.load("tests/goldens/raster_sphere_plastic_v.npz")["fb"]
     assert _diff(want, fb) <= GOLDEN_FRAC * W * H

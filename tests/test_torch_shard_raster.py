@@ -40,6 +40,7 @@ from rustexp_tpu_torch.ops import raster_queue as trq
 from rustexp_tpu_torch.parallel import collectives as coll
 from rustexp_tpu_torch.parallel import raster_shard as tshard
 from rustexp_tpu_torch.raster import pipeline as tpp
+from rustexp_tpu_torch.raster import structure as tstruct
 
 import torch_shard_ranks
 
@@ -118,8 +119,9 @@ def test_band_queues_match_jax_in_each_order(layout, order):
     js, ts = _scenes()
     caps = tuple(int(c) for c in jshard.band_queue_caps(
         js, [jnp.asarray(EYE)], w=W, h=H, n_dev=D, layout=layout))
-    assert caps == tshard.band_queue_caps(ts, [_teye()], w=W, h=H, n_dev=D,
-                                          layout=layout)
+    assert tshard.band_queue_caps(ts, [_teye()], w=W, h=H, n_dev=D,
+                                  layout=layout) == dict(
+        zip(("s_cap", "m_y", "m_x", "t_cap"), caps), shade_w=trq.SHADE_W)
     build = _jax_band_queue_fn(layout, order, caps)
     s_cap, m_y, m_x, t_cap = caps
     for d in range(D):
@@ -289,11 +291,10 @@ def _jax_frames(layout, per_pixel):
 @functools.cache
 def _one_rank_frame(per_pixel):
     _, ts = _scenes()
-    q = tpp.build_scene_queue(ts, _teye(), W, H)
+    q = tstruct.build(ts, tstruct.QUEUE, _teye(), W, H)
     return _bits(tpp.render_frame(ts, _teye(), TICK, w=W, h=H,
                                   per_pixel=per_pixel, shader_idx=5,
-                                  backend="queue", raster_queue=q,
-                                  show_cm=False))
+                                  structure=q, show_cm=False))
 
 
 @pytest.mark.parametrize("per_pixel", [False, True], ids=["V", "P"])
@@ -357,7 +358,7 @@ def test_queue_render_over_4_gloo_ranks():
             tag = f"{layout}_{'P' if per_pixel else 'V'}"
             want, want_moving = _jax_frames(layout, per_pixel)
             for r in res:
-                assert tuple(r[f"caps_{layout}"]) == caps
+                assert r[f"caps_{layout}"] == caps
                 assert not r[f"stale_{tag}"] and not r[f"moving_stale_{tag}"]
                 assert int((r[f"queue_{tag}"] != want).sum()) == 0, tag
                 assert int((r[f"moving_{tag}"] != want_moving).sum()) == 0

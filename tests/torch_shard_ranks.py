@@ -74,7 +74,7 @@ def raster(group, dev, inp: dict) -> dict:
         queue = raster_shard.build_band_queue(scene, eye, caps, w=w, h=h,
                                               n_dev=n_dev, band=rank,
                                               layout=layout)
-        out[f"caps_{layout}"] = np.asarray(caps)
+        out[f"caps_{layout}"] = caps
         for per_pixel in (False, True):
             tag = f"{layout}_{'P' if per_pixel else 'V'}"
             render = raster_shard.make_sharded_queue_render(

@@ -84,10 +84,12 @@ def scene_inputs(dev, mesh_idx: int, per_pixel: bool, size: int):
     from rustexp_tpu_torch.assets import cubemap, mesh
     from rustexp_tpu_torch.ops import raster_queue as rq
     from rustexp_tpu_torch.raster import camera, pipeline as pp
+    from rustexp_tpu_torch.raster import structure as rs
 
     scene = pp.make_scene(mesh.get_mesh(mesh_idx), cubemap.get_cm_set(0), dev)
     eye = camera.camera_eye(mesh.mesh_camera(mesh_idx), 0.0)
-    queue = pp.build_scene_queue(scene, eye, size, size, per_pixel=per_pixel)
+    queue = rs.build(scene, rs.QUEUE, eye, size, size,
+                     per_pixel=per_pixel).data
     colors = None if per_pixel else pp.vertex_colors(scene, eye, 0.0, size,
                                                      size, 5)
     setup, extra, n2, n3 = pp.queue_attr_channels(scene, colors, eye, size,
