@@ -50,7 +50,9 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      (131,072 bodies, blocks of 256, K 27), the viewer's (10,000, 200, 27)
      and (4,096, 128, 6), within NEAR_RTOL of its plain chain, the same
      bits from two calls, one grid a call, timed by the card's activity
-     of a call beside its bound and the plain chain's time;
+     of a call beside its bound and the plain chain's time; F (the
+     Barnes-Hut far field) at the same three shapes in the same way,
+     within FAR_RTOL;
   4. runs each main path with the launch counters set to 0 just before it
      and read just after, and fails if its kernel never ran, or if the
      shade kernel S did not launch once for each raster render (B1, B2
@@ -244,6 +246,9 @@ OPS_PAIR = 11
 # in another order and the pair fused.
 NEAR_CASES = ((131072, 256, 27), (10_000, 200, 27), (4096, 128, 6))
 NEAR_RTOL = 1e-5
+# F, the Barnes-Hut far field, is held at NEAR_CASES to the same
+# tolerance for the same reasons (tests/test_torch_nbody_far.py)
+FAR_RTOL = 1e-5
 
 # (cells, generations, form): None is the plan's
 B4_CASES = (((256, 256), 100, None), ((256, 256), 100, "tiled"),
@@ -1448,6 +1453,19 @@ def b5_vs_plain(dev, npl, stable_orbits) -> dict:
     return out
 
 
+def bh_blocks(dev, bh, stable_orbits, n: int, block: int, k: int):
+    """The Morton-sorted stable-orbit disk of n bodies cut into blocks, as
+    forces_bh_sorted makes them -> (xb, yb, mb, msum, cx, cy, idx)."""
+    from rustexp_tpu_torch.core import prng
+
+    px, py, _, _, m = stable_orbits(prng.key(n), n, device=dev)
+    px, py, m = bh.morton_sort(px, py, m)
+    xb, yb, mb = (a.reshape(n // block, block) for a in (px, py, m))
+    idx = bh.near_block_indices(xb.amin(1), xb.amax(1), yb.amin(1),
+                                yb.amax(1), k)
+    return (xb, yb, mb, *bh.block_aggregates(xb, yb, mb), idx)
+
+
 def near_vs_plain(dev, bh, stable_orbits) -> dict:
     """N against its plain chain at NEAR_CASES on the Morton-sorted
     stable-orbit disk, as forces_bh_sorted calls it: within NEAR_RTOL,
@@ -1455,15 +1473,10 @@ def near_vs_plain(dev, bh, stable_orbits) -> dict:
     by all the card's activity of a call, beside its bound (one
     reciprocal a one-sided pair; `half_ms` counts a mutual pair's two
     sides once, as perfbench/roofline_nbody.py does)."""
-    from rustexp_tpu_torch.core import prng
-
     out = {}
     for n, block, k in NEAR_CASES:
-        px, py, _, _, m = stable_orbits(prng.key(n), n, device=dev)
-        px, py, m = bh.morton_sort(px, py, m)
-        xb, yb, mb = (a.reshape(n // block, block) for a in (px, py, m))
-        idx = bh.near_block_indices(xb.amin(1), xb.amax(1), yb.amin(1),
-                                    yb.amax(1), k)
+        xb, yb, mb, _, _, _, idx = bh_blocks(dev, bh, stable_orbits, n,
+                                             block, k)
         run = lambda: bh.near_field_cuda(xb, yb, xb, yb, mb, idx)
         calls = bh.near_field_cuda.launches
         got, again = run(), run()
@@ -1487,6 +1500,44 @@ def near_vs_plain(dev, bh, stable_orbits) -> dict:
             work=f"{label}, {pairs:.3e} one-sided pairs, 1 launch")
         print(f"N at {label}: max |dF| / max |F| {rel:.3e} (tolerance "
               f"{NEAR_RTOL:.0e}), median per-particle {med:.3e}, max abs "
+              f"error {err:.3e}; two calls give the same bits: {same}; "
+              f"{calls:g} launches a call", flush=True)
+    return out
+
+
+def far_vs_plain(dev, bh, stable_orbits) -> dict:
+    """F against its plain chain at NEAR_CASES on the Morton-sorted
+    stable-orbit disk, as forces_bh_sorted calls it: within FAR_RTOL, the
+    same bits from two calls, one launch a call; timed at each case by
+    all the card's activity of a call, beside its bound (one reciprocal a
+    monopole term, perfbench/roofline_nbody.py's count)."""
+    out = {}
+    for n, block, k in NEAR_CASES:
+        xb, yb, _, msum, cx, cy, idx = bh_blocks(dev, bh, stable_orbits, n,
+                                                 block, k)
+        args = (xb, yb, msum, cx, cy, idx)
+        run = lambda: bh.far_field_cuda(*args)
+        calls = bh.far_field_cuda.launches
+        got, again = run(), run()
+        calls = (bh.far_field_cuda.launches - calls) / 2
+        torch.cuda.synchronize(dev)
+        same = all(not _bits_differ(a, b) for a, b in zip(got, again))
+        rel, med, err = force_errors(got, bh.far_field_plain(*args))
+        nb = n // block
+        terms = n * (nb - k)
+        # targets and monopoles read, the near sets read, forces written
+        moved = (2 * n + 3 * nb) * 4 + nb * k * 8 + 2 * n * 4
+        bms, by = time_bound(moved, terms * OPS_PAIR, sfu_ops=terms)
+        label = f"N {n} block {block} K {k}"
+        out[label] = dict(
+            err=err, rel=rel, median_rel=med, calls=calls,
+            bad=int(rel > FAR_RTOL) + int(not same) + int(calls != 1),
+            ms=device_ms(run, 20, None, 1), call_ms=cuda_ms(run, 20),
+            plain_ms=cuda_ms(lambda: bh.far_field_plain(*args), 5),
+            bound_ms=bms, bound_by=by,
+            work=f"{label}, {terms:.3e} monopole terms, 1 launch")
+        print(f"F at {label}: max |dF| / max |F| {rel:.3e} (tolerance "
+              f"{FAR_RTOL:.0e}), median per-particle {med:.3e}, max abs "
               f"error {err:.3e}; two calls give the same bits: {same}; "
               f"{calls:g} launches a call", flush=True)
     return out
@@ -1534,9 +1585,9 @@ def gol_paths(dev, card, gol_exp, counters, launches, per_step: dict
 def nbody_paths(dev, card, nb_exp, counters, launches, b5_per_step: int
                 ) -> str | None:
     """The N-body Experiment on the card at N = 131,072 (theta 0.85: block
-    BH, its Morton sort B6 and N once a step; theta 0: brute force, B5,
-    `b5_per_step` launches a step, no N) and N = 10,000 (BH, argsort, N
-    once a step), counted. Returns a failure message or None."""
+    BH, its Morton sort B6, N and F once a step; theta 0: brute force, B5,
+    `b5_per_step` launches a step, no N or F) and N = 10,000 (BH, argsort,
+    N and F once a step), counted. Returns a failure message or None."""
     for n, theta, kernel in ((NBODY_N, 0.85, "B6"), (NBODY_N, 0.0, "B5"),
                              (10_000, 0.85, None)):
         exp = nb_exp(dev)
@@ -1559,9 +1610,10 @@ def nbody_paths(dev, card, nb_exp, counters, launches, b5_per_step: int
             return (f"the brute N-body path launched B5 {got[kernel]} "
                     f"times, not {NBODY_STEPS * b5_per_step}")
         near = NBODY_STEPS if theta > 0 else 0
-        if got["N"] != near:
-            return (f"the N-body N={n} theta={theta} path launched N "
-                    f"{got['N']} times, not {near}")
+        for k in ("N", "F"):
+            if got[k] != near:
+                return (f"the N-body N={n} theta={theta} path launched {k} "
+                        f"{got[k]} times, not {near}")
         if not finite or drawn < 1000:
             return f"N-body N={n}: finite={finite}, {drawn} px drawn"
         for k in counters:
@@ -2577,9 +2629,11 @@ def app_shell(dev, card, counters, launches, tmp: str) -> str | None:
                                      "--size", str(W), *argv], counters,
                                stale)
         report(label, text, got, APP_FRAMES)
-        if got["B6"] != b6 or got["N"] != APP_FRAMES:
+        if got["B6"] != b6 or got["N"] != APP_FRAMES \
+                or got["F"] != APP_FRAMES:
             return (f"app {label}: B6 launched {got['B6']} times, not {b6}"
-                    f"; N {got['N']} times, not {APP_FRAMES}")
+                    f"; N {got['N']} and F {got['F']} times, not "
+                    f"{APP_FRAMES}")
 
     # 7. sine: no kernel; the card's PNGs = the CPU's frames
     out = os.path.join(tmp, "s")
@@ -3401,14 +3455,15 @@ def main() -> int:
     cmp6 = b6_vs_plain(dev, sb, bh, stable_orbits)
     cmp5 = b5_vs_plain(dev, npl, stable_orbits)
     cmpN = near_vs_plain(dev, bh, stable_orbits)
+    cmpF = far_vs_plain(dev, bh, stable_orbits)
     for kernel, cmp in (("B4", cmp4), ("B8", cmp8), ("B6", cmp6),
-                        ("B5", cmp5), ("N", cmpN)):
+                        ("B5", cmp5), ("N", cmpN), ("F", cmpF)):
         for label, r in cmp.items():
             if r["bad"]:
                 return fail(f"{kernel} {label}: disagrees with its plain "
                             f"version ({r['bad']})")
 
-    phase_done("B4, B8, B6, B5, N against their plain versions")
+    phase_done("B4, B8, B6, B5, N, F against their plain versions")
 
     # Phase 4: the main paths, each counted on its own.
     counters = {"B1": rq.raster_attrs_queue_cuda,
@@ -3420,7 +3475,8 @@ def main() -> int:
                 "B7": rq.raster_zslot_queue_cuda,
                 "B8": gs.multi_step_pallas_cuda,
                 "S": sd.shade_pack_cuda,
-                "N": bh.near_field_cuda}
+                "N": bh.near_field_cuda,
+                "F": bh.far_field_cuda}
     path_kernels = {"Killeroo": ("B1",), "Cube": ("B2",)}
     launches = {k: 0 for k in counters}
     exp = RasterizerExperiment(dev)
@@ -3573,7 +3629,7 @@ def main() -> int:
               f"kernel {r['kernel_ms']:.4f} ms/frame; idle share "
               f"{r['idle'] * 100:.1f}% [{card}]")
     for kernel, cmp in (("B4", cmp4), ("B8", cmp8), ("B6", cmp6),
-                        ("B5", cmp5), ("N", cmpN)):
+                        ("B5", cmp5), ("N", cmpN), ("F", cmpF)):
         for label, r in cmp.items():
             if "ms" not in r:
                 continue  # compared, not timed
@@ -3586,10 +3642,11 @@ def main() -> int:
                        f"kernel by launch "
                        + ", ".join(f"{k} {v:.4f}" for k, v in
                                    sorted(r["parts"].items())) + " ms")
+            if kernel in ("N", "F"):
+                lib = f", {r['bound_ms'] / r['ms'] * 100:.1f}% of its bound"
             if "half_ms" in r:
-                lib = (f", {r['bound_ms'] / r['ms'] * 100:.1f}% of its "
-                       f"bound; {r['half_ms']:.5f} ms with a mutual pair "
-                       f"counted once")
+                lib += (f"; {r['half_ms']:.5f} ms with a mutual pair "
+                        f"counted once")
             print(f"time {kernel} {r['work']}: kernel {r['ms']:.4f} ms "
                   f"(device, profiler), wrapper call {r['call_ms']:.4f} ms "
                   f"and plain version {r['plain_ms']:.4f} ms (CUDA "
@@ -3696,6 +3753,9 @@ def main() -> int:
         entry("near_field (N)", "rustexp_tpu_torch/csrc/nbody_forces.cu",
               "no kernel: plain XLA (rustexp_tpu/ops/nbody_bh.py:210)", "N",
               cmpN, "N 131072 block 256 K 27", "N 10000 block 200 K 27"),
+        entry("far_field (F)", "rustexp_tpu_torch/csrc/nbody_forces.cu",
+              "no kernel: plain XLA (rustexp_tpu/ops/nbody_bh.py:229)", "F",
+              cmpF, "N 131072 block 256 K 27", "N 10000 block 200 K 27"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

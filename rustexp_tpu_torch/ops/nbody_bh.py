@@ -15,11 +15,12 @@ nbody.rs:186-480, on a flat structure):
 K(theta) = ceil(19 / theta^2), cross-calibrated in the JAX package
 against the reference quadtree (its module docstring). The JAX package
 wrote steps 2-4 as XLA ops outside any Pallas kernel; here they are torch
-ops, but for the near field on the card: CUDA tensors launch the
-hand-written kernel N (csrc/nbody_forces.cu, near_field_cuda), CPU tensors
-take its plain version, near_field_plain. theta == 0 is the brute-force
-route (the caller's choice). The step returns the particles in Morton
-order.
+ops, but for the two force fields on the card: CUDA tensors launch the
+hand-written kernels N (the near field, near_field_cuda) and F (the far
+field, far_field_cuda), both in csrc/nbody_forces.cu; CPU tensors take
+their plain versions, near_field_plain and far_field_plain. theta == 0 is
+the brute-force route (the caller's choice). The step returns the
+particles in Morton order.
 
 Spans of step_bh (core/trace.py), every device op of the step in one:
 ``nbody.sort`` (step 1), ``nbody.blocks`` (step 2 and the near-set
@@ -226,10 +227,11 @@ def near_field(xt, yt, xb, yb, mb, idx):
     raise ValueError(f"no near field for device {dev}")
 
 
-def far_field(xt, yt, msum, cx, cy, idx):
-    """Forces per unit target mass on target blocks xt, yt [nt, block]
-    from the monopoles (msum, cx, cy) [B] of every block outside each
-    target block's near set idx [nt, K] -> (fx, fy) [nt * block]."""
+def far_field_plain(xt, yt, msum, cx, cy, idx):
+    """Plain PyTorch version of kernel F: forces per unit target mass on
+    target blocks xt, yt [nt, block] from the monopoles (msum, cx, cy) [B]
+    of every block outside each target block's near set idx [nt, K] ->
+    (gx, gy) [nt * block], over [nt * block, B] temporaries."""
     nt, block = xt.shape
     near = torch.zeros((nt, msum.shape[0]), dtype=torch.bool,
                        device=xt.device)
@@ -240,6 +242,92 @@ def far_field(xt, yt, msum, cx, cy, idx):
     rf = msum[None, :] / (dxf * dxf + dyf * dyf + EPS)
     rf = torch.where(near.repeat_interleave(block, dim=0), 0.0, rf)
     return (rf * dxf).sum(dim=1), (rf * dyf).sum(dim=1)
+
+
+FAR_MAX_BLOCK = 256  # the kernel's largest block (csrc/nbody_forces.cu)
+
+
+@functools.cache
+def _far_kernel():
+    lib = load_kernel_lib("nbody_forces")
+    fn = lib.lib.nb_far_field
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 \
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 \
+        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+    return lib, fn
+
+
+def far_field_cuda(xt, yt, msum, cx, cy, idx):
+    """Launch kernel F (csrc/nbody_forces.cu) -> (gx, gy) [nt * block],
+    the far field of far_field_plain, for contiguous f32 xt, yt [nt,
+    block], f32 msum, cx, cy [nb] (strided vectors too) and int64 idx [nt,
+    K], K <= nb, CUDA tensors; idx's rows may be strided (as
+    ``argsort(...)[:, :K]`` gives them) but its entries not. idx's values
+    are not read on the host, which would wait for the card: the kernel
+    gives NaN forces to a target block whose row names a block outside
+    [0, nb).
+
+    ``far_field_cuda.launches`` counts the grid launches: 1 a call (none
+    for nt = 0).
+    """
+    every = (("xt", xt, 2), ("yt", yt, 2), ("msum", msum, 1), ("cx", cx, 1),
+             ("cy", cy, 1), ("idx", idx, 2))
+    for name, t, rank in every:
+        dtype = torch.int64 if name == "idx" else torch.float32
+        if t.dtype != dtype or t.dim() != rank:
+            raise ValueError(f"{name}: need a {rank}-D {dtype} tensor, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    nt, block = xt.shape
+    nb, k = msum.shape[0], idx.shape[1]
+    for name, t, shape in (("yt", yt, (nt, block)), ("cx", cx, (nb,)),
+                           ("cy", cy, (nb,)), ("idx", idx, (nt, k))):
+        if t.shape != shape:
+            raise ValueError(f"{name}: need shape {shape} beside xt "
+                             f"{tuple(xt.shape)} and msum ({nb},), got "
+                             f"{tuple(t.shape)}")
+    if not 1 <= block <= FAR_MAX_BLOCK or not 1 <= k <= nb:
+        raise ValueError(f"block {block}, K {k}, {nb} monopoles: need "
+                         f"1 <= block <= {FAR_MAX_BLOCK} and 1 <= K <= {nb}")
+    for name, t in (("xt", xt), ("yt", yt)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous tensor")
+    if (k > 1 and idx.stride(1) != 1) or (nt > 1 and idx.stride(0) < k):
+        raise ValueError(f"idx: need unit-stride rows, got strides "
+                         f"{idx.stride()}")
+    dev = xt.device
+    if dev.type != "cuda":
+        raise ValueError(f"kernel F runs on CUDA tensors, got {dev}")
+    for name, t, _ in every:
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, xt on {dev}")
+    lib, fn = _far_kernel()
+    gx = torch.empty(nt * block, dtype=torch.float32, device=dev)
+    gy = torch.empty_like(gx)
+    launched = ctypes.c_int(0)
+    rc = fn(ptr(xt), ptr(yt), ptr(msum), ptr(cx), ptr(cy), msum.stride(0),
+            cx.stride(0), cy.stride(0), ptr(idx), ptr(gx), ptr(gy), nt, nb,
+            block, k, idx.stride(0) if nt > 1 else k, stream_ptr(dev),
+            ctypes.byref(launched))
+    far_field_cuda.launches += launched.value
+    lib.check(rc, "kernel F (nb_far_field)")
+    return gx, gy
+
+
+far_field_cuda.launches = 0
+
+
+def far_field(xt, yt, msum, cx, cy, idx):
+    """Forces per unit target mass on target blocks xt, yt [nt, block]
+    from the monopoles (msum, cx, cy) [B] of every block outside each
+    target block's near set idx [nt, K] -> (gx, gy) [nt * block]. CUDA
+    tensors launch kernel F, CPU tensors take its plain version."""
+    dev = xt.device
+    if dev.type == "cuda":
+        return far_field_cuda(xt, yt, msum, cx, cy, idx)
+    if dev.type == "cpu":
+        return far_field_plain(xt, yt, msum, cx, cy, idx)
+    raise ValueError(f"no far field for device {dev}")
 
 
 def forces_on_blocks(xt, yt, xb, yb, mb, msum, cx, cy, idx):
