@@ -16,8 +16,10 @@ the clock of the card's activities, with its enclosing span as its
 ``cpu_parent``. Outside a session a span costs two clock reads and a
 dict update. The names are ``frame`` (one per frame of an entry point,
 or per step of the N-body Experiment), ``experiment.*``, ``raster.*``,
-``structure.*``, ``nbody.*`` (the Barnes-Hut step's stages, ops/
-nbody_bh.py) and ``sync.*``: each
+``structure.*``, ``nbody.*`` (the N-body step's stages: the Barnes-Hut
+route's in ops/nbody_bh.py, the brute route's ``nbody.brute`` and
+``nbody.integrate`` in ops/nbody_pallas.py and ops/nbody_forces.py) and
+``sync.*``: each
 ``sync.*`` span is one place where the host waits for the card without
 an explicit synchronize (a read of a device value, or a pageable
 host-to-device copy through upload()).

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.trace import span
+
 EPS = 1e-4  # softening, nbody.rs:17
 
 
@@ -66,12 +68,15 @@ def euler(px, py, vx, vy, m, fx, fy, dt: float):
 
 
 def step_brute_force(px, py, vx, vy, m, block: int = 0, dt: float = 0.01):
-    """One Euler step (nb_step_brute_force, nbody.rs:106-162)."""
-    if block and px.shape[0] % block == 0 and px.shape[0] > block:
-        fx, fy = forces_blocked(px, py, m, block)
-    else:
-        fx, fy = forces_dense(px, py, m)
-    return euler(px, py, vx, vy, m, fx, fy, dt)
+    """One Euler step (nb_step_brute_force, nbody.rs:106-162); the forces
+    are the span ``nbody.brute``, the update ``nbody.integrate``."""
+    with span("nbody.brute"):
+        if block and px.shape[0] % block == 0 and px.shape[0] > block:
+            fx, fy = forces_blocked(px, py, m, block)
+        else:
+            fx, fy = forces_dense(px, py, m)
+    with span("nbody.integrate"):
+        return euler(px, py, vx, vy, m, fx, fy, dt)
 
 
 def kill_runaway(px, py, vx, vy, vp_wdh: float = 100.0,

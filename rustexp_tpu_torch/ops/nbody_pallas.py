@@ -19,6 +19,7 @@ import functools
 
 import torch
 
+from ..core.trace import span
 from ..runtime import load_kernel_lib, ptr, stream_ptr
 from .nbody_forces import EPS, euler
 
@@ -134,6 +135,9 @@ def forces_pallas(px, py, m, src_chunk: int = 1024,
 
 def step_brute_pallas(px, py, vx, vy, m, src_chunk: int = 1024,
                       approx_recip: bool = False, dt: float = 0.01):
-    """Euler step on forces_pallas (nbody.rs:150-161 semantics)."""
-    fx, fy = forces_pallas(px, py, m, src_chunk, approx_recip)
-    return euler(px, py, vx, vy, m, fx, fy, dt)
+    """Euler step on forces_pallas (nbody.rs:150-161 semantics); the
+    forces are the span ``nbody.brute``, the update ``nbody.integrate``."""
+    with span("nbody.brute"):
+        fx, fy = forces_pallas(px, py, m, src_chunk, approx_recip)
+    with span("nbody.integrate"):
+        return euler(px, py, vx, vy, m, fx, fy, dt)

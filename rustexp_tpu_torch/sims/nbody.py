@@ -200,8 +200,9 @@ class NBodyExperiment:
 
     def step(self, state: NBodyState) -> NBodyState:
         """One step, ending in a synchronize. The whole call is the span
-        ``frame`` and the synchronize ``experiment.sync``; the BH route's
-        stages are ops/nbody_bh.py's ``nbody.*`` spans."""
+        ``frame`` and the synchronize ``experiment.sync``; each route's
+        stages are ``nbody.*`` spans (ops/nbody_bh.py, and the brute
+        route's ``nbody.brute`` and ``nbody.integrate``)."""
         with trace.span("frame"):
             require_on(self.device, (state.px, state.py, state.vx, state.vy,
                                      state.m), "the particle set")

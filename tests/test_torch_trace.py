@@ -122,25 +122,36 @@ NBODY_STAGES = ("nbody.sort", "nbody.blocks", "nbody.near", "nbody.far",
                 "nbody.integrate")
 
 
-@pytest.mark.parametrize("theta,stages", [(0.85, NBODY_STAGES), (0.0, ())])
+BRUTE_STAGES = ("nbody.brute", "nbody.integrate")
+
+
+@pytest.mark.parametrize("theta,stages", [(0.85, NBODY_STAGES),
+                                          (0.0, BRUTE_STAGES)])
 def test_nbody_step_spans(spans, theta, stages):
     """One N-body step is one `frame`; on the Barnes-Hut route (4,096
     bodies: 16 blocks of 256) each of its five stages once, on the brute
-    route none. No card, no synchronize."""
+    route (B5's plain version) its forces and its update once. No card,
+    no synchronize."""
     exp = NBodyExperiment("cpu")
     st = exp.init("orbits", 4096, theta=theta)
     for steps in (1, 2):
         exp.step(st)
         assert calls(name="frame") == steps
-        for name in NBODY_STAGES:
+        for name in {*NBODY_STAGES, *BRUTE_STAGES}:
             assert calls(name=name) == steps * (name in stages), name
         assert calls(name="experiment.sync") == 0
     tot = trace.span_totals()
-    if stages:
-        assert tot["frame"][1] >= sum(tot[k][1] for k in stages)
-        assert set(tot) == {"frame", *stages}
-    else:
-        assert set(tot) == {"frame"}
+    assert tot["frame"][1] >= sum(tot[k][1] for k in stages)
+    assert set(tot) == {"frame", *stages}
+
+
+def test_nbody_dense_brute_step_spans(spans):
+    """1,000 bodies (no multiple of 1,024) take the dense torch form,
+    with the same two spans as B5's route."""
+    exp = NBodyExperiment("cpu")
+    exp.step(exp.init("orbits", 1000, theta=0.0))
+    assert {k: c for k, (c, _) in trace.span_totals().items()} == {
+        "frame": 1, "nbody.brute": 1, "nbody.integrate": 1}
 
 
 def test_spans_are_profiler_events_under_their_parents(bench_frames, spans):
