@@ -39,7 +39,8 @@ Drives rustexp_tpu_torch, the port, never the JAX package:
      256 and random keys at 2^20, timed with the
      library call (stable torch.sort and gathers) by device time in the
      same run; B5 (all-pairs forces) at N = 16,384, 131,072 and 16,385
-     with both reciprocals, within B5_RTOL, its launches as planned; S
+     with both reciprocals, within B5_RTOL, its launches as planned, no
+     tile of the exact kernel taking its __frcp_rn loop; S
      (the shade and pack) on the call a bench frame makes of it on the
      sphere (KillerooP: the queue's ray-world rows list) and on CubeP (the
      bins' whole frame of 10 planes), with cube maps dim enough that no
@@ -1429,6 +1430,9 @@ def b5_vs_plain(dev, npl, stable_orbits) -> dict:
             got = npl.forces_pallas_cuda(px, py, m, approx)
             calls = npl.forces_pallas_cuda.launches - calls
             torch.cuda.synchronize(dev)
+            # the disk never leaves the kernel's coordinate bound, so no
+            # tile may take the __frcp_rn loop (counted since the start)
+            fell = int(npl.forces_pallas_cuda.fallback_tiles)
             rel, med, err = force_errors(got, want)
             pairs = n * (n - 1)
             bms, by = time_bound(5 * n * 4, pairs * OPS_PAIR, sfu_ops=pairs)
@@ -1436,7 +1440,8 @@ def b5_vs_plain(dev, npl, stable_orbits) -> dict:
             reps = 3 if n > 20000 else 10
             out[(n, approx)] = dict(
                 err=err, rel=rel, median_rel=med,
-                bad=int(rel > B5_RTOL[approx]) + int(calls != launches),
+                bad=int(rel > B5_RTOL[approx]) + int(calls != launches)
+                + int(fell != 0),
                 ms=device_ms(run, reps, None, launches),
                 call_ms=cuda_ms(run, reps),
                 plain_ms=cuda_ms(lambda: npl.forces_pallas_plain(px, py, m),
@@ -1449,7 +1454,7 @@ def b5_vs_plain(dev, npl, stable_orbits) -> dict:
                   f"{rel:.3e} (tolerance {B5_RTOL[approx]:.0e}), median "
                   f"per-particle {med:.3e}, max abs error {err:.3e}; "
                   f"{splits} source splits, {calls} launches a call "
-                  f"(planned {launches})", flush=True)
+                  f"(planned {launches}), fallback tiles {fell}", flush=True)
     return out
 
 

@@ -72,17 +72,19 @@ def _b5_kernel():
     fn = lib.lib.nb_forces
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-        + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
+        + [ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_int)]
     return lib, fn
 
 
-def forces_pallas_cuda(px, py, m, approx_recip: bool = False):
-    """Launch kernel B5 (csrc/nbody_forces.cu) -> (fx, fy) without the
-    m_i factor, for contiguous f32 [N] CUDA tensors.
+# nb_forces' `recip`: the exact reciprocal, the approximate, and the exact
+# with the __frcp_rn loop on every tile, which the tests hold the guarded
+# loop to
+B5_EXACT, B5_APPROX, B5_EXACT_RN_LOOP = 0, 1, 2
 
-    ``forces_pallas_cuda.launches`` counts the grid launches, as
-    ``_b5_plan`` gives them: 2 a call at N = 131,072 (16 splits).
-    """
+
+def _launch_b5(px, py, m, recip: int):
+    """Kernel B5 with nb_forces' `recip` -> (fx, fy) without the m_i
+    factor, for contiguous f32 [N] CUDA tensors."""
     dev = px.device
     if dev.type != "cuda":
         raise ValueError(f"kernel B5 runs on CUDA tensors, got {dev}")
@@ -94,6 +96,10 @@ def forces_pallas_cuda(px, py, m, approx_recip: bool = False):
                              f"{dev}, got {t.dtype} {tuple(t.shape)} on "
                              f"{t.device}")
     lib, fn = _b5_kernel()
+    fallback = forces_pallas_cuda.fallback_tiles
+    if fallback is None or fallback.device != dev:
+        fallback = forces_pallas_cuda.fallback_tiles = torch.zeros(
+            (), dtype=torch.int64, device=dev)
     fx = torch.empty_like(px)
     fy = torch.empty_like(py)
     splits, _ = _b5_plan(n)
@@ -101,14 +107,30 @@ def forces_pallas_cuda(px, py, m, approx_recip: bool = False):
                           dtype=torch.float32, device=dev)
     launched = ctypes.c_int(0)
     rc = fn(ptr(px), ptr(py), ptr(m), ptr(fx), ptr(fy),
-            ptr(scratch) if splits > 1 else None, n, int(approx_recip),
-            splits, stream_ptr(dev), ctypes.byref(launched))
+            ptr(scratch) if splits > 1 else None, n, recip, splits,
+            ptr(fallback), stream_ptr(dev), ctypes.byref(launched))
     forces_pallas_cuda.launches += launched.value
     lib.check(rc, "kernel B5 (nb_forces)")
     return fx, fy
 
 
+def forces_pallas_cuda(px, py, m, approx_recip: bool = False):
+    """Launch kernel B5 (csrc/nbody_forces.cu) -> (fx, fy) without the
+    m_i factor, for contiguous f32 [N] CUDA tensors.
+
+    ``forces_pallas_cuda.launches`` counts the grid launches, as
+    ``_b5_plan`` gives them: 2 a call at N = 131,072 (16 splits).
+    ``forces_pallas_cuda.fallback_tiles``, an int64 tensor on the device
+    of the calls (None before the first; a call on another device starts
+    a new one), counts the (block, tile) visits in which a coordinate
+    beyond the kernel's bound sent the exact kernel to its __frcp_rn loop;
+    the kernel adds to it and nothing reads it unless asked.
+    """
+    return _launch_b5(px, py, m, B5_APPROX if approx_recip else B5_EXACT)
+
+
 forces_pallas_cuda.launches = 0
+forces_pallas_cuda.fallback_tiles = None
 
 
 def forces_pallas(px, py, m, src_chunk: int = 1024,

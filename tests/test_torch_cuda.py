@@ -15,6 +15,8 @@ jax (the card's machine has none), so it runs there on its own:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -38,6 +40,7 @@ from rustexp_tpu_torch.raster import camera, pipeline as pp
 from rustexp_tpu_torch.raster import structure as rs
 from rustexp_tpu_torch.raster import shade as sd
 from rustexp_tpu_torch.raster import shaders as sh
+from rustexp_tpu_torch.runtime import load_kernel_lib
 from rustexp_tpu_torch.sims.gol import GoLExperiment
 from rustexp_tpu_torch.sims.nbody import NBodyExperiment, stable_orbits
 
@@ -727,6 +730,94 @@ def test_b5_kernel_matches_plain_on_card(n, approx, split, monkeypatch):
     kx, ky = npl.forces_pallas_cuda(px, py, m, approx)
     assert npl.forces_pallas_cuda.launches == launches + planned
     px_, py_ = npl.forces_pallas_plain(px, py, m)
+    rel = float(torch.hypot(kx - px_, ky - py_).max()
+                / torch.hypot(px_, py_).max())
+    assert rel < 1e-5
+
+
+@pytest.mark.cuda
+def test_rcp_rn_fast_matches_frcp_rn_on_every_float():
+    """B5's branch-free reciprocal against __frcp_rn on every float32 of
+    [2^-126, 2^126), where ptxas takes __frcp_rn's fast path, in one launch
+    (csrc/nbody_forces.cu nb_rcp_check): 2.1e9 inputs, among them every d2
+    that a tile within the coordinate bound can form, EPS to 2^125."""
+    dev = _card()
+    fn = load_kernel_lib("nbody_forces").lib.nb_rcp_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2
+    lo, hi = (int(torch.tensor(x, dtype=torch.float32).view(torch.int32))
+              for x in (2.0**-126, 2.0**126))
+    out = torch.tensor([0, -1], dtype=torch.int64, device=dev)
+    rc = fn(lo, hi, ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    assert rc == 0
+    bad, first = out.tolist()
+    assert bad == 0, f"{bad} inputs differ, the first of bits {first:#x}"
+
+
+def _b5_visits(n: int, body: int | None = None) -> int:
+    """B5's (block, tile) visits at N = n, from its plan: those whose
+    staged sources or whose block's own targets include `body`, or all of
+    them for None."""
+    tile = 256  # sources a block stages at a time (csrc/nbody_forces.cu)
+    splits, _ = npl._b5_plan(n)
+    tiles = -(-n // tile)
+    chunk = -(-tiles // splits) * tile  # whole tiles a split
+    count = 0
+    for bx in range(-(-n // npl.B5_TARGETS)):
+        mine = body is None or bx * npl.B5_TARGETS <= body < (
+            bx + 1) * npl.B5_TARGETS
+        for lo in range(0, n, chunk):
+            for base in range(lo, min(n, lo + chunk), tile):
+                count += mine or base <= body < base + tile
+    return count
+
+
+def _b5_fallbacks(call) -> tuple:
+    """call() -> its result and the fallback tiles it added."""
+    before = (0 if npl.forces_pallas_cuda.fallback_tiles is None
+              else int(npl.forces_pallas_cuda.fallback_tiles))
+    out = call()
+    torch.cuda.synchronize()
+    return out, int(npl.forces_pallas_cuda.fallback_tiles) - before
+
+
+def _bits_equal(a, b) -> bool:
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072, 16385])
+def test_b5_bits_equal_frcp_rn_loop(n):
+    """The exact kernel's forces equal, bit for bit, those of its __frcp_rn
+    loop on every tile, at the cell's N and a ragged one: no tile of the
+    stable-orbit disk leaves the coordinate bound, so none falls back,
+    and the reference call falls back on every visit."""
+    dev = _card()
+    px, py, _, _, m = stable_orbits(prng.key(n), n, device=dev)
+    got, fell = _b5_fallbacks(lambda: npl.forces_pallas_cuda(px, py, m))
+    want, ref_fell = _b5_fallbacks(
+        lambda: npl._launch_b5(px, py, m, npl.B5_EXACT_RN_LOOP))
+    assert _bits_equal(got, want)
+    assert (fell, ref_fell) == (0, _b5_visits(n))
+
+
+@pytest.mark.cuda
+def test_b5_body_beyond_the_bound_falls_back():
+    """One body moved past the coordinate bound, far enough that __frcp_rn
+    takes its slow path for its pairs (d2 > 2^126): the tiles that stage it
+    and its block's tiles take the __frcp_rn loop, counted one each; the
+    forces equal that loop's bits and meet
+    test_b5_kernel_matches_plain_on_card's tolerance."""
+    dev = _card()
+    n, body = 16385, 8195
+    px, py, _, _, m = stable_orbits(prng.key(n), n, device=dev)
+    px[body] = 1.2e19
+    got, fell = _b5_fallbacks(lambda: npl.forces_pallas_cuda(px, py, m))
+    assert fell == _b5_visits(n, body)
+    assert _bits_equal(got, npl._launch_b5(px, py, m, npl.B5_EXACT_RN_LOOP))
+    (kx, ky), (px_, py_) = got, npl.forces_pallas_plain(px, py, m)
     rel = float(torch.hypot(kx - px_, ky - py_).max()
                 / torch.hypot(px_, py_).max())
     assert rel < 1e-5
