@@ -15,11 +15,13 @@ record-function range, so it lies among the profiler's host events, on
 the clock of the card's activities, with its enclosing span as its
 ``cpu_parent``. Outside a session a span costs two clock reads and a
 dict update. The names are ``frame`` (one per frame of an entry point,
-or per step of the N-body Experiment), ``experiment.*``, ``raster.*``,
-``structure.*``, ``nbody.*`` (the N-body step's stages: the Barnes-Hut
-route's in ops/nbody_bh.py, the brute route's ``nbody.brute`` and
-``nbody.integrate`` in ops/nbody_pallas.py and ops/nbody_forces.py) and
-``sync.*``: each
+or per step of the N-body or GoL Experiment), ``experiment.*``,
+``raster.*``, ``structure.*``, ``nbody.*`` (the N-body step's stages: the
+Barnes-Hut route's in ops/nbody_bh.py, the brute route's ``nbody.brute``
+and ``nbody.integrate`` in ops/nbody_pallas.py and ops/nbody_forces.py),
+``gol.*`` (kernel B4's route in ops/gol_bits.py multi_step_swar:
+``gol.pack``, ``gol.swar`` around B4's call, ``gol.unpack``; and the R
+key's random fill, ``gol.randomize``, in sims/gol.py) and ``sync.*``: each
 ``sync.*`` span is one place where the host waits for the card without
 an explicit synchronize (a read of a device value, or a pageable
 host-to-device copy through upload()).

@@ -29,6 +29,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import trace
 from ..runtime import load_kernel_lib, ptr, stream_ptr
 
 BITS = 32
@@ -203,13 +204,18 @@ def multi_step_swar(grid: torch.Tensor, k: int) -> torch.Tensor:
     """Drop-in multi_step: [R, C] cell grid -> k generations -> the same
     shape and dtype. Packs rows to bits, runs multi_step_packed, unpacks.
     Rows must be a multiple of 32; unlike the JAX kernel there is no
-    ceiling on the cell count."""
+    ceiling on the cell count. The three stages are the spans
+    ``gol.pack``, ``gol.swar`` (B4's call) and ``gol.unpack``."""
     r, c = grid.shape
     if r % BITS:
         raise ValueError(f"{r}x{c} grid not supported by the SWAR kernel "
                          f"(rows % {BITS} == 0); use gol_stencil.multi_step")
-    out = multi_step_packed(pack_rows(grid), k)
-    return unpack_rows(out, dtype=grid.dtype)
+    with trace.span("gol.pack"):
+        packed = pack_rows(grid)
+    with trace.span("gol.swar"):
+        out = multi_step_packed(packed, k)
+    with trace.span("gol.unpack"):
+        return unpack_rows(out, dtype=grid.dtype)
 
 
 # The JAX package routes grids past its VMEM ceiling through a banded

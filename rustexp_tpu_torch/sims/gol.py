@@ -25,7 +25,7 @@ from dataclasses import dataclass, field
 import torch
 
 from ..assets.gol_patterns import PATTERNS, pattern_to_array
-from ..core import prng
+from ..core import prng, trace
 from ..core.timing import FrameTimes
 from ..ops import gol_bits, gol_stencil
 from ..runtime import device as pick_device, require_on
@@ -115,20 +115,26 @@ class GoLExperiment:
         return "bits" if backend == "bits_banded" else backend
 
     def step(self, state: GoLState) -> GoLState:
-        require_on(self.device, (state.grid,), "the GoL grid")
-        t0 = time.perf_counter()
-        k = state.steps_per_frame
-        backend = self.route(state.grid.shape[0], state.backend)
-        if backend == "bits":
-            state.grid = gol_bits.multi_step_swar(state.grid, k)
-        elif backend == "pallas":
-            state.grid = gol_stencil.multi_step_pallas(state.grid, k)
-        else:
-            state.grid = gol_stencil.multi_step(state.grid, k, backend)
-        if state.grid.device.type == "cuda":
-            torch.cuda.synchronize(state.grid.device)
-        state.step_times.push((time.perf_counter() - t0) / max(k, 1))
-        state.generations += k
+        """k = steps_per_frame generations, ending in a synchronize. The
+        whole call is the span ``frame`` and the synchronize
+        ``experiment.sync``; B4's route opens ``gol.pack``, ``gol.swar``
+        and ``gol.unpack`` (ops/gol_bits.py multi_step_swar)."""
+        with trace.span("frame"):
+            require_on(self.device, (state.grid,), "the GoL grid")
+            t0 = time.perf_counter()
+            k = state.steps_per_frame
+            backend = self.route(state.grid.shape[0], state.backend)
+            if backend == "bits":
+                state.grid = gol_bits.multi_step_swar(state.grid, k)
+            elif backend == "pallas":
+                state.grid = gol_stencil.multi_step_pallas(state.grid, k)
+            else:
+                state.grid = gol_stencil.multi_step(state.grid, k, backend)
+            if state.grid.device.type == "cuda":
+                with trace.span("experiment.sync"):
+                    torch.cuda.synchronize(state.grid.device)
+            state.step_times.push((time.perf_counter() - t0) / max(k, 1))
+            state.generations += k
         return state
 
     def render(self, state: GoLState, w: int, h: int) -> torch.Tensor:
@@ -150,8 +156,9 @@ class GoLExperiment:
         key = key.upper() if len(key) == 1 else key
         n = int(state.grid.shape[0])
         if key == "R":
-            state.key, sub = prng.split(state.key)
-            state.grid = randomize(sub, n, self.device)
+            with trace.span("gol.randomize"):
+                state.key, sub = prng.split(state.key)
+                state.grid = randomize(sub, n, self.device)
             state.generations = 0
         elif key in ("G", "A", "F", "K"):
             name = {"G": "gun", "A": "acorn", "F": "spacefill",
