@@ -999,6 +999,97 @@ def s_vs_plain(dev, bench, sd) -> dict:
     return out
 
 
+# (label, camera or None for the mesh's own, tick, with the table): the
+# sphere bench's call, the orbit's render and the orbit's rebuild
+T_CASES = (("KillerooP", None, 0.0, True),
+           ("KillerooP orbit", "orbit", 1.3, True),
+           ("KillerooP orbit setup", "orbit", 1.3, False))
+
+
+def t_bytes(n_tris: int, ch: int | None) -> int:
+    """Bytes kernel T moves at least: the corner planes it reads (cp3; with
+    a table of the per-pixel form also cc3 and cn3) and the two matrices,
+    the 20 setup planes and `valid` it writes, and its [T + 1, ch] table."""
+    read = 12 * n_tris * 4 + 16 * 4
+    if ch is None:
+        return read + 81 * n_tris
+    return read + 18 * n_tris * 4 + 9 * 4 + 81 * n_tris + (n_tris + 1) * ch * 4
+
+
+def t_vs_plain(dev, pp, rq, bench, meshes, cubemap, camera) -> dict:
+    """Kernel T against its plain chain at T_CASES on the sphere (mesh 0,
+    2,304 triangles, 512x512, per pixel, ray-world), as the main path
+    calls it: queue_attr_channels (the setup and its channel table) or
+    structure.queue_setup (the setup alone). Every setup plane and table
+    word against queue_attr_channels_plain and pack_table on the card and
+    on the CPU (a NaN float word equal to a NaN word: x86 and the card
+    spell them differently); one launch a call. Timed by all the card's
+    activity of a call, CUDA events around back-to-back calls, and the
+    plain chain on the card; the bound is t_bytes over the memory rate."""
+    from rustexp_tpu_torch.raster import structure as rs
+
+    def words(a, b) -> int:
+        a, b = a.cpu(), b.cpu()
+        same = a.view(torch.int32) == b.view(torch.int32)
+        if a.dtype == torch.float32:
+            same |= torch.isnan(a) & torch.isnan(b)
+        return int((~same).sum())
+
+    def differ(got, want) -> int:
+        bad = sum(words(getattr(got, f), getattr(want, f))
+                  for f in want._fields if f not in ("valid", "table"))
+        bad += int((got.valid.cpu() != want.valid.cpu()).sum())
+        if got.table is not None:
+            bad += words(got.table, want.table)
+        return bad
+
+    cpu = torch.device("cpu")
+    scenes = [pp.make_scene(meshes.get_mesh(0), cubemap.get_cm_set(0), d)
+              for d in (dev, cpu)]
+    out = {}
+    for label, cam, tick, table in T_CASES:
+        eye = camera.camera_eye(cam or meshes.mesh_camera(0),
+                                bench.TICK if cam is None else tick)
+
+        def plain(scene):
+            """The plain chain: pipeline.py's eager ops, which the CPU's
+            structure.queue_setup and queue_attr_channels also run."""
+            if not table:
+                xs, ys, zs = pp.transform_corners_planar(scene, eye, W, H)[:3]
+                return pp.setup_triangles_planar(xs, ys, zs, W, H)
+            s, e, _, _ = pp.queue_attr_channels_plain(
+                scene, None, eye, W, H, per_pixel=True)
+            return s._replace(table=rq.pack_table(s, e))
+
+        if table:
+            run = lambda: pp.queue_attr_channels(scenes[0], None, eye, W, H,
+                                                 per_pixel=True)[0]
+        else:
+            run = lambda: rs.queue_setup(scenes[0], eye, W, H)
+        calls = rq.queue_setup_cuda.launches
+        got = run()
+        calls = rq.queue_setup_cuda.launches - calls
+        bad = differ(got, plain(scenes[0])) + differ(got, plain(scenes[1]))
+        n_tris = scenes[0].tris.shape[0]
+        ch = got.table.shape[1] if table else None
+        nbytes = t_bytes(n_tris, ch)
+        bms, by = time_bound(nbytes, 0)
+        form = (f"the setup and its [{n_tris + 1}, {ch}] table" if table
+                else "the setup alone")
+        print(f"T {label}: {n_tris} triangles, {form}, "
+              f"{int(got.valid.sum())} valid; {calls} grid launches a call: "
+              f"{bad} words differ from the plain chain (card and CPU)",
+              flush=True)
+        out[label] = dict(
+            err=float(bad), bad=bad, valid=int(got.valid.sum()),
+            launches_per_call=calls, ms=device_ms(run, 50, None, 1),
+            call_ms=cuda_ms(run, 50),
+            plain_ms=cuda_ms(lambda: plain(scenes[0]), 5),
+            bound_ms=bms, bound_by=by,
+            work=f"{n_tris} triangles, {form}, {nbytes} B")
+    return out
+
+
 def b3_stress(dev, rb) -> int:
     """B3 against its plain version on the stress bins (stress_bins), bit
     for bit on every word. Returns the mismatching words."""
@@ -2069,8 +2160,9 @@ def sampling(dev, card, bench, counters, launches
     of surfaces() times all 12); before it, short batches of the same
     frames (short_batches) on each. Launches are counted on their own for
     each scene's short batches and for run_suite: the scene's raster
-    kernel (B1 on the queue, B2 on the bins) once a frame, and no other
-    kernel. Each row's checksum must equal that of the same frame rendered
+    kernel (B1 on the queue, B2 on the bins) and the shade S once a frame,
+    on the queue T once a frame and once for the queue's build, and no
+    other kernel. Each row's checksum must equal that of the same frame rendered
     on the CPU. Returns a failure message or None, and {scene: {"short":
     stats, "bench_scene": run_suite's row}}.
     """
@@ -2103,6 +2195,8 @@ def sampling(dev, card, bench, counters, launches
     for r in suite["rows"]:
         for c in (kernel[r["scene"]], "S"):
             want[c] = want.get(c, 0) + (1 + timed) * k
+        if kernel[r["scene"]] == "B1":  # T: each frame and the queue's build
+            want["T"] = want.get("T", 0) + (1 + timed) * k + 1
     if _nonzero(got) != want or len(suite["scene_us"]) != len(cut):
         return (f"run_suite launched {_nonzero(got)} over "
                 f"{len(suite['scene_us'])} scenes, want {want} over "
@@ -2123,6 +2217,8 @@ def sampling(dev, card, bench, counters, launches
               f"(the CPU frame's {want_sum:#010x}) [{card}]", flush=True)
         want_short = {kernel[label]: 1 + SHORT_RUNS * SHORT_FRAMES,
                       "S": 1 + SHORT_RUNS * SHORT_FRAMES}
+        if kernel[label] == "B1":
+            want_short["T"] = 2 + SHORT_RUNS * SHORT_FRAMES
         if (r["scene"] != label or _nonzero(got_short) != want_short
                 or (r["n_runs"], r["frames_per_run"]) != (timed, k)):
             return (f"sampling {label}: run_suite's row {r['scene']} in "
@@ -2227,8 +2323,8 @@ def moving_paths(dev, card, pp, rq, bench, meshes, cubemap, counters,
     """The moving camera's main path, each bench counted on its own:
     bench_scene_moving on MOVING_SCENES and bench_scene_moving_amortized
     on KillerooP, k = MOVING_K, MOVING_RUNS timed passes after a warm-up
-    pass; each must resolve its order and launch B1 once a frame rendered
-    and no other kernel. Then card frames at MOVING_CPU_EYES against the
+    pass; each must resolve its order, launch B1 and S once a frame
+    rendered, T once a render and once a queue_setup, and no other kernel. Then card frames at MOVING_CPU_EYES against the
     port's CPU frames, the plane queue's frame against the tri queue's of
     the same eye (both 0 px), and one profiled moving frame per scene.
     Returns a failure message or None."""
@@ -2247,6 +2343,7 @@ def moving_paths(dev, card, pp, rq, bench, meshes, cubemap, counters,
                      rebuild_every=AMORTIZED_EVERY, device=dev)))
     records = {}
     for label, expect, run in runs:
+        amortized = label.endswith("amortized")
         for c in counters.values():
             c.launches = 0
         rec = run()
@@ -2262,9 +2359,17 @@ def moving_paths(dev, card, pp, rq, bench, meshes, cubemap, counters,
               f"rendered) [{card}]", flush=True)
         if rec["queue_order"] != expect:
             return f"moving {label} resolved {rec['queue_order']}"
-        if got["B1"] != frames or got["S"] != frames or sum(
-                got.values()) != 2 * frames:
-            return f"moving {label} launched {got} for {frames} frames"
+        # T: each frame's render and its queue_setup, or each chunk's
+        # queue_setup in the amortized form, and the caps' sampled eyes
+        path_k = (MOVING_K - MOVING_K % AMORTIZED_EVERY if amortized
+                  else MOVING_K)
+        sampled = len(range(0, path_k, max(1, path_k // 8)))
+        want_t = frames + sampled + (frames // AMORTIZED_EVERY if amortized
+                                     else frames)
+        if got["B1"] != frames or got["S"] != frames or got["T"] != want_t \
+                or sum(got.values()) != 2 * frames + want_t:
+            return (f"moving {label} launched {got} for {frames} frames "
+                    f"(T: {want_t} expected)")
         records[label] = rec
 
     cpu = torch.device("cpu")
@@ -3442,6 +3547,13 @@ def main() -> int:
                         f"{r['covered']} covered pixels, "
                         f"{r['launches_per_call']} grid launches a call")
     phase_done("S against its plain version")
+    cmpT = t_vs_plain(dev, pp, rq, bench, meshes, cubemap, camera)
+    for label, r in cmpT.items():
+        if r["bad"] or r["valid"] == 0 or r["launches_per_call"] != 1:
+            return fail(f"T {label}: {r['bad']} mismatching words, "
+                        f"{r['valid']} valid triangles, "
+                        f"{r['launches_per_call']} grid launches a call")
+    phase_done("T against its plain chain")
     msg, more1, more7 = kernels_on_orders(dev, card, pp, rq, bench, meshes,
                                           cubemap)
     if msg:
@@ -3480,6 +3592,7 @@ def main() -> int:
                 "B7": rq.raster_zslot_queue_cuda,
                 "B8": gs.multi_step_pallas_cuda,
                 "S": sd.shade_pack_cuda,
+                "T": rq.queue_setup_cuda,
                 "N": bh.near_field_cuda,
                 "F": bh.far_field_cuda}
     path_kernels = {"Killeroo": ("B1",), "Cube": ("B2",)}
@@ -3626,6 +3739,13 @@ def main() -> int:
               f"ms (CUDA events), bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}), {r['bound_ms'] / r['ms'] * 100:.1f}% of "
               f"the call's activity [{card}]")
+    for label, r in cmpT.items():
+        print(f"time T {label} 512x512 ({r['work']}): all the call's "
+              f"activity {r['ms']:.5f} ms (device, profiler), wrapper call "
+              f"{r['call_ms']:.4f} ms and plain chain {r['plain_ms']:.4f} ms "
+              f"(CUDA events), bound {r['bound_ms']:.6f} ms "
+              f"({r['bound_by']}), {r['bound_ms'] / r['ms'] * 100:.1f}% of "
+              f"the call's activity [{card}]")
     for r in path_profiles(profiles):
         print(f"profile path {r['label']} ({PATH_FRAMES} frames): "
               f"wall {r['wall_ms']:.4f} ms/frame (CUDA events), device busy "
@@ -3755,6 +3875,10 @@ def main() -> int:
         entry("shade_pack (S)", "rustexp_tpu_torch/csrc/raster_shade.cu",
               "no kernel: plain jnp (rustexp_tpu/raster/pipeline.py:661)",
               "S", cmpS, "KillerooP", "CubeP"),
+        entry("queue_setup (T)", "rustexp_tpu_torch/csrc/raster_queue.cu",
+              "no kernel: plain XLA (rustexp_tpu/raster/pipeline.py:300)",
+              "T", cmpT, "KillerooP", "KillerooP orbit",
+              "KillerooP orbit setup"),
         entry("near_field (N)", "rustexp_tpu_torch/csrc/nbody_forces.cu",
               "no kernel: plain XLA (rustexp_tpu/ops/nbody_bh.py:210)", "N",
               cmpN, "N 131072 block 256 K 27", "N 10000 block 200 K 27"),

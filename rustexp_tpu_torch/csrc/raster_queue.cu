@@ -1,5 +1,6 @@
 // Kernels B1 and B7 of the port: the flat-queue tile rasterizer and its
-// depth race alone, for Hopper (sm_90a).
+// depth race alone, for Hopper (sm_90a); and kernel T, the flat queue's
+// per-frame transform, triangle setup and channel table (at the end).
 //
 // B1 replaces rustexp_tpu/ops/raster_queue.py::_queue_kernel (the Pallas
 // kernel that raster_attrs_queue launches through pl.pallas_call). Python
@@ -382,6 +383,268 @@ bool bad_shapes(int s_cap, int chunk, int tile_h, int tile_w, int hp, int w) {
          s_cap < 0 || s_cap >= (1 << 23);
 }
 
+// ---------------------------------------------------------------------------
+// Kernel T: the flat queue's transform, triangle setup and channel table.
+//
+// It replaces no Pallas kernel: the JAX package's transform_corners_planar,
+// setup_triangles_planar, the planar 2-MAD and 3-weight channels
+// (rustexp_tpu/raster/pipeline.py:300, :535-570) and pack_table
+// (rustexp_tpu/ops/raster_queue.py:632) are plain XLA. Here they were some
+// 200 eager launches over [T] planes a render, which the host paid for;
+// this is one. Python wrapper: rustexp_tpu_torch/ops/raster_queue.py::
+// queue_setup_cuda; the plain chain it repeats op for op is
+// raster/pipeline.py's transform_corners_planar, setup_triangles_planar
+// and queue_attr_channels, then pack_table.
+//
+// What it computes, a thread a triangle t: each corner's world position
+// (ndim, fixed-order 4x4 products), clip coordinates (the world-to-viewport
+// matrix, passed by value), 1/w and the viewport x, y, z; the 28.4 snap
+// (saturating truncation, NaN to 0), the band's post-snap y shift, the
+// edge gradients and constants with the fill biases, the 2-area cull and
+// the clipped pixel AABB in wrapping int32 (unsigned arithmetic, as torch's
+// int32 ops wrap), 1/(2 area) by IEEE division; then, with a table, the
+// 2-MAD channels (1/w and the colour over w: baked corner colours, or the
+// per-vertex colours gathered through tris) and the 3-weight channels
+// (world position and normal over w, N3 = 6; the normal, N3 = 3). It
+// writes TriSetupP's 20 word planes ([20, T], valid as T bytes after them)
+// and the [T + 1, CH] channel table pack_table builds, its last row zero.
+//
+// Bound: bytes. A triangle reads 120 (its corners' planes) and writes 81
+// (the setup) plus 4 CH (its table row), 361 in the per-pixel form (CH =
+// 40), against some 150 ops; at T = 2,304, 0.83 MB, 0.25 us at 3.35 TB/s.
+// What it costs is its launch and the latency of one pass. A block
+// stages its rows of the table in shared memory and writes them as one
+// contiguous run.
+constexpr int SETUP_THREADS = 128;
+constexpr int SETUP_PLANES = 20;  // TriSetupP's word planes before valid
+
+// Kernel T's arguments, by value (Python: ops/raster_queue.py _SetupArgs).
+// Device pointers: cp3 f32 [3, 4, T], cn3 and cc3 f32 [3, 3, T], colors
+// f32 [V, 3] and tris i32 [T, 3] (vertex colours only), ndim f32 [4, 4],
+// it33 f32 [3, 3], table f32 [T + 1, CH] (null: the setup alone), planes
+// [20, T] words then T bytes. m: the world-to-viewport matrix, row-major.
+struct SetupArgs {
+  const float* cp3;
+  const float* cn3;
+  const float* cc3;
+  const float* colors;
+  const int* tris;
+  const float* ndim;
+  const float* it33;
+  float* table;
+  int* planes;
+  int n_tris;
+  int w;
+  int h;
+  int y_shift;
+  float m[16];
+};
+
+__device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) +
+                              static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) -
+                              static_cast<uint32_t>(b));
+}
+
+__device__ __forceinline__ int32_t wmul(int32_t a, int32_t b) {
+  return static_cast<int32_t>(static_cast<uint32_t>(a) *
+                              static_cast<uint32_t>(b));
+}
+
+// core/colors.py trunc_i32: toward zero, saturating, NaN -> 0.
+__device__ __forceinline__ int32_t trunc_i32(float x) {
+  if (x != x) return 0;
+  if (x >= 2147483648.0f) return INT_MAX;
+  if (x <= -2147483648.0f) return INT_MIN;
+  return static_cast<int32_t>(x);
+}
+
+// Row r of a fixed-order 4x4 product: ((m0 v0 + m1 v1) + m2 v2) + m3 v3.
+__device__ __forceinline__ float mv4_row(const float* m, const float* v) {
+  float s = __fmul_rn(m[0], v[0]);
+  s = __fadd_rn(s, __fmul_rn(m[1], v[1]));
+  s = __fadd_rn(s, __fmul_rn(m[2], v[2]));
+  return __fadd_rn(s, __fmul_rn(m[3], v[3]));
+}
+
+__device__ __forceinline__ float mv3_row(const float* m, const float* v) {
+  float s = __fmul_rn(m[0], v[0]);
+  s = __fadd_rn(s, __fmul_rn(m[1], v[1]));
+  return __fadd_rn(s, __fmul_rn(m[2], v[2]));
+}
+
+// The fill convention's edge bias: dy > 0, or dy == 0 and dx > 0.
+__device__ __forceinline__ int32_t fill_bias(int32_t dy, int32_t dx) {
+  return (dy > 0 || (dy == 0 && dx > 0)) ? 1 : 0;
+}
+
+// N3: the 3-weight channels (0, 3 normals, 6 world positions and normals);
+// VCOL: the 2-MAD colours are per vertex (colors[tris]), else cc3's.
+template <int N3, bool VCOL>
+__global__ void __launch_bounds__(SETUP_THREADS)
+queue_setup_kernel(const SetupArgs a) {
+  constexpr int CH = I_CH + F_CH + 3 * (4 + N3);
+  __shared__ float stage[SETUP_THREADS * CH];
+  const int T = a.n_tris;
+  const int t0 = blockIdx.x * SETUP_THREADS;
+  const int t = t0 + threadIdx.x;
+
+  if (t < T) {
+    float nd[16];
+#pragma unroll
+    for (int k = 0; k < 16; ++k) nd[k] = __ldg(a.ndim + k);
+    float iw[3], vx[3], vy[3], vz[3], world[3][4];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      float p[4], clip[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        p[k] = __ldg(a.cp3 + static_cast<size_t>(j * 4 + k) * T + t);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) world[j][r] = mv4_row(nd + 4 * r, p);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) clip[r] = mv4_row(a.m + 4 * r, world[j]);
+      iw[j] = __fdiv_rn(1.0f, clip[3]);
+      vx[j] = __fmul_rn(clip[0], iw[j]);
+      vy[j] = __fmul_rn(clip[1], iw[j]);
+      vz[j] = __fmul_rn(clip[2], iw[j]);
+    }
+
+    // setup_triangles_planar
+    const int32_t ysh = static_cast<int32_t>(
+        static_cast<uint32_t>(a.y_shift) << 4);
+    int32_t x[3], y[3];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      x[j] = trunc_i32(__fmul_rn(vx[j], 16.0f));
+      y[j] = wsub(trunc_i32(__fmul_rn(vy[j], 16.0f)), ysh);
+    }
+    const int32_t dx10 = wsub(x[1], x[0]), dy01 = wsub(y[0], y[1]);
+    const int32_t dx21 = wsub(x[2], x[1]), dy12 = wsub(y[1], y[2]);
+    const int32_t dx02 = wsub(x[0], x[2]), dy20 = wsub(y[2], y[0]);
+    const int32_t area2 = wsub(wmul(wsub(x[1], x[0]), wsub(y[2], y[0])),
+                               wmul(wsub(y[1], y[0]), wsub(x[2], x[0])));
+    const bool front = area2 > 0;
+    const float inv_a2 =
+        front ? __fdiv_rn(1.0f, __int2float_rn(max(area2, 1))) : 0.0f;
+    const int32_t e0a = fill_bias(dy01, dx10);
+    const int32_t e1a = fill_bias(dy12, dx21);
+    const int32_t e2a = fill_bias(dy20, dx02);
+    const int32_t C0 = wadd(wadd(wsub(wmul(x[0], y[1]), wmul(y[0], x[1])),
+                                 e0a), 1);
+    const int32_t C1 = wadd(wadd(wsub(wmul(x[1], y[2]), wmul(y[1], x[2])),
+                                 e1a), 1);
+    const int32_t C2 = wadd(wadd(wsub(wmul(x[2], y[0]), wmul(y[2], x[0])),
+                                 e2a), 1);
+    const int32_t min_x =
+        max(wadd(min(x[0], min(x[1], x[2])), 0xF) >> 4, 0);
+    const int32_t min_y =
+        max(wadd(min(y[0], min(y[1], y[2])), 0xF) >> 4, 0);
+    const int32_t max_x =
+        min(wadd(max(x[0], max(x[1], x[2])), 0xF) >> 4, a.w);
+    const int32_t max_y =
+        min(wadd(max(y[0], max(y[1], y[2])), 0xF) >> 4, a.h);
+    const bool valid = front && max_x > min_x && max_y > min_y;
+    const float bias0 = static_cast<float>(e0a + 1);
+    const float bias1 = static_cast<float>(e1a + 1);
+    const float bias2 = static_cast<float>(e2a + 1);
+    const float z10 = __fsub_rn(vz[1], vz[0]);
+    const float z20 = __fsub_rn(vz[2], vz[0]);
+
+    // TriSetupP's planes, in its field order
+    const int32_t words[SETUP_PLANES] = {
+        dy01, dy12, dx10, dx21, C0, C1, C2, dy20, dx02,
+        __float_as_int(bias0), __float_as_int(bias1), __float_as_int(bias2),
+        __float_as_int(inv_a2), __float_as_int(vz[0]), __float_as_int(z10),
+        __float_as_int(z20), min_x, min_y, max_x, max_y};
+#pragma unroll
+    for (int k = 0; k < SETUP_PLANES; ++k)
+      a.planes[static_cast<size_t>(k) * T + t] = words[k];
+    reinterpret_cast<unsigned char*>(
+        a.planes + static_cast<size_t>(SETUP_PLANES) * T)[t] = valid;
+
+    if (a.table != nullptr) {
+      // pack_table's row: 12 int channels as bits, 7 floats, then the
+      // attribute channels (base, d10, d20 of 1/w and RGB/w; then each
+      // corner's 3-weight values times its 1/w)
+      float* row = stage + threadIdx.x * CH;
+      const int32_t ich[I_CH] = {dy01, dy12, dx10, dx21, C0, C1,
+                                 wadd(wadd(C0, C1), C2), min_x, min_y,
+                                 max_x, max_y, t};
+#pragma unroll
+      for (int k = 0; k < I_CH; ++k) row[k] = __int_as_float(ich[k]);
+      const float fch[F_CH] = {bias0, bias1, bias2, vz[0], z10, z20, inv_a2};
+#pragma unroll
+      for (int k = 0; k < F_CH; ++k) row[I_CH + k] = fch[k];
+      float q[3][4];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        q[j][0] = 1.0f;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          if constexpr (VCOL)
+            q[j][k + 1] = __ldg(a.colors + 3 * static_cast<size_t>(
+                                               __ldg(a.tris + 3 * t + j)) +
+                                k);
+          else
+            q[j][k + 1] =
+                __ldg(a.cc3 + static_cast<size_t>(j * 3 + k) * T + t);
+        }
+      }
+      float* ch = row + I_CH + F_CH;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float base = __fmul_rn(q[0][c], iw[0]);
+        ch[c] = base;
+        ch[4 + c] = __fsub_rn(__fmul_rn(q[1][c], iw[1]), base);
+        ch[8 + c] = __fsub_rn(__fmul_rn(q[2][c], iw[2]), base);
+      }
+      if constexpr (N3 > 0) {
+        float it[9];
+#pragma unroll
+        for (int k = 0; k < 9; ++k) it[k] = __ldg(a.it33 + k);
+        float* c3 = ch + 12;
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          float nv[3];
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            nv[k] = __ldg(a.cn3 + static_cast<size_t>(j * 3 + k) * T + t);
+          if constexpr (N3 == 6) {
+#pragma unroll
+            for (int k = 0; k < 3; ++k)
+              *c3++ = __fmul_rn(world[j][k], iw[j]);
+          }
+#pragma unroll
+          for (int r = 0; r < 3; ++r)
+            *c3++ = __fmul_rn(mv3_row(it + 3 * r, nv), iw[j]);
+        }
+      }
+    }
+  }
+
+  if (a.table != nullptr) {  // the same for every thread of the grid
+    __syncthreads();
+    const int n = max(0, min(SETUP_THREADS, T - t0)) * CH;
+    float* dst = a.table + static_cast<size_t>(t0) * CH;
+    for (int i = threadIdx.x; i < n; i += SETUP_THREADS) dst[i] = stage[i];
+    if (blockIdx.x == gridDim.x - 1)  // the empty slot's all-zero row
+      for (int i = threadIdx.x; i < CH; i += SETUP_THREADS)
+        a.table[static_cast<size_t>(T) * CH + i] = 0.0f;
+  }
+}
+
+template <int N3, bool VCOL>
+cudaError_t launch_setup(const SetupArgs& a, cudaStream_t stream) {
+  const int blocks = max(1, (a.n_tris + SETUP_THREADS - 1) / SETUP_THREADS);
+  queue_setup_kernel<N3, VCOL><<<blocks, SETUP_THREADS, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch B1 on `stream` (one grid). Pointers are device pointers: scal
@@ -428,6 +691,31 @@ extern "C" int rq_queue_zslot(const void* scal, const void* rows_i,
   return static_cast<int>(launch<0, 0>(
       scal, rows_i, rows_f, z, slot, nullptr, s_cap, fch, hp, w,
       static_cast<cudaStream_t>(stream)));
+}
+
+// Launch kernel T on `stream` (one grid): TriSetupP's planes always, the
+// channel table when args->table is set. n3 = -1: the setup alone (table
+// null); 0: vertex colours through tris (the V modes); 3 or 6: the baked
+// corner colours and the 3-weight channels. Returns the CUDA error code
+// of the launch (0 = ok).
+extern "C" int rq_queue_setup(const void* args, int n3, void* stream) {
+  const SetupArgs& a = *static_cast<const SetupArgs*>(args);
+  if (a.n_tris < 0 || a.n_tris >= (1 << 24) || a.w <= 0 || a.h <= 0 ||
+      a.planes == nullptr || (n3 < 0) != (a.table == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (n3 == -1)
+    err = launch_setup<0, false>(a, st);
+  else if (n3 == 0)
+    err = launch_setup<0, true>(a, st);
+  else if (n3 == 3)
+    err = launch_setup<3, false>(a, st);
+  else if (n3 == 6)
+    err = launch_setup<6, false>(a, st);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* rustexp_cuda_error_string(int code) {

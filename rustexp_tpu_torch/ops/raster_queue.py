@@ -25,8 +25,10 @@ for CUDA tensors; ``raster_attrs_queue_plain`` is its plain PyTorch
 version and serves CPU tensors. Kernel B7 (the same file and kernel
 template with no planes, replacing ``_queue_kernel_zslot``) is B1's
 depth race alone, for the deferred frame; ``raster_zslot_queue_plain``
-is its plain version. There is no fallback between a kernel and its
-plain version.
+is its plain version. Kernel T (the same file, ``queue_setup_cuda``) is
+a frame's transform, triangle setup and channel table in one launch; its
+plain version is raster/pipeline.py's chain then ``pack_table``. There is
+no fallback between a kernel and its plain version.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 from ..core import trace
 from ..runtime import load_kernel_lib, ptr, stream_ptr
 from .ieee import lerp_2mad, lerp_3w
+from .raster_setup import TriSetupP
 
 TILE_H = 16
 TILE_W = 128
@@ -404,6 +407,16 @@ def pack_table(setup, extra_f) -> torch.Tensor:
     return torch.cat([tab, tab.new_zeros((1, tab.shape[1]))])
 
 
+def _channel_table(setup, extra_f) -> torch.Tensor:
+    """The [T + 1, CH] table of `setup` and `extra_f`: the one kernel T
+    wrote beside the setup (its attribute columns are the `extra_f` that
+    queue_attr_channels returned with it), else pack_table's."""
+    tab = setup.table
+    if tab is not None and len(extra_f) == tab.shape[1] - _I_CH - _F_CH:
+        return tab
+    return pack_table(setup, extra_f)
+
+
 def gather_rows(queue: Queue, tabT: torch.Tensor, return_flat: bool = False):
     """One row gather per queue slot -> (rows_i i32 [S, 12, chunk],
     rows_f f32 [S, F, chunk]), channel-major per chunk
@@ -661,7 +674,7 @@ def raster_attrs_queue(queue: Queue, setup, extra_f, n2: int, n3: int,
     if len(extra_f) != 3 * (n2 + n3):
         raise ValueError(f"{len(extra_f)} attribute channels for "
                          f"n2={n2}, n3={n3}")
-    rows_i, rows_f = gather_rows(queue, pack_table(setup, extra_f))
+    rows_i, rows_f = gather_rows(queue, _channel_table(setup, extra_f))
     dev = rows_f.device
     if dev.type == "cuda":
         z, slot, lin = raster_attrs_queue_cuda(
@@ -742,7 +755,7 @@ def raster_zslot_queue(queue: Queue, setup, extra_f, h: int, w: int):
     if h % TILE_H or w % TILE_W:
         raise ValueError(f"frame {h}x{w} not divisible by {TILE_H}x{TILE_W}")
     rows_i, rows_f, rows_flat = gather_rows(
-        queue, pack_table(setup, list(extra_f)), return_flat=True)
+        queue, _channel_table(setup, list(extra_f)), return_flat=True)
     dev = rows_f.device
     if dev.type == "cuda":
         z, slot = raster_zslot_queue_cuda(queue.scal, rows_i, rows_f, h, w)
@@ -752,6 +765,120 @@ def raster_zslot_queue(queue: Queue, setup, extra_f, h: int, w: int):
         raise ValueError(f"no raster path for device {dev}")
     stale = ~check_queue_valid(queue, setup)
     return z[:h], slot[:h], rows_flat, stale
+
+
+# ---------------------------------------------------------------------------
+# Kernel T: a frame's transform, triangle setup and channel table
+# ---------------------------------------------------------------------------
+
+_SETUP_PLANES = 20  # TriSetupP's int32/f32 fields before valid
+_SETUP_N3 = (0, 3, 6)
+
+
+class _SetupArgs(ctypes.Structure):
+    """csrc/raster_queue.cu's SetupArgs, field for field."""
+
+    _fields_ = ([(name, ctypes.c_void_p) for name in (
+        "cp3", "cn3", "cc3", "colors", "tris", "ndim", "it33", "table",
+        "planes")]
+        + [(name, ctypes.c_int) for name in ("n_tris", "w", "h", "y_shift")]
+        + [("m", ctypes.c_float * 16)])
+
+
+@functools.cache
+def _t_kernel():
+    """The built kernel library and kernel T's C entry, typed once."""
+    lib = load_kernel_lib("raster_queue")
+    fn = lib.lib.rq_queue_setup
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(_SetupArgs), ctypes.c_int, ctypes.c_void_p]
+    return lib, fn
+
+
+def queue_setup_cuda(cp3, cn3, cc3, ndim, it33, m, w: int, h: int,
+                     y_shift: int = 0, *, n3: int | None = None,
+                     colors=None, tris=None) -> TriSetupP:
+    """Launch kernel T (csrc/raster_queue.cu) -> the TriSetupP of one
+    frame, its planes views of one buffer; with `n3`, also its channel
+    table (``table``), whose attribute columns are queue_attr_channels'
+    ``extra``. Bit for bit the plain chain: raster/pipeline.py's
+    transform_corners_planar and setup_triangles_planar (an h-row frame,
+    rows shifted by y_shift after the snap), and with n3 its channels and
+    pack_table.
+
+    The scene's corner planes cp3 f32 [3, 4, T], cn3 and cc3 f32 [3, 3, T],
+    ndim f32 [4, 4] and it33 f32 [3, 3] lie on the card; `m`, the host's
+    world-to-viewport matrix (16 values), goes by value. n3 None: the
+    setup alone; 0: the V modes' channels, from the per-vertex `colors`
+    f32 [V, 3] through `tris` i32 [T, 3]; 3 or 6: per pixel, the baked
+    colours cc3 and the normals (3), or world positions and normals (6).
+
+    ``queue_setup_cuda.launches`` counts the grid launches.
+    """
+    dev = cp3.device
+    T = cp3.shape[-1] if cp3.dim() == 3 else -1
+    want = [("cp3", cp3, torch.float32, (3, 4, T)),
+            ("cn3", cn3, torch.float32, (3, 3, T)),
+            ("cc3", cc3, torch.float32, (3, 3, T)),
+            ("ndim", ndim, torch.float32, (4, 4)),
+            ("it33", it33, torch.float32, (3, 3))]
+    if n3 == 0:
+        if colors is None or tris is None:
+            raise ValueError("n3=0 (per-vertex colours) needs colors and "
+                             "tris")
+        want += [("colors", colors, torch.float32, (colors.shape[0], 3)),
+                 ("tris", tris, torch.int32, (T, 3))]
+    elif n3 is not None and n3 not in _SETUP_N3:
+        raise ValueError(f"kernel T takes n3 in {_SETUP_N3} or None, got "
+                         f"{n3}")
+    elif colors is not None:
+        raise ValueError("colors are read only with n3=0")
+    for name, t, dt, shp in want:
+        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shp
+                or not t.is_contiguous()):
+            raise ValueError(f"{name}: need a contiguous {dt} {shp} tensor "
+                             f"on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    m = torch.as_tensor(m)
+    if m.device.type != "cpu" or m.numel() != 16:
+        raise ValueError(f"m: need 16 host values, got {m.numel()} on "
+                         f"{m.device}")
+    if w <= 0 or h <= 0:
+        raise ValueError(f"frame {h}x{w}")
+    if dev.type != "cuda":
+        raise ValueError(f"kernel T runs on CUDA tensors, got {dev}")
+    lib, fn = _t_kernel()
+    nw = _SETUP_PLANES * T
+    buf = torch.empty(4 * nw + T, dtype=torch.uint8, device=dev)
+    words = buf[:4 * nw].view(torch.int32).view(_SETUP_PLANES, T)
+    table = None if n3 is None else torch.empty(
+        (T + 1, _I_CH + _F_CH + 3 * (4 + n3)), dtype=torch.float32,
+        device=dev)
+
+    def addr(t):
+        return None if t is None else t.data_ptr()
+
+    args = _SetupArgs(
+        cp3=cp3.data_ptr(), cn3=cn3.data_ptr(), cc3=cc3.data_ptr(),
+        colors=addr(colors if n3 == 0 else None),
+        tris=addr(tris if n3 == 0 else None), ndim=ndim.data_ptr(),
+        it33=it33.data_ptr(), table=addr(table), planes=buf.data_ptr(),
+        n_tris=T, w=w, h=h, y_shift=y_shift,
+        m=(ctypes.c_float * 16)(*m.to(torch.float32).reshape(-1).tolist()))
+    rc = fn(ctypes.byref(args), -1 if n3 is None else n3, stream_ptr(dev))
+    lib.check(rc, "kernel T (rq_queue_setup)")
+    queue_setup_cuda.launches += 1
+    i = words.unbind(0)
+    f = [i[k].view(torch.float32) for k in range(9, 16)]
+    return TriSetupP(
+        A0=i[0], A1=i[1], B0=i[2], B1=i[3], C0=i[4], C1=i[5], C2=i[6],
+        A2=i[7], B2=i[8], bias0=f[0], bias1=f[1], bias2=f[2], inv_a2=f[3],
+        z0=f[4], z10=f[5], z20=f[6], min_x=i[16], min_y=i[17],
+        max_x=i[18], max_y=i[19], valid=buf[4 * nw:].view(torch.bool),
+        table=table)
+
+
+queue_setup_cuda.launches = 0
 
 
 def suggest_queue_config(setup_stats, margin: float = 1.3,

@@ -46,7 +46,11 @@ class TriSetup(NamedTuple):
 class TriSetupP(NamedTuple):
     """Planar (structure-of-1-D-tensors) setup — the queue-path form
     (rustexp_tpu/ops/raster_setup.py:53). e2 is derived in the kernel from
-    e0 + e1 + e2 = S = C0 + C1 + C2."""
+    e0 + e1 + e2 = S = C0 + C1 + C2.
+
+    ``table`` is None, or the [T + 1, CH] channel table that kernel T
+    (ops/raster_queue.py queue_setup_cuda) wrote beside these planes:
+    pack_table's of these planes and the attribute columns it holds."""
 
     A0: torch.Tensor       # i32 [T] edge-0 x-gradient (dy01)
     A1: torch.Tensor       # i32 [T] edge-1 x-gradient (dy12)
@@ -69,6 +73,7 @@ class TriSetupP(NamedTuple):
     max_x: torch.Tensor    # i32 [T]
     max_y: torch.Tensor    # i32 [T]
     valid: torch.Tensor    # bool [T]
+    table: torch.Tensor | None = None  # f32 [T + 1, CH], kernel T's
 
     def to_trisetup(self) -> TriSetup:
         """Stacked [T, 3] view (rustexp_tpu/ops/raster_setup.py:86)."""
@@ -203,4 +208,4 @@ def dilate_setup_planar(s: TriSetupP, d: int, w: int, h: int,
     max_y = torch.where(near_front, (s.max_y + d).clamp(max=h), s.max_y)
     return s._replace(
         min_x=min_x, min_y=min_y, max_x=max_x, max_y=max_y,
-        valid=near_front & (max_x > min_x) & (max_y > min_y))
+        valid=near_front & (max_x > min_x) & (max_y > min_y), table=None)

@@ -7,7 +7,8 @@ builds it; render_frame dispatches on its kind):
 * the flat queue (the benchmark's path for meshes of >= 1,000
   triangles): transform_corners_planar (fixed-order per-op f32 matrix
   products on corner-major [3, 4, T] planes, reference
-  rasterizer.rs:1181-1231) -> setup_triangles_planar -> build_queue
+  rasterizer.rs:1181-1231) -> setup_triangles_planar -> the channels
+  (on the card all three are kernel T, one launch) -> build_queue
   (cached across frames by the callers, or built every frame by the
   moving camera) -> raster_attrs_queue (kernel B1 on the card) ->
   _shade_compacted over the queue's shade blocks; or, with defer=True,
@@ -35,6 +36,7 @@ background with no raster kernel and no shader.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -44,13 +46,14 @@ from ..core import trace
 from ..core.colors import pack_abgr32, pack_abgr32_gamma_arith, trunc_i32
 from ..ops import raster_bins as rb
 from ..ops.ieee import lerp_2mad, lerp_3w
-from ..ops.raster_queue import (_I_CH, SHADE_W, _eval_pairs,
-                                raster_attrs_queue, raster_zslot_queue)
+from ..ops.raster_queue import (_F_CH, _I_CH, SHADE_W, _eval_pairs,
+                                queue_setup_cuda, raster_attrs_queue,
+                                raster_zslot_queue)
 from ..ops.raster_setup import setup_triangles, setup_triangles_planar
 from ..ops.raster_xla import raster_gbuffer_xla
 from . import shaders as sh
 from . import structure as rs
-from .exact import _cross3_exact, _device_eye, _host_eye, _mm4_exact
+from .exact import _device_eye, _host_eye, _mm4_exact
 from .shade import _blocks, shade_pack
 
 MODE_POINT, MODE_LINE, MODE_FILL = 0, 1, 2
@@ -140,21 +143,38 @@ def _mv3_exact(m3, v):
     return s + m3[:, 2:3] * v[2:3]
 
 
-def look_at(eye, at, up):
-    """Reference look_at (rasterizer.rs:1236-1245): division-form
-    normalize, left-to-right dots, translation column dot(-eye, axis)."""
+def _cross3_f32(a, b):
+    return np.array([a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
+                     a[0] * b[1] - a[1] * b[0]], np.float32)
+
+
+def _sqrt_f32(x) -> np.float32:
+    """torch's float32 square root of a scalar, which this matrix has
+    always taken. On a CPU with AVX-512 it is an ulp from the correctly
+    rounded root (numpy's) for about 0.6% of arguments: with numpy's, the
+    512x512 matrix at the eye (17.893833, -158.7625, 2.8180068) changes
+    bits (tests/test_torch_queue_setup.py, test_host_matrix_keeps_its_bits,
+    finds 9 such eyes of its 900 drawn)."""
+    return torch.sqrt(torch.tensor(x, dtype=torch.float32)).numpy()
+
+
+def look_at(eye, at, up) -> np.ndarray:
+    """Reference look_at (rasterizer.rs:1236-1245) -> f32 [4, 4]:
+    division-form normalize, left-to-right dots, translation column
+    dot(-eye, axis). numpy float32 rounds each op once, as the
+    reference's scalar code does, at a fraction of torch's per-op cost."""
+    eye, at, up = (np.asarray(v, np.float32).reshape(3)
+                   for v in (eye, at, up))
     za = eye - at
-    za = za / torch.sqrt(_dot3_exact(za, za))
-    xa = _cross3_exact(up, za)
-    xa = xa / torch.sqrt(_dot3_exact(xa, xa))
-    ya = _cross3_exact(za, xa)
+    za = za / _sqrt_f32(_dot3_exact(za, za))
+    xa = _cross3_f32(up, za)
+    xa = xa / _sqrt_f32(_dot3_exact(xa, xa))
+    ya = _cross3_f32(za, xa)
     ne = -eye
-    return torch.stack([
-        torch.stack([xa[0], xa[1], xa[2], _dot3_exact(ne, xa)]),
-        torch.stack([ya[0], ya[1], ya[2], _dot3_exact(ne, ya)]),
-        torch.stack([za[0], za[1], za[2], _dot3_exact(ne, za)]),
-        torch.tensor([0.0, 0.0, 0.0, 1.0]),
-    ])
+    return np.array([[xa[0], xa[1], xa[2], _dot3_exact(ne, xa)],
+                     [ya[0], ya[1], ya[2], _dot3_exact(ne, ya)],
+                     [za[0], za[1], za[2], _dot3_exact(ne, za)],
+                     [0.0, 0.0, 0.0, 1.0]], np.float32)
 
 
 try:
@@ -190,11 +210,19 @@ def viewport_matrix(w: int, h: int):
         dtype=torch.float32)
 
 
-def _world_to_vp_exact(eye, w: int, h: int):
-    """(viewport @ perspective) @ look_at in the oracle's m4_mul order."""
-    return _mm4_exact(
-        _mm4_exact(viewport_matrix(w, h), perspective(45.0, w / h, 0.1, 10.0)),
-        look_at(eye, torch.zeros(3), torch.tensor([0.0, 1.0, 0.0])))
+@functools.cache
+def _projection(w: int, h: int) -> np.ndarray:
+    """viewport @ perspective (f32 [4, 4]), the part of the matrix the eye
+    leaves alone."""
+    return _mm4_exact(viewport_matrix(w, h),
+                      perspective(45.0, w / h, 0.1, 10.0)).numpy()
+
+
+def _world_to_vp_exact(eye, w: int, h: int) -> torch.Tensor:
+    """(viewport @ perspective) @ look_at in the oracle's m4_mul order, a
+    host f32 [4, 4] tensor."""
+    return torch.from_numpy(_mm4_exact(_projection(w, h), look_at(
+        eye, np.zeros(3), np.array([0.0, 1.0, 0.0]))))
 
 
 def _transform_points(scene: Scene, positions, normals, eye, w: int,
@@ -263,6 +291,18 @@ def vertex_colors(scene: Scene, eye, tick, w: int, h: int, shader_idx: int):
                                     scene.cm)
 
 
+def queue_setup_card(scene: Scene, eye, w: int, h: int, *,
+                     band_h: int | None = None, y_shift: int = 0,
+                     n3: int | None = None, colors=None):
+    """Kernel T's setup of one frame on the card (ops/raster_queue.py
+    queue_setup_cuda; with n3, its channel table too): the world-to-
+    viewport matrix is computed on the host and goes by value."""
+    m = _world_to_vp_exact(_host_eye(eye), w, h)
+    return queue_setup_cuda(scene.cp3, scene.cn3, scene.cc3, scene.ndim,
+                            scene.it33, m, w, h if band_h is None else band_h,
+                            y_shift, n3=n3, colors=colors, tris=scene.tris)
+
+
 def queue_attr_channels(scene: Scene, colors, eye, w: int, h: int, *,
                         per_pixel: bool, ray_world: bool = True,
                         band_h: int | None = None, y_shift: int = 0):
@@ -278,39 +318,64 @@ def queue_attr_channels(scene: Scene, colors, eye, w: int, h: int, *,
     y_shift of the w x h frame, translated after the snap (the band
     renderer, parallel/raster_shard.py); the planes do not move. The span
     raster.setup holds it all, raster.transform the transform.
+
+    On the card kernel T computes it all in one launch (raster.transform
+    holds that call), and the setup carries the channel table it wrote
+    (``setup.table``, whose attribute columns `extra` is); CPU tensors
+    take queue_attr_channels_plain.
     """
+    kw = dict(band_h=band_h, y_shift=y_shift)
     with trace.span("raster.setup"):
+        if scene.cp3.device.type != "cuda":
+            return queue_attr_channels_plain(
+                scene, colors, eye, w, h, per_pixel=per_pixel,
+                ray_world=ray_world, **kw)
+        n3 = (3 if ray_world else 6) if per_pixel else 0
         with trace.span("raster.transform"):
-            xs, ys, zs, iw, n_c, world_c = transform_corners_planar(
-                scene, eye, w, h)
-        setup = setup_triangles_planar(
-            xs, ys, zs, w, h if band_h is None else band_h, y_shift)
-        one = torch.ones_like(iw[0])
+            setup = queue_setup_card(
+                scene, eye, w, h, n3=n3,
+                colors=None if per_pixel else colors.contiguous(), **kw)
+        return (setup, list(setup.table[:-1, _I_CH + _F_CH:].unbind(1)), 4,
+                n3)
 
-        if per_pixel:
-            crows = [scene.cc3[0], scene.cc3[1], scene.cc3[2]]  # [3, T]
-        else:
-            crows = [colors[scene.tris[:, j]].T for j in range(3)]
 
-        def base_d(j):
-            return [one, crows[j][0], crows[j][1], crows[j][2]]
+def queue_attr_channels_plain(scene: Scene, colors, eye, w: int, h: int, *,
+                              per_pixel: bool, ray_world: bool = True,
+                              band_h: int | None = None, y_shift: int = 0):
+    """queue_attr_channels' plain chain, on any device: the transform
+    (span raster.transform), setup_triangles_planar and the planar
+    channels, in eager ops that kernel T repeats op for op."""
+    with trace.span("raster.transform"):
+        xs, ys, zs, iw, n_c, world_c = transform_corners_planar(
+            scene, eye, w, h)
+    setup = setup_triangles_planar(
+        xs, ys, zs, w, h if band_h is None else band_h, y_shift)
+    one = torch.ones_like(iw[0])
 
-        # attr_channels_2mad in planar form: (base, d10, d20) per channel,
-        # every product rounded before the subtraction
-        # (oracle.cpp:1242-1243)
-        base = [q * iw[0] for q in base_d(0)]
-        d10 = [q * iw[1] - b for q, b in zip(base_d(1), base)]
-        d20 = [q * iw[2] - b for q, b in zip(base_d(2), base)]
-        extra = base + d10 + d20
-        n2, n3 = 4, 0
-        if per_pixel:
-            # attr_channels_3w planar: (q*iw0, q*iw1, q*iw2) triples
-            cat3 = [([] if ray_world
-                     else [world_c[j, k] for k in range(3)])
-                    + [n_c[j, k] for k in range(3)] for j in range(3)]
-            n3 = len(cat3[0])
-            extra = extra + [q * iw[j] for j in range(3) for q in cat3[j]]
-        return setup, extra, n2, n3
+    if per_pixel:
+        crows = [scene.cc3[0], scene.cc3[1], scene.cc3[2]]  # [3, T]
+    else:
+        crows = [colors[scene.tris[:, j]].T for j in range(3)]
+
+    def base_d(j):
+        return [one, crows[j][0], crows[j][1], crows[j][2]]
+
+    # attr_channels_2mad in planar form: (base, d10, d20) per channel,
+    # every product rounded before the subtraction
+    # (oracle.cpp:1242-1243)
+    base = [q * iw[0] for q in base_d(0)]
+    d10 = [q * iw[1] - b for q, b in zip(base_d(1), base)]
+    d20 = [q * iw[2] - b for q, b in zip(base_d(2), base)]
+    extra = base + d10 + d20
+    n2, n3 = 4, 0
+    if per_pixel:
+        # attr_channels_3w planar: (q*iw0, q*iw1, q*iw2) triples
+        cat3 = [([] if ray_world
+                 else [world_c[j, k] for k in range(3)])
+                + [n_c[j, k] for k in range(3)] for j in range(3)]
+        n3 = len(cat3[0])
+        extra = extra + [q * iw[j] for j in range(3) for q in cat3[j]]
+    return setup, extra, n2, n3
 
 
 def raster_and_shade_queue(scene: Scene, queue, colors, eye, tick, *,

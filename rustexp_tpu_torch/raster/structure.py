@@ -94,7 +94,10 @@ def build(scene: pp.Scene, kind: str, eye, w: int, h: int, *,
 
 
 def queue_setup(scene: pp.Scene, eye, w: int, h: int):
-    """The frame's planar setup, which the queue is built from."""
+    """The frame's planar setup, which the queue is built from: kernel T
+    without its channels on the card, the plain chain on the CPU."""
+    if scene.cp3.device.type == "cuda":
+        return pp.queue_setup_card(scene, eye, w, h)
     xs, ys, zs, _, _, _ = pp.transform_corners_planar(scene, eye, w, h)
     return setup_triangles_planar(xs, ys, zs, w, h)
 

@@ -6,8 +6,10 @@ whole frames on the card (queue, moving-camera, every shader, deferred
 queue, bins, G-buffer oracle and band paths, the GoL and N-body
 Experiments) against the same frames on the CPU; the seeded states
 (core/prng.py) drawn on the card against JAX's known answers and the
-CPU's draws, word for word, and run through B4, B5 and B6; and the
-flagship frame of graft_entry.entry() on the card against the CPU's.
+CPU's draws, word for word, and run through B4, B5 and B6; the
+flagship frame of graft_entry.entry() on the card against the CPU's; and
+kernel T (the flat queue's transform, setup and channel table) against
+the CPU's plain chain, word for word, and its launches.
 
 These tests need a CUDA device and skip without one. This file imports no
 jax (the card's machine has none), so it runs there on its own:
@@ -17,6 +19,7 @@ jax (the card's machine has none), so it runs there on its own:
 
 import ctypes
 
+import numpy as np
 import pytest
 import torch
 
@@ -33,7 +36,8 @@ from rustexp_tpu_torch.ops import nbody_pallas as npl
 from rustexp_tpu_torch.ops import raster_bins as rb
 from rustexp_tpu_torch.ops import raster_queue as rq
 from rustexp_tpu_torch.ops.raster_setup import (setup_triangles,
-                                                setup_triangles_planar)
+                                                setup_triangles_planar,
+                                                signed_area2)
 from rustexp_tpu_torch.ops import sort_bitonic as sb
 from rustexp_tpu_torch.parallel import raster_shard
 from rustexp_tpu_torch.raster import camera, pipeline as pp
@@ -989,3 +993,167 @@ def test_graft_entry_frame_on_card_matches_cpu():
     assert fb.shape == (H, W) and fb.dtype == torch.uint32
     assert torch.equal(fb.cpu().view(torch.int32),
                        cfn(*cargs).view(torch.int32))
+
+
+# ------------------------------------------------------------------ kernel T
+
+
+def _stress_setup_scene(dev, eye):
+    """A mesh that stresses kernel T: 2,048 random triangles over 800
+    vertices spread to [-6, 6]^3 by the scene's matrix, so that corners
+    lie behind the eye (w <= 0), off the screen on every side and
+    back-facing, 64 of them of zero area (a repeated corner); and 128
+    more, each with a corner within 1e-5 of the eye's plane, whose
+    viewport coordinates lie past int32 after the 28.4 snap."""
+    g = np.random.default_rng(29)
+    n_v, n_t, scale = 800, 2048, 12.0
+    pos = g.uniform(-1, 1, (n_v, 3)).astype(np.float32)
+    eye = np.asarray(eye, np.float64)
+    d = -eye / np.linalg.norm(eye)
+    u = np.cross([0.0, 1.0, 0.0], d)
+    u /= np.linalg.norm(u)
+    v = np.cross(d, u)
+    off = g.uniform(-0.5, 0.5, (64, 2))
+    eps = g.uniform(1e-9, 1e-5, 64) * g.choice([-1.0, 1.0], 64)
+    near = eye + off[:, :1] * u + off[:, 1:] * v + eps[:, None] * d
+    pos = np.concatenate([pos, (near / scale).astype(np.float32)])
+    tris = g.integers(0, n_v, (n_t + 128, 3)).astype(np.int32)
+    tris[:64, 1] = tris[:64, 0]
+    tris[n_t:, 0] = n_v + np.arange(128) % 64
+    m = mesh.MeshData(pos, g.normal(size=pos.shape).astype(np.float32),
+                      g.uniform(0, 1, pos.shape).astype(np.float32), tris)
+    scene = pp.make_scene(m, cubemap.get_cm_set(0), dev)
+    return scene._replace(ndim=torch.diag(torch.tensor(
+        [scale, scale, scale, 1.0])).to(dev))
+
+
+def _t_scene(name, dev, eye):
+    if name == "stress":
+        return _stress_setup_scene(dev, eye)
+    idx = {"sphere": 0, "torusknot": 6, "cube": 9}[name]
+    return pp.make_scene(mesh.get_mesh(idx), cubemap.get_cm_set(0), dev)
+
+
+def _assert_words(card, cpu, what, floats):
+    """card and cpu equal word for word as int32; a float word that is NaN
+    on both sides counts as equal (x86 and the card spell a NaN that an
+    invalid operation makes differently: 0xFFC00000 and 0x7FFFFFFF)."""
+    card = card.cpu()
+    same = card.view(torch.int32) == cpu.view(torch.int32)
+    if floats:
+        same |= torch.isnan(card) & torch.isnan(cpu)
+    assert bool(same.all()), f"{what}: {int((~same).sum())} words differ"
+
+
+def _assert_setups(card, cpu, what):
+    for f in cpu._fields:
+        a, b = getattr(card, f), getattr(cpu, f)
+        if f == "table":
+            continue
+        assert a.shape == b.shape and a.dtype == b.dtype, f"{what}.{f}"
+        if f == "valid":
+            assert torch.equal(a.cpu(), b), f"{what}.valid"
+        else:
+            _assert_words(a, b, f"{what}.{f}", b.dtype == torch.float32)
+
+
+# (scene, camera, tick, per_pixel, ray_world, band): the bench cells'
+# eye, the orbit's, the three argument sets, a band of 128 rows from
+# row 256, and the stress mesh in every form
+T_CASES = [("sphere", None, 0.0, True, True, None),
+           ("sphere", None, 0.0, True, False, None),
+           ("sphere", None, 0.0, False, True, None),
+           ("sphere", "orbit", 1.3, True, True, None),
+           ("sphere", "orbit", 4.1, False, True, None),
+           ("sphere", None, 0.0, True, True, (128, 256)),
+           ("sphere", None, 0.0, False, True, (128, 384)),
+           ("torusknot", None, 0.0, True, True, None),
+           ("torusknot", "orbit", 2.2, False, True, None),
+           ("cube", None, 0.0, True, True, None),
+           ("cube", None, 0.0, False, True, None),
+           ("stress", "orbit", 0.5, True, True, None),
+           ("stress", "orbit", 0.5, True, False, None),
+           ("stress", "orbit", 0.5, False, True, (128, 128))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,cam,tick,per_pixel,ray_world,band", T_CASES)
+def test_t_kernel_matches_plain_chain(name, cam, tick, per_pixel, ray_world,
+                                      band):
+    """Kernel T (queue_attr_channels on the card) against the CPU's plain
+    chain: every TriSetupP plane and the [T + 1, CH] channel table (int
+    channels, floats, attribute columns, the zero sentinel row) word for
+    word; `extra` is the table's attribute columns, which B1 reads from
+    the setup; structure.queue_setup's setup (no table) likewise."""
+    dev = _card()
+    cpu = torch.device("cpu")
+    eye = camera.camera_eye(cam or mesh.mesh_camera(
+        {"sphere": 0, "torusknot": 6, "cube": 9}.get(name, 0)), tick)
+    scenes = [_t_scene(name, d, eye) for d in (dev, cpu)]
+    colors = None
+    if not per_pixel:  # the same per-vertex colours on both sides
+        c = pp.vertex_colors(scenes[1], eye, tick, W, H, 5)
+        colors = [c.to(dev), c]
+    kw = dict(per_pixel=per_pixel, ray_world=ray_world)
+    if band is not None:
+        kw.update(band_h=band[0], y_shift=band[1])
+    out = [pp.queue_attr_channels(s_, None if colors is None else colors[k],
+                                  eye, W, H, **kw)
+           for k, s_ in enumerate(scenes)]
+    (sk, ek, n2k, n3k), (sp, ep, n2p, n3p) = out
+    assert (n2k, n3k) == (n2p, n3p) and len(ek) == len(ep)
+    _assert_setups(sk, sp, name)
+    tab = rq.pack_table(sp, ep)
+    assert sk.table.shape == tab.shape
+    _assert_words(sk.table[:, :rq._I_CH], tab[:, :rq._I_CH], "int channels",
+                  False)
+    _assert_words(sk.table[:, rq._I_CH:], tab[:, rq._I_CH:],
+                  "float channels", True)
+    assert rq._channel_table(sk, ek) is sk.table
+    setups = [rs.queue_setup(s_, eye, W, H) for s_ in scenes]
+    assert setups[0].table is None
+    _assert_setups(setups[0], setups[1], f"{name} queue_setup")
+    if name == "stress":  # what the mesh was made to reach
+        xs, ys, _, iw, _, _ = pp.transform_corners_planar(scenes[1], eye, W, H)
+        assert bool((iw <= 0).any()) and bool((xs.abs() * 16 > 2**31).any())
+        area = signed_area2(sp)
+        assert bool((~sp.valid).any()) and bool(sp.valid.any())
+        assert int((area == 0).sum()) >= 64 and bool((area < 0).any())
+
+
+def _t_counts():
+    """(kernel T launches, B1 launches, structure.queue spans) so far."""
+    return (rq.queue_setup_cuda.launches,
+            rq.raster_attrs_queue_cuda.launches,
+            trace.span_totals().get("structure.queue", (0, 0))[0])
+
+
+@pytest.mark.cuda
+def test_t_kernel_launches_once_per_queue_render_and_setup():
+    """T launches once per queue render (scene_frame's frame, the
+    Experiment's renders), once per structure.queue_setup (the
+    Experiment's rebuilds, queue_at) and never on a bins frame."""
+    from rustexp_tpu_torch.sims.rasterizer import RasterizerExperiment
+
+    dev = _card()
+    frame = bench.scene_frame(0, True, dev)[0]
+    t0, b0, _ = _t_counts()
+    for _ in range(3):
+        frame()
+    t1, b1, q1 = _t_counts()
+    assert t1 - t0 == b1 - b0 == 3
+    cube = bench.scene_frame(9, True, dev)[0]
+    for _ in range(2):
+        cube()
+    assert _t_counts()[0] == t1
+    exp = RasterizerExperiment(dev)
+    st = exp.init(mesh_idx=0, per_pixel=True)
+    t1, b1, q1 = _t_counts()
+    for i in range(1, 6):
+        exp.render(st, W, H, i / 60)
+    t2, b2, q2 = _t_counts()
+    assert q2 > q1 and t2 - t1 == (b2 - b1) + (q2 - q1)
+    scene = pp.make_scene(mesh.get_mesh(0), cubemap.get_cm_set(0), dev)
+    eye = camera.camera_eye(mesh.mesh_camera(0), 0.0)
+    rs.queue_setup(scene, eye, W, H)
+    assert _t_counts()[0] == t2 + 1
